@@ -23,6 +23,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (system pipelines, subprocess "
         "multi-device runs); deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: runs a hand-written CUDA kernel of repro_torch on "
+        "an NVIDIA GPU; skips where there is none")
     # Internal deprecation shims (repro.core.memory.search /
     # distributed_search) are promoted to ERRORS suite-wide, so migrated
     # callers cannot silently regress onto the legacy API. Modules that

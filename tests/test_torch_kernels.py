@@ -1,0 +1,369 @@
+"""Parity of the port's kernel layer (`repro_torch.kernels`) with the JAX
+package's, on the CPU.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version, so the
+cases below hold the plain versions against the JAX functions: the
+shortlist and the LUT product against their Pallas kernels in interpret
+mode, the string physics against `kernels/ref.py::mcam_search_ref` (the
+Pallas string-search kernel does not run on the installed JAX: it calls
+`pl.load`). The CUDA kernels are held against these plain versions on
+the card by tests/test_torch_cuda.py and chip_smoke.py.
+"""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import avss as j_avss
+from repro.core import encodings as j_enc
+from repro.kernels import mcam_dist as j_mcam_dist
+from repro.kernels import ops as j_ops
+from repro.kernels import ref as j_ref
+from repro.kernels.shortlist import lut_shortlist_pallas
+from repro_torch.core import avss as t_avss
+from repro_torch.core import encodings as t_enc
+from repro_torch.kernels import _build, mcam_dist, mcam_search
+from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
+from repro_torch.kernels import shortlist
+
+torch.set_num_threads(1)
+
+
+def _np(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def pack_words(proj: np.ndarray, bits: int) -> np.ndarray:
+    """The packed layout of `ops.pack_projection`, in numpy: column m of a
+    word holds projection columns {w * dp + m}."""
+    wpi = 32 // bits
+    n, c = proj.shape
+    dp = -(-c // wpi)
+    p = np.zeros((n, dp * wpi), np.int64)
+    p[:, :c] = proj
+    parts = p.reshape(n, wpi, dp)
+    shifts = (np.arange(wpi, dtype=np.int64) * bits)[None, :, None]
+    words = (parts << shifts).sum(1) & 0xFFFFFFFF
+    return words.astype(np.uint32).view(np.int32)
+
+
+# -- fused shortlist -----------------------------------------------------------
+
+# operand form -> (pack_bits or None, stored dtype, largest LUT entry)
+OPERANDS = {"packed4": (4, None, 15), "packed8": (8, None, 255),
+            "packed16": (16, None, 4000), "packed32": (32, None, 60000),
+            "bf16": (None, torch.bfloat16, 255),
+            "f32": (None, torch.float32, 60000)}
+
+# case -> (N, d, k, fraction of rows masked, distinct LUT values)
+CASES = {"k1": (300, 12, 1, 0.0, None),
+         "k7_masked_in_topk": (40, 12, 7, 0.9, None),
+         "ties_k_eq_n": (64, 6, 64, 0.3, 2),
+         "ragged_n": (257, 12, 7, 0.2, None)}
+
+
+def _shortlist_inputs(operand, case, seed=0):
+    bits, dtype, vmax = OPERANDS[operand]
+    n, d, k, masked, distinct = CASES[case]
+    rng = np.random.default_rng(seed)
+    hi = (distinct or vmax + 1)
+    proj = rng.integers(0, hi, size=(n, 4 * d)).astype(np.int64)
+    q = rng.integers(0, 4, size=(5, d)).astype(np.int32)
+    valid = rng.random(n) >= masked if masked else None
+    if valid is not None and case == "k7_masked_in_topk":
+        valid[:] = False
+        valid[[3, 17, 30]] = True        # 3 valid rows < k: masked rows rank
+    return bits, dtype, proj, q, valid, k  # after them inside the top-k
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("operand", list(OPERANDS))
+def test_lut_shortlist_matches_pallas_interpret(operand, case):
+    """Distances and rows equal the Pallas kernel's, in (distance, row)
+    order with ties, masked rows and ragged N (exact: integer distances)."""
+    bits, dtype, proj, q, valid, k = _shortlist_inputs(operand, case)
+    q1h = jax.nn.one_hot(jnp.asarray(q), 4, dtype=jnp.float32).reshape(
+        q.shape[0], -1)
+    jvalid = None if valid is None else jnp.asarray(valid)
+    tvalid = None if valid is None else torch.as_tensor(valid)
+    if bits is not None:
+        words = pack_words(proj, bits)
+        jd, ji = lut_shortlist_pallas(q1h, None, k, valid=jvalid,
+                                      packed=jnp.asarray(words),
+                                      pack_bits=bits)
+        td, ti = shortlist.lut_shortlist(
+            torch.as_tensor(q), None, k, valid=tvalid,
+            packed=torch.as_tensor(words), pack_bits=bits)
+    else:
+        jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+        jd, ji = lut_shortlist_pallas(q1h.astype(jdt),
+                                      jnp.asarray(proj, jdt), k, valid=jvalid)
+        td, ti = shortlist.lut_shortlist(
+            torch.as_tensor(q), torch.as_tensor(proj).to(dtype), k,
+            valid=tvalid)
+    assert td.dtype == torch.float32 and ti.dtype == torch.int64
+    np.testing.assert_array_equal(np.asarray(jd), _np(td))
+    np.testing.assert_array_equal(np.asarray(ji), _np(ti))
+
+
+def test_selection_orders_ties_by_row_not_by_topk():
+    """Trap: torch.topk promises no order among equal values. The port
+    selects on one int64 key (distance << 32 | row): all-equal distances
+    come back in row order."""
+    dist = torch.zeros(2, 50)
+    dist[1, ::2] = 1.0
+    d, rows = shortlist.select_topk(dist, 50)
+    assert rows[0].tolist() == list(range(50))
+    assert rows[1].tolist() == list(range(1, 50, 2)) + list(range(0, 50, 2))
+    assert d[1].tolist() == [0.0] * 25 + [1.0] * 25
+
+
+def test_lut_shortlist_rejects_what_it_does_not_take():
+    q = torch.zeros(2, 3, dtype=torch.int32)
+    proj = torch.zeros(10, 12)
+    with pytest.raises(ValueError):
+        shortlist.lut_shortlist(q, proj, 11)              # k > N
+    with pytest.raises(ValueError):
+        shortlist.lut_shortlist(q, proj, 0)
+    with pytest.raises(ValueError):
+        shortlist.lut_shortlist(q, torch.zeros(10, 8), 2)  # width != 4d
+    with pytest.raises(ValueError):
+        shortlist.lut_shortlist(q, None, 2, packed=torch.zeros(
+            10, 2, dtype=torch.int32), pack_bits=8)        # 12 cols > 2 x 4
+    with pytest.raises(TypeError):
+        shortlist.lut_shortlist(q, None, 2, packed=torch.zeros(10, 3),
+                                pack_bits=32)
+
+
+# -- the LUT product -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_lut_dist_matmul_matches_pallas_interpret(dtype):
+    rng = np.random.default_rng(1)
+    q = rng.integers(0, 4, size=(8, 48))
+    s = rng.integers(0, 97 if dtype == "bf16" else 5000,
+                     size=(300, 192)).astype(np.float32)
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    q1h_j = jax.nn.one_hot(jnp.asarray(q), 4, dtype=jdt).reshape(8, -1)
+    ref = j_mcam_dist.lut_dist_matmul(q1h_j, jnp.asarray(s, jdt))
+    got = mcam_dist.lut_dist_matmul(t_ops.query_onehot(torch.as_tensor(q),
+                                                       tdt),
+                                    torch.as_tensor(s).to(tdt))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(np.asarray(ref), _np(got))
+
+
+def test_lut_dist_matmul_plain_is_the_product_on_ragged_shapes():
+    rng = np.random.default_rng(2)
+    a = torch.as_tensor(rng.integers(0, 3, size=(37, 190)).astype(np.float32))
+    b = torch.as_tensor(rng.integers(0, 90, size=(101, 190))
+                        .astype(np.float32))
+    np.testing.assert_array_equal(_np(mcam_dist.lut_dist_matmul(a, b)),
+                                  _np(a.double() @ b.double().T))
+    with pytest.raises(TypeError):
+        mcam_dist.lut_dist_matmul(a, b.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        mcam_dist.lut_dist_matmul(a, b[:, :10])
+
+
+def test_avss_ideal_dist_matches_reference():
+    je, te = j_enc.make_encoding("mtmc", 8), t_enc.make_encoding("mtmc", 8)
+    rng = np.random.default_rng(3)
+    v = rng.integers(0, je.levels, size=(64, 48)).astype(np.int32)
+    q = rng.integers(0, 4, size=(8, 48)).astype(np.int32)
+    ref = jax.jit(lambda q, v: j_ops.avss_ideal_dist(q, v, je))(
+        jnp.asarray(q), jnp.asarray(v))
+    got = t_ops.avss_ideal_dist(torch.as_tensor(q), torch.as_tensor(v), te)
+    np.testing.assert_array_equal(np.asarray(ref), _np(got))
+    lut = j_enc.avss_sum_lut(je)
+    np.testing.assert_array_equal(
+        np.asarray(j_ref.avss_dist_ref(jnp.asarray(q), jnp.asarray(v),
+                                       jnp.asarray(lut))),
+        _np(t_ref.avss_dist_ref(torch.as_tensor(q), torch.as_tensor(v),
+                                torch.as_tensor(lut))))
+
+
+# -- projection, packing, one-hot ----------------------------------------------
+
+# encodings whose bf16 projection packs into 4 / 8 / 16 / 32-bit fields
+PACKINGS = [("mtmc", 4, 4), ("mtmc", 32, 8), ("b4e", 5, 16), ("b4e", 8, 32)]
+
+
+@pytest.mark.parametrize("name,cl,bits", PACKINGS)
+def test_projection_and_pack_match_reference(name, cl, bits):
+    """Trap: with 4-bit fields the top field reaches bit 31 and the int32
+    word goes negative; torch.sum over int32 would promote to int64. The
+    port packs in int64 and wraps explicitly; words must be equal."""
+    je, te = j_enc.make_encoding(name, cl), t_enc.make_encoding(name, cl)
+    rng = np.random.default_rng(bits)
+    d = 6 if bits == 32 else 11
+    v = rng.integers(0, je.levels, size=(40, d)).astype(np.int32)
+    if bits == 4:
+        v[0] = 0                       # LUT[3, 0] = 12 lands in bit 31
+    jp = j_ops.support_projection(jnp.asarray(v), je)
+    tp = t_ops.support_projection(torch.as_tensor(v), te)
+    assert tp.dtype == torch.bfloat16
+    np.testing.assert_array_equal(np.asarray(jp, np.float32),
+                                  _np(tp.float()))
+    for dt in (torch.bfloat16, torch.float32):
+        jdt = jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
+        assert t_ops.projection_pack_bits(te, dt) == \
+            j_ops.projection_pack_bits(je, jdt)
+    assert t_ops.projection_pack_bits(te) == bits
+    jw = np.asarray(j_ops.pack_projection(jp, je))
+    tw = _np(t_ops.pack_projection(tp, te))
+    assert tw.dtype == np.int32
+    np.testing.assert_array_equal(jw, tw)
+    if bits == 4:
+        assert (tw < 0).any()
+    back = shortlist.unpack_projection(torch.as_tensor(tw), bits, 4 * d)
+    np.testing.assert_array_equal(_np(back), _np(tp.float()))
+
+
+def test_query_onehot_and_string_helpers_match():
+    rng = np.random.default_rng(4)
+    q = rng.integers(0, 4, size=(5, 7)).astype(np.int32)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        np.testing.assert_array_equal(
+            np.asarray(j_ops.query_onehot(jnp.asarray(q), jdt), np.float32),
+            _np(t_ops.query_onehot(torch.as_tensor(q), tdt).float()))
+    g = rng.integers(0, 4, size=(3, 2, 1, 24)).astype(np.int8)
+    np.testing.assert_array_equal(
+        np.asarray(j_ops.flatten_strings(
+            j_ops.broadcast_query(jnp.asarray(g), 5))),
+        _np(t_ops.flatten_strings(t_ops.broadcast_query(
+            torch.as_tensor(g), 5))))
+
+
+# -- string physics ------------------------------------------------------------
+
+
+def _physics_inputs(seed, n=40, b=3, cl=8, d=48):
+    je, te = j_enc.make_encoding("mtmc", cl), t_enc.make_encoding("mtmc", cl)
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, je.levels, size=(n, d)).astype(np.int32)
+    q = rng.integers(0, 4, size=(b, d)).astype(np.int32)
+    sg = _np(t_avss.layout_support(torch.as_tensor(v), te)).astype(np.int8)
+    qg = _np(t_avss.layout_query(torch.as_tensor(q), te, "avss")
+             ).astype(np.int8)
+    return je, te, qg, sg
+
+
+@pytest.mark.parametrize("noisy", [False, True])
+def test_mcam_search_matches_ref_oracle(noisy):
+    """The dense string search against `kernels/ref.py::mcam_search_ref`.
+    dist is exact (integer mismatch sums). Votes: exp() and the cell sum
+    order differ from XLA's by ulps, so a current within ulps of a
+    threshold may flip one string's vote; >= 99% of (query, row) pairs
+    agree (measured: all). Trap: the physics uses exp(m * f32(log rho)),
+    as the Pallas kernel does, never rho ** m."""
+    je, te, qg, sg = _physics_inputs(10)
+    jcfg = j_avss.SearchConfig("mtmc", cl=8, noisy=noisy)
+    tcfg = t_avss.SearchConfig("mtmc", cl=8, noisy=noisy)
+    th = jcfg.mcam.thresholds()
+    L = sg.shape[2]
+    qs = np.array(j_ops.flatten_strings(
+        j_ops.broadcast_query(jnp.asarray(qg), L)))
+    ss = sg.reshape(sg.shape[0], -1, sg.shape[-1])
+    w = np.tile(np.asarray(je.weights, np.float32), sg.shape[1])
+    jv, jd = jax.jit(lambda *a: j_ref.mcam_search_ref(
+        *a, jcfg.mcam, noisy=noisy))(jnp.asarray(qs), jnp.asarray(ss),
+                                     jnp.asarray(w), jnp.asarray(th))
+    tv, td = t_ops.mcam_search(torch.as_tensor(qg), torch.as_tensor(sg),
+                               te.weights_array(), tcfg,
+                               torch.as_tensor(th))
+    np.testing.assert_array_equal(np.asarray(jd), _np(td))
+    assert (np.asarray(jv) == _np(tv)).mean() >= 0.99
+    # the port's own oracle is the same function
+    rv, rd = t_ref.mcam_search_ref(torch.as_tensor(qs), torch.as_tensor(ss),
+                                   torch.as_tensor(w), torch.as_tensor(th),
+                                   tcfg.mcam, noisy=noisy)
+    np.testing.assert_array_equal(_np(rd), _np(td))
+    assert (_np(rv) == _np(tv)).mean() >= 0.99
+
+
+def test_rescore_shortlist_with_noise_coordinates_matches_reference():
+    """Gathered candidates with global noise rows (shard offsets) and
+    per-query coordinates (one >= 2**31): votes agree with the JAX rescore
+    on >= 99% of candidates, and equal the port's own dense search at the
+    same (query, global row) exactly -- the two_phase == full contract."""
+    je, te, qg, sg = _physics_inputs(11, n=50, b=4)
+    jcfg = j_avss.SearchConfig("mtmc", cl=8)
+    tcfg = t_avss.SearchConfig("mtmc", cl=8)
+    th = jcfg.mcam.thresholds()
+    rng = np.random.default_rng(12)
+    idx = np.stack([rng.choice(50, 9, replace=False) for _ in range(4)])
+    nidx = idx + 100
+    nq = np.array([5, 2**31 + 3, 0, 77], np.uint32)
+    jv = jax.jit(lambda q, s, i, w, t, ni, nq: j_ops.rescore_shortlist(
+        q, s, i, w, jcfg, t, noise_idx=ni, noise_qidx=nq))(
+            jnp.asarray(qg), jnp.asarray(sg), jnp.asarray(idx),
+            je.weights_array(), jnp.asarray(th), jnp.asarray(nidx),
+            jnp.asarray(nq))
+    tv = t_ops.rescore_shortlist(
+        torch.as_tensor(qg), torch.as_tensor(sg), torch.as_tensor(idx),
+        te.weights_array(), tcfg, torch.as_tensor(th),
+        noise_idx=torch.as_tensor(nidx),
+        noise_qidx=torch.as_tensor(nq.astype(np.int64)))
+    assert tv.shape == (4, 9)
+    assert (np.asarray(jv) == _np(tv)).mean() >= 0.99
+    # the same rows through the dense entry (noise row = global row)
+    big = np.zeros((150,) + sg.shape[1:], np.int8)
+    big[100:] = sg
+    dv, _ = t_ops.mcam_search(torch.as_tensor(qg), torch.as_tensor(big),
+                              te.weights_array(), tcfg, torch.as_tensor(th),
+                              qidx=torch.as_tensor(nq.astype(np.int64)))
+    np.testing.assert_array_equal(np.take_along_axis(_np(dv), nidx, 1),
+                                  _np(tv))
+
+
+# -- dispatch ------------------------------------------------------------------
+
+
+def test_kernel_wrappers_refuse_a_device_they_do_not_run_on():
+    """A tensor that is neither on the CPU nor on a CUDA device raises; no
+    wrapper quietly runs the plain version instead."""
+    meta = torch.empty(4, 3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        shortlist.lut_shortlist(meta, torch.empty(6, 12, device="meta"), 2)
+    with pytest.raises(ValueError, match="device"):
+        mcam_dist.lut_dist_matmul(torch.empty(4, 8, device="meta"),
+                                  torch.empty(5, 8, device="meta"))
+    g = torch.empty(2, 4, 24, dtype=torch.int8, device="meta")
+    w, th = torch.ones(4), torch.ones(8)
+    cfg = t_avss.SearchConfig().mcam
+    with pytest.raises(ValueError, match="device"):
+        mcam_search.mcam_search(g, g, w, th, cfg)
+    with pytest.raises(ValueError, match="device"):
+        mcam_search.mcam_rescore(g, g, torch.zeros(2, 1, dtype=torch.int64),
+                                 w, th, cfg)
+
+
+def test_cuda_request_without_a_card_raises(monkeypatch):
+    """Without a card the default-device store and a failed kernel build
+    raise; nothing gives way to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import MemoryStore
+    cfg = MemoryConfig(capacity=4, dim=8)
+    for call in (lambda: MemoryStore.create(cfg),
+                 lambda: MemoryStore.create(cfg, device="cuda"),
+                 lambda: MemoryStore.from_quantized(
+                     np.zeros((2, 8), np.int32), np.zeros(2, np.int32),
+                     cfg.search)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setattr(_build, "BUILD_DIR",
+                        _build.BUILD_DIR.parent / "build-never-created")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(("mcam_dist",))
+    assert not _build.BUILD_DIR.exists()
