@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--capacity 65536] [--seed 0]
 
 Builds the three CUDA kernels of `src/repro_torch/csrc/` (one nvcc per
-source, all started together), then drives the port's main path through
+source, in sequence; ptxas's registers / shared memory / spills and the
+count of wgmma (HGMMA) instructions in the LUT product's SASS are
+printed), then drives the port's main path through
 the entry points a user calls, at the paper's Omniglot geometry (d = 48,
 MTMC CL = 32, 24-cell strings: 64 strings per support) and a many-class
 store of 65,536 supports (4,096 classes x 16 shots):
@@ -20,14 +22,20 @@ Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
 run. Then every kernel is held against its plain PyTorch version on the
 same inputs on the card (shortlist and LUT product bit for bit; the
-physics kernel's dist exactly and its votes at a stated agreement), the
-two_phase votes of every shortlisted row are held against the full
+physics kernel's dist exactly and its votes at a stated agreement; the
+shortlist also on three adversarial stores of the same size: rows in
+descending distance, where every row beats the running k-th key, all
+rows tied, and all rows masked), the two_phase votes of every
+shortlisted row are held against the full
 search's votes of that row, and a small store searched on the CPU (plain
 versions) is held against the same store on the card.
 
 Times are medians of CUDA-event (kernels) or synchronised host-clock
-(paths) runs after a warm-up. The last lines of standard output are the
-card's `name, power.limit`, one JSON object with a row per kernel, and
+(paths) runs after a warm-up; each kernel row adds `device_ms`, the
+kernels' own device time from torch.profiler, which leaves out the
+wrapper's host time between launches. The last lines of standard output
+are the card's `name, power.limit`, one JSON object with a row per
+kernel, and
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device or the package is missing, and when any phase
 fails.
@@ -76,6 +84,17 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_count(lib: Path, opcode: str) -> int | None:
+    """Instructions of `opcode` in a built library's SASS (cuobjdump), or
+    None where the toolkit has no cuobjdump."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    return sum(opcode in line for line in out.splitlines())
 
 
 def main() -> int:
@@ -149,13 +168,32 @@ def run(args, torch) -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def device_ms(fn, part, reps=REPS):
+        """Device time per call of the kernels whose name holds `part`
+        (torch.profiler's CUDA activity), or None where it saw none. Unlike
+        event_ms it leaves out the host's time between launches."""
+        fn()
+        sync()
+        prof = torch.profiler
+        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            sync()
+        us = sum(getattr(e, "device_time_total", 0)
+                 for e in p.key_averages() if part in e.key)
+        return us / reps / 1e3 if us else None
+
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build()
-    for name, text in logs.items():
-        print(f"--- nvcc {name}.cu ---\n{text}", file=sys.stderr)
     log(f"[build] {len(logs)} kernel libraries built in "
         f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        print(f"--- nvcc {name}.cu ---\n{text}", file=sys.stderr)
+        for line in _build.ptxas_report(text):
+            log(f"[ptxas {name}] {line}")
+    hgmma = sass_count(_build.library_path("mcam_dist"), "HGMMA")
+    log(f"[sass] mcam_dist: {hgmma} HGMMA instructions")
 
     # -- data ----------------------------------------------------------------
     shots, d, cl = 16, 48, 32
@@ -166,7 +204,7 @@ def run(args, torch) -> int:
     labels_np = np.repeat(np.arange(classes, dtype=np.int32), shots)
     support_np = centres[labels_np] + 0.3 * rng.standard_normal(
         (n, d), dtype=np.float32)
-    qcls = rng.choice(classes, size=256, replace=False)
+    qcls = rng.choice(classes, size=256, replace=classes < 256)
     queries_np = centres[qcls] + 0.3 * rng.standard_normal(
         (256, d), dtype=np.float32)
     support = torch.from_numpy(support_np).to(dev)
@@ -262,13 +300,11 @@ def run(args, torch) -> int:
             ops_rate, library_ms, **extra):
         t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         t_ops = ops_ / ops_rate * 1e3
-        # `ms` is the kernel's time under the key readers of this line
-        # parse; `kernel_ms` repeats it under PERF.md's column name
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+            "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -319,10 +355,54 @@ def run(args, torch) -> int:
     def sl_library():
         dist = torch.matmul(q1h_f, proj_f.T) + pen
         return torch.sort(dist, dim=1, stable=True)[0][:, :64]
+
+    # adversarial stores at the same N and queries, bit for bit: every
+    # LUT column of a row holds one value per dimension, so a row's
+    # distance is the same for every query. Descending distance makes
+    # every row beat the running k-th key (the selection's worst case,
+    # timed); all rows tied or all masked admit no row after the first k.
+    def uniform_store(per_row):
+        per_dim = (per_row // d)[:, None].repeat(1, 4 * d)
+        per_dim[:, :4] += (per_row % d)[:, None]
+        dp = 2 * d                               # 16-bit fields, 2 a word
+        words = per_dim[:, :dp] | (per_dim[:, dp:] << 16)
+        return torch.where(words >= 2**31, words - 2**32, words).to(
+            torch.int32)
+    rows_desc = torch.arange(n - 1, -1, -1, device=dev) * 3
+    adversarial = {
+        "descending": (uniform_store(rows_desc), 16, valid),
+        "ties": (uniform_store(torch.full_like(rows_desc, 5 * d)), 16,
+                 valid),
+        "masked": (packed, 8, torch.zeros_like(valid))}
+    adv_ms = {}
+    for name, (words, bits, vmask) in adversarial.items():
+        for kk in (1, 64, 1024):
+            a = shortlist.lut_shortlist(qw, None, kk, valid=vmask,
+                                        packed=words, pack_bits=bits)
+            sync()
+            b = shortlist.lut_shortlist_plain(qw, None, kk, valid=vmask,
+                                              packed=words, pack_bits=bits)
+            sync()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail(f"shortlist kernel != plain on the {name} store "
+                     f"(k={kk})")
+        adv_ms[name] = event_ms(lambda: shortlist.lut_shortlist(
+            qw, None, 64, valid=vmask, packed=words, pack_bits=bits))
+        adv_ms[f"{name}_device"] = device_ms(lambda: shortlist.lut_shortlist(
+            qw, None, 64, valid=vmask, packed=words, pack_bits=bits),
+            "shortlist_")
+    log(f"[shortlist] adversarial stores equal the plain version for k = "
+        f"1, 64, 1024; k=64 kernel ms: "
+        f"{ {k_: v and round(v, 4) for k_, v in adv_ms.items()} } (descending "
+        f"and ties on 16-bit fields, 96 words a row)")
     row("shortlist", "shortlist.cu", "src/repro/kernels/shortlist.py:210",
         err, event_ms(sl_kernel), event_ms(sl_plain),
         packed.numel() * 4 + qw.numel() * 4 + n + 256 * 64 * 12,
         256 * n * d, F32_OPS_PER_S, event_ms(sl_library),
+        device_ms=device_ms(sl_kernel, "shortlist_"),
+        descending_ms=adv_ms["descending"],
+        descending_device_ms=adv_ms["descending_device"],
+        ties_ms=adv_ms["ties"], masked_ms=adv_ms["masked"],
         shape=f"B=256 N={n} d={d} packed 8-bit k=64")
 
     # -- LUT product kernel vs plain -----------------------------------------
@@ -348,6 +428,8 @@ def run(args, torch) -> int:
         (q1h.numel() + proj.numel()) * 2 + 256 * n * 4,
         2 * 256 * n * 4 * d, BF16_TENSOR_OPS_PER_S,
         event_ms(lambda: torch.matmul(q1h_f, proj_f.T)),
+        device_ms=device_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj),
+                            "lut_dist_"),
         shape=f"(256 x {4 * d}) x ({n} x {4 * d})^T bf16 -> f32")
 
     # -- physics kernels vs plain --------------------------------------------
@@ -383,7 +465,8 @@ def run(args, torch) -> int:
         "src/repro/kernels/mcam_search.py:37", err, event_ms(ms_kernel),
         event_ms(ms_plain, reps=3), ss.numel() + qs.numel() + 16 * n * 8
         + w.numel() * 4, cells * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
-        vote_agreement=agree, shape=f"B=16 N={n} S={S} sl={sl} noisy")
+        vote_agreement=agree, device_ms=device_ms(ms_kernel, "search_dense"),
+        shape=f"B=16 N={n} S={S} sl={sl} noisy")
 
     qs256 = ops.flatten_strings(ops.broadcast_query(avss_lib.layout_query(
         qw, cs.enc, "avss"), cs.enc.length)).to(torch.int8).contiguous()
@@ -414,6 +497,7 @@ def run(args, torch) -> int:
         + rows.numel() * 16 + rk.numel() * 4 + w.numel() * 4,
         256 * 64 * S * sl * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
         vote_agreement=agree_r, also_replaces="src/repro/kernels/ops.py:186",
+        device_ms=device_ms(rs_kernel, "search_gathered"),
         shape=f"B=256 k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
 
     # -- the card against the CPU (plain versions) on a small store ----------

@@ -59,36 +59,43 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
-    """Compile the given sources, one nvcc process each, all started
-    together. Returns nvcc's output (register / shared-memory report) per
+    """Compile the given sources, one nvcc run each, in sequence. Returns
+    nvcc's output (the ptxas register / shared-memory / spill report) per
     source that was built now; sources already built are skipped. Each
     library is written under a temporary name and renamed when nvcc
     succeeds, so a failed build leaves nothing that looks cached."""
-    todo = [n for n in names if not _target(n).exists()]
+    todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    logs = {}
     for n in todo:
-        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-        jobs[n] = tmp, subprocess.Popen(
+        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = {n: proc.communicate()[0] for n, (_, proc) in jobs.items()}
-    for n, (tmp, proc) in jobs.items():
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{n}.cu "
-                               f"(exit {proc.returncode}):\n{logs[n]}")
-        os.replace(tmp, _target(n))
+                               f"(exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, library_path(n))
+        logs[n] = proc.stdout
     return logs
+
+
+def ptxas_report(log: str) -> list[str]:
+    """The lines of an nvcc log that give each kernel's registers, shared
+    memory and spills (ptxas -v)."""
+    return [line.strip() for line in log.splitlines()
+            if "Compiling entry" in line or "registers" in line
+            or "spill" in line]
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -99,7 +106,7 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         for entry, argtypes in signatures.items():

@@ -4,8 +4,10 @@
 
 With one-hot queries and the write-time LUT projection as `s`, this is the
 exact ideal AVSS distance of every (query, support) pair. The CUDA kernel
-is `csrc/mcam_dist.cu`; `lut_dist_matmul_plain` is its plain version.
-Both are exact for integer-valued operands (f32 sums below 2**24).
+is `csrc/mcam_dist.cu` (bf16: wgmma on the tensor cores, fed by TMA or,
+for a depth TMA cannot describe, by plain loads; f32: SIMT FMA);
+`lut_dist_matmul_plain` is its plain version. Both are exact for
+integer-valued operands (f32 sums below 2**24).
 """
 
 from __future__ import annotations
@@ -19,7 +21,23 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"mcam_dist_launch": [_P, _P, _P, _I, _I, _I, _I, _P]}
 
-_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+_DTYPES = (torch.bfloat16, torch.float32)
+
+# csrc/mcam_dist.cu routes: bf16 wgmma fed by TMA, bf16 wgmma fed by plain
+# loads, f32 SIMT FMA
+ROUTE_TMA, ROUTE_RAGGED, ROUTE_SIMT_F32 = 0, 1, 2
+
+
+def dist_route(dtype: torch.dtype, k: int, *addresses: int) -> int:
+    """The kernel route for operands of `dtype` with depth `k` at the given
+    device addresses: TMA needs a 16-byte row stride (k % 8 == 0 in bf16)
+    and 16-byte aligned bases; f32 never takes the tensor cores (TF32
+    would round LUT entries above 2**11)."""
+    if dtype == torch.float32:
+        return ROUTE_SIMT_F32
+    if k > 0 and k % 8 == 0 and all(a % 16 == 0 for a in addresses):
+        return ROUTE_TMA
+    return ROUTE_RAGGED
 
 
 def lut_dist_matmul_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -55,12 +73,13 @@ def lut_dist_matmul(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, N, dtype=torch.float32, device=q.device)
     if B == 0 or N == 0:
         return out
-    if (B + 63) // 64 > 65535:
+    if q.dtype == torch.float32 and (B + 63) // 64 > 65535:
         raise ValueError(f"lut_dist_matmul: B={B} exceeds the grid")
+    route = dist_route(q.dtype, K, q.data_ptr(), s.data_ptr())
     lib = _build.load("mcam_dist", _SIGNATURES)
     err = lib.mcam_dist_launch(
         _build.ptr(q), _build.ptr(s), _build.ptr(out), ctypes.c_int(B),
-        ctypes.c_int(N), ctypes.c_int(K), ctypes.c_int(_DTYPES[q.dtype]),
+        ctypes.c_int(N), ctypes.c_int(K), ctypes.c_int(route),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "mcam_dist_launch")
     _build.count_launch("mcam_dist")

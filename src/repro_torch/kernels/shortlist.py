@@ -11,15 +11,20 @@ one LUT column per dimension. The support operand is either the write-time
 projection (N, 4d) bf16 / f32, or its bit-packed form (N, ceil(4d/wpi))
 int32 from `ops.pack_projection`, whose fields are `pack_bits` wide.
 
-The CUDA kernel is `csrc/shortlist.cu`; `lut_shortlist_plain` is its plain
-version. Both select on one int64 key per candidate, uint64(dist) << 32 |
-row, which is exact because dist + penalty < 2**24, so the result never
-depends on how a sort orders equal values.
+The CUDA kernel is `csrc/shortlist.cu` (a warp takes 4 queries over a
+slice of staged rows, sums each row's fields as packed dot products with
+the query's one-hot mask, and keeps a running top-k per query that sorts
+only the rows below its k-th key; merge rounds fold the slices), cut by
+`shortlist_plan`; `lut_shortlist_plain` is its plain version. Both select
+on one int64 key per candidate, uint64(dist) << 32 | row, which is exact
+because dist + penalty < 2**24, so the result never depends on how a sort
+orders equal values.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -27,8 +32,8 @@ from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"shortlist_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                                     _P, _P, _P, _P],
-               "shortlist_chunk_rows": []}
+                                     _I, _I, _I, _I, _P, _P, _P, _P],
+               "shortlist_merge_keys": []}
 
 # Added to the phase-1 distance of masked-out rows (never-written slots).
 # A power of two, exact in bf16 / f32, above any real LUT distance, and
@@ -36,9 +41,79 @@ _SIGNATURES = {"shortlist_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
 SHORTLIST_MASK_PENALTY = 2.0 ** 22
 
 _KIND_PACKED, _KIND_BF16, _KIND_F32 = 0, 1, 2
-_CHUNK = 2048           # rows per pass-1 block (csrc/shortlist.cu CHUNK)
-MAX_K = _CHUNK // 2     # largest k the kernel takes
-_MAX_D = 4096
+_MERGE_KEYS = 2048      # keys per merge block (csrc/shortlist.cu MERGE_KEYS)
+MAX_K = _MERGE_KEYS // 2  # largest k the kernel takes
+_ROWS = 64              # rows per staged tile: 2 per lane
+_QW = 4                 # queries per warp
+_SMEM_MAX = 232448      # dynamic shared memory one H100 block may use
+_SM_SMEM = 233472       # shared memory of one H100 SM
+_SMS = 132              # SMs of an H100
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _stage_stride(window: int) -> int:
+    """Words per staged row (csrc/shortlist.cu stage_stride): a multiple of
+    4 with an odd quarter, so 16-byte loads of 32 rows hit every bank
+    group."""
+    return 4 * (_cdiv(window, 4) | 1)
+
+
+def _select_smem(warps: int, keys: int, window: int) -> int:
+    """Dynamic shared memory of one select block (csrc/shortlist.cu
+    select_smem): per query its keys and mask words, and two staged
+    tiles."""
+    return (warps * _QW * (keys * 8 + 4 * _cdiv(window, 4) * 4)
+            + 2 * _ROWS * _stage_stride(window) * 4)
+
+
+@dataclass(frozen=True)
+class ShortlistPlan:
+    """How csrc/shortlist.cu cuts one call: `warps` per select block (4
+    queries each), `slice_rows` rows per block in `slices` slices, rows
+    staged `window` words at a time, `keys` = top-k + candidate slots per
+    query, `smem` bytes of dynamic shared memory per select block."""
+    warps: int
+    slice_rows: int
+    slices: int
+    window: int
+    keys: int
+    smem: int
+
+    def scratch(self, b: int, k: int) -> tuple[int, int]:
+        """Keys of the two merge scratch buffers (ping and pong)."""
+        return (b * self.slices * k,
+                b * max(1, _cdiv(self.slices, _MERGE_KEYS // k)) * k)
+
+
+def shortlist_plan(b: int, n: int, row_words: int, k: int) -> ShortlistPlan:
+    """The select pass's cut for B queries over N rows of `row_words`
+    32-bit words. Up to 4 warps of 4 queries a block while the block's
+    shared memory (top-k and candidates, mask words, two staged tiles)
+    fits; whole rows staged when they fit, else windows of words (a
+    multiple of 4). Slices so that the blocks fill the SMs once at the
+    occupancy that shared memory allows, each slice at least k rows (and
+    one 64-row tile)."""
+    keys = max(128, 2 * (1 << (k - 1).bit_length()))
+    for warps in range(min(4, _cdiv(b, _QW)), 0, -1):
+        window = row_words
+        while window > 4 and _select_smem(warps, keys, window) > _SMEM_MAX:
+            window = 4 * (window // 8)
+        if _select_smem(warps, keys, window) <= _SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"lut_shortlist: k={k} leaves no shared memory to "
+                         f"stage rows")
+    smem = _select_smem(warps, keys, window)
+    per_sm = min(2048 // (32 * warps), _SM_SMEM // (smem + 1024))
+    q_tiles = _cdiv(b, _QW * warps)
+    slices = max(1, min(_cdiv(n, max(_ROWS, k)), per_sm * _SMS // q_tiles))
+    slice_rows = _ROWS * _cdiv(_cdiv(n, slices), _ROWS)
+    return ShortlistPlan(warps=warps, slice_rows=slice_rows,
+                         slices=_cdiv(n, slice_rows), window=window,
+                         keys=keys, smem=smem)
 
 
 def unpack_projection(packed: torch.Tensor, pack_bits: int,
@@ -160,9 +235,9 @@ def lut_shortlist(q_words: torch.Tensor, s_proj: torch.Tensor | None,
     if k > MAX_K:
         raise ValueError(f"lut_shortlist: k={k} exceeds the kernel's "
                          f"{MAX_K}")
-    if B > 65535 or d > _MAX_D:
-        raise ValueError(f"lut_shortlist: B={B}, d={d} exceed the kernel's "
-                         f"65535 queries / {_MAX_D} dimensions")
+    if B > 65535:
+        raise ValueError(f"lut_shortlist: B={B} exceeds the kernel's 65535 "
+                         f"queries")
     q = q_words.to(torch.int32).contiguous()
     if packed is not None:
         kind, bits, words = _KIND_PACKED, pack_bits, packed
@@ -181,23 +256,23 @@ def lut_shortlist(q_words: torch.Tensor, s_proj: torch.Tensor | None,
         valid_u8 = valid.to(torch.uint8).contiguous()
         tensors.append(valid_u8)
     _build.require_cuda("lut_shortlist", *tensors)
-    chunks = -(-n // _CHUNK)
-    group = _CHUNK // k
-    scratch_a = torch.empty(B * chunks * k, dtype=torch.int64,
-                            device=q.device)
-    scratch_b = torch.empty(B * max(1, -(-chunks // group)) * k,
-                            dtype=torch.int64, device=q.device)
+    plan = shortlist_plan(B, n, words.shape[1], k)
+    size_a, size_b = plan.scratch(B, k)
+    scratch_a = torch.empty(size_a, dtype=torch.int64, device=q.device)
+    scratch_b = torch.empty(size_b, dtype=torch.int64, device=q.device)
     keys = torch.empty(B, k, dtype=torch.int64, device=q.device)
     lib = _build.load("shortlist", _SIGNATURES)
-    if lib.shortlist_chunk_rows() != _CHUNK:
-        raise RuntimeError(f"csrc/shortlist.cu has {lib.shortlist_chunk_rows()}"
-                           f"-row chunks; the wrapper sizes its scratch for "
-                           f"{_CHUNK}")
+    if lib.shortlist_merge_keys() != _MERGE_KEYS:
+        raise RuntimeError(f"csrc/shortlist.cu merges "
+                           f"{lib.shortlist_merge_keys()} keys a block; the "
+                           f"wrapper sizes its scratch for {_MERGE_KEYS}")
     err = lib.shortlist_launch(
         _build.ptr(q), _build.ptr(words), ctypes.c_int(kind),
         ctypes.c_int(bits), ctypes.c_int(words.shape[1]),
         _build.ptr(valid_u8) if valid is not None else ctypes.c_void_p(0),
         ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(d), ctypes.c_int(k),
+        ctypes.c_int(plan.warps), ctypes.c_int(plan.slice_rows),
+        ctypes.c_int(plan.window), ctypes.c_int(plan.keys),
         _build.ptr(scratch_a), _build.ptr(scratch_b), _build.ptr(keys),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "shortlist_launch")

@@ -91,14 +91,69 @@ def test_shortlist_kernel_refuses_k_above_its_limit(dev):
         shortlist.lut_shortlist(q, proj, shortlist.MAX_K + 1)
 
 
-@pytest.mark.parametrize("b,n,k,dtype", [(37, 1001, 190, torch.bfloat16),
-                                         (64, 512, 192, torch.float32),
-                                         (256, 4096, 192, torch.bfloat16)])
-def test_lut_dist_kernel_matches_plain(dev, b, n, k, dtype):
-    rng = np.random.default_rng(b)
+# order -> distance of row n of an (n_rows,) store, the same for every query
+ORDERS = {"descending": lambda n: np.arange(n)[::-1] * 3,   # all candidates
+          "ties": lambda n: np.full(n, 5),                  # no candidate
+          "masked": lambda n: np.arange(n) % 7}             # all rows masked
+
+
+@pytest.mark.parametrize("order,b,n,k", [
+    ("descending", 1, 5017, 1), ("descending", 300, 5017, 1024),
+    ("descending", 16, 65537, 64), ("ties", 300, 5017, 64),
+    ("ties", 1, 4099, 1024), ("masked", 1, 5017, 1024),
+    ("masked", 300, 4099, 7)])
+def test_shortlist_kernel_on_adversarial_orders(dev, order, b, n, k):
+    """Every row of a fixed per-row distance, for every query: the running
+    threshold admits every row (descending), no row after the first k
+    (ties), or every row with the mask penalty (masked). N is no multiple
+    of the staged tile or of a slice."""
+    per_row = ORDERS[order](n)
+    d = 8
+    proj = np.zeros((n, 4 * d), np.int64)
+    proj[:, 0::4] = per_row[:, None] // d    # query word 0 in every dim:
+    proj[:, 0] += per_row % d                # the row sums to per_row
+    proj[:, 1::4] = 9
+    q = torch.zeros(b, d, dtype=torch.int32, device=dev)
+    valid = torch.full((n,), order != "masked", device=dev)
+    packed = torch.as_tensor(pack_words(proj, 16)).to(dev)
+    got = shortlist.lut_shortlist(q, None, k, valid=valid, packed=packed,
+                                  pack_bits=16)
+    want = shortlist.lut_shortlist_plain(q, None, k, valid=valid,
+                                         packed=packed, pack_bits=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b,n,k,dtype,vmax", [
+    (37, 1001, 190, torch.bfloat16, 96),     # ragged route: K % 8 != 0
+    (16, 1001, 188, torch.bfloat16, 255),    # ragged route, B < 64
+    (300, 4099, 400, torch.bfloat16, 96),    # ragged route, 7 K blocks
+    (256, 4096, 192, torch.bfloat16, 96),    # TMA route, the main shapes
+    (300, 4099, 384, torch.bfloat16, 96),    # TMA route, ring refilled
+    (5, 130, 8, torch.bfloat16, 255),        # TMA route, one short K block
+    (64, 512, 192, torch.float32, 96),
+    (37, 1001, 190, torch.float32, 60000)])  # f32 entries above 2**11
+def test_lut_dist_kernel_matches_plain(dev, b, n, k, dtype, vmax):
+    rng = np.random.default_rng(b + k)
     a = torch.as_tensor(rng.integers(0, 2, size=(b, k))).to(dtype)
-    s = torch.as_tensor(rng.integers(0, 97, size=(n, k))).to(dtype)
+    s = torch.as_tensor(rng.integers(0, vmax + 1, size=(n, k))).to(dtype)
     got = mcam_dist.lut_dist_matmul(a.to(dev), s.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mcam_dist.lut_dist_matmul(a, s))
+
+
+def test_lut_dist_kernel_takes_an_unaligned_view(dev):
+    """A row-offset view whose base is not 16-byte aligned goes the plain-
+    load route and gives the same product."""
+    rng = np.random.default_rng(3)
+    a = torch.as_tensor(rng.integers(0, 2, size=(9, 64))).to(torch.bfloat16)
+    s = torch.as_tensor(rng.integers(0, 97, size=(301, 64))).to(
+        torch.bfloat16)
+    flat = s.to(dev).reshape(-1)
+    view = torch.cat([flat[:3], flat]).narrow(0, 3, flat.numel()).view(
+        301, 64)
+    assert view.data_ptr() % 16 != 0
+    got = mcam_dist.lut_dist_matmul(a.to(dev), view)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), mcam_dist.lut_dist_matmul(a, s))
 

@@ -138,6 +138,53 @@ def test_lut_shortlist_rejects_what_it_does_not_take():
                                 pack_bits=32)
 
 
+@pytest.mark.parametrize("b,n,row_words,k", [
+    (256, 65536, 48, 64), (16, 65536, 48, 64), (1, 5017, 16, 1024),
+    (300, 257, 12, 7), (256, 65536, 192, 1024), (4, 10000, 16384, 1024)],
+    ids=["main_path", "b16", "b1_kmax", "b300_ragged", "f32_kmax",
+         "windowed"])
+def test_shortlist_plan_fits_a_block_and_covers_every_row(b, n, row_words,
+                                                          k):
+    """The select pass's cut (host side of csrc/shortlist.cu): shared
+    memory within one block's 227 KB, slices of whole 64-row tiles that
+    cover N exactly once, at least k rows a slice, P >= k + 32 keys a
+    query, a window no wider than a row (a multiple of 4 words when it is
+    narrower), and merge scratch for every slice's list."""
+    plan = shortlist.shortlist_plan(b, n, row_words, k)
+    stride = 4 * (-(-plan.window // 4) | 1)
+    assert stride % 8 == 4 and stride >= plan.window
+    assert plan.smem == (plan.warps * 4 * (plan.keys * 8
+                                           + 4 * -(-plan.window // 4) * 4)
+                         + 2 * 64 * stride * 4) <= 232448
+    assert 1 <= plan.warps <= min(4, -(-b // 4))
+    assert plan.slice_rows % 64 == 0
+    assert (plan.slices - 1) * plan.slice_rows < n <= \
+        plan.slices * plan.slice_rows
+    assert plan.slices == 1 or plan.slice_rows >= k
+    assert plan.keys >= k + 32 and plan.keys & (plan.keys - 1) == 0
+    assert plan.window == row_words or (plan.window % 4 == 0
+                                        and plan.window < row_words)
+    full_rows = (plan.warps * 4 * (plan.keys * 8 + 4 * -(-row_words // 4) * 4)
+                 + 2 * 64 * 4 * (-(-row_words // 4) | 1) * 4)
+    assert (plan.window == row_words) == (full_rows <= 232448)
+    group = 2048 // k
+    a, bb = plan.scratch(b, k)
+    assert a == b * plan.slices * k
+    assert bb == b * max(1, -(-plan.slices // group)) * k
+    if (b, n, k) == (256, 65536, 64):
+        # the main path: one wave of blocks over the 132 SMs at the
+        # occupancy shared memory allows, and one merge round (32 slices x
+        # 64 keys fill one 2,048-key merge block)
+        per_sm = min(2048 // (32 * plan.warps), 233472 // (plan.smem + 1024))
+        blocks = plan.slices * (b // (4 * plan.warps))
+        assert 132 <= blocks <= per_sm * 132 and plan.slices * k <= 2048
+
+
+def test_shortlist_plan_refuses_what_no_block_can_hold():
+    with pytest.raises(ValueError, match="shared"):
+        shortlist.shortlist_plan(1, 4096, 4, 4096)
+
+
 # -- the LUT product -----------------------------------------------------------
 
 
@@ -169,6 +216,18 @@ def test_lut_dist_matmul_plain_is_the_product_on_ragged_shapes():
         mcam_dist.lut_dist_matmul(a, b.to(torch.bfloat16))
     with pytest.raises(ValueError):
         mcam_dist.lut_dist_matmul(a, b[:, :10])
+
+
+def test_lut_dist_route_follows_the_shapes():
+    """bf16 goes to the tensor cores, through TMA only where a descriptor
+    can describe the rows (depth a multiple of 8, 16-byte aligned bases);
+    f32 stays on the exact SIMT route."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert mcam_dist.dist_route(bf, 192, 0, 4096) == mcam_dist.ROUTE_TMA
+    for k, addr in ((190, 4096), (188, 4096), (192, 4102), (0, 4096)):
+        assert mcam_dist.dist_route(bf, k, 0, addr) == mcam_dist.ROUTE_RAGGED
+    assert mcam_dist.dist_route(f32, 192, 0, 4096) == \
+        mcam_dist.ROUTE_SIMT_F32
 
 
 def test_avss_ideal_dist_matches_reference():
