@@ -148,7 +148,7 @@ def current_from_resistance(r_sum: torch.Tensor, n_cells: int,
                             read_noise: torch.Tensor | None = None
                             ) -> torch.Tensor:
     """I = n_cells / sum_R, normalised so a perfect match reads 1.0."""
-    i = float(n_cells) / r_sum
+    i = torch.div(torch.tensor(float(n_cells)), r_sum)  # rounds once
     if read_noise is not None:
         i = i * (1.0 + f32(cfg.sigma_read) * read_noise)
     return i
@@ -190,4 +190,4 @@ def ideal_current(total_mismatch: torch.Tensor, cfg: MCAMConfig
     per cell (the best case for a given total)."""
     s = total_mismatch.to(torch.float32)
     n = float(cfg.string_len)
-    return n / ((n - s) + s * f32(cfg.rho))
+    return torch.div(torch.tensor(n), (n - s) + s * f32(cfg.rho))

@@ -12,8 +12,15 @@ def affine_quantize(x: torch.Tensor, levels: int, lo: torch.Tensor,
     """Clip to [lo, hi], scale to [0, levels), round half to even, clamp.
 
     `torch.round` rounds half to even, as `jnp.round` does; `floor(x + 0.5)`
-    would not match the reference on exact halves."""
-    scale = (levels - 1) / (hi - lo)
+    would not match the reference on exact halves.
+
+    The scale divides a tensor by a tensor: `number / tensor` in PyTorch is
+    `tensor.reciprocal() * number`, which rounds twice where JAX's division
+    rounds once, and so moves some words by one level. The numerator is a
+    0-dim CPU tensor, which a CUDA division takes as a scalar operand
+    without a copy to the card."""
+    scale = torch.div(torch.tensor(float(levels - 1), dtype=torch.float32),
+                      hi - lo)
     q = torch.round((torch.clamp(x, lo, hi) - lo) * scale)
     return torch.clamp(q, 0, levels - 1)
 

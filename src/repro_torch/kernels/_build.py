@@ -66,27 +66,33 @@ def library_path(name: str) -> Path:
 
 
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
-    """Compile the given sources, one nvcc run each, in sequence. Returns
-    nvcc's output (the ptxas register / shared-memory / spill report) per
-    source that was built now; sources already built are skipped. Each
-    library is written under a temporary name and renamed when nvcc
-    succeeds, so a failed build leaves nothing that looks cached."""
+    """Compile the given sources, one nvcc run each, all started together.
+    Returns nvcc's output (the ptxas register / shared-memory / spill
+    report) per source that was built now; sources already built are
+    skipped. Each library is written under a temporary name and renamed
+    when nvcc succeeds, so a failed build leaves nothing that looks
+    cached."""
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    logs = {}
+    procs = {}
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs[n] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for n, (tmp, proc) in procs.items():
+        logs[n] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{n}.cu "
-                               f"(exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, library_path(n))
-        logs[n] = proc.stdout
+            failed.append(f"nvcc failed on csrc/{n}.cu (exit "
+                          f"{proc.returncode}):\n{logs[n]}")
+        else:
+            os.replace(tmp, library_path(n))
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

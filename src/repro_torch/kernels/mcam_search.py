@@ -12,7 +12,10 @@ of S and cell of sl, see `kernels/ref.py` for the semantics. Two entries:
 Both run the same per-pair arithmetic, so the votes of a row are the same
 whichever entry scored it. The CUDA kernels are in `csrc/mcam_search.cu`;
 `*_plain` are their plain versions, which sum each string's cell
-resistances in cell order, as the kernel does.
+resistances in cell order and divide once, as the kernel does: on the card
+the two agree bit for bit. Each entry has a compile-time instance for
+strings of `SPECIALISED_SL` cells and a generic one; `search_instance`
+picks it by shape.
 """
 
 from __future__ import annotations
@@ -30,14 +33,33 @@ from repro_torch.kernels.ref import READ_SEED_OFFSET
 
 _PLAIN_CELLS = 1 << 26   # cells per plain-version block (bounds its memory)
 
+#: the string length of the kernels' unrolled instance (the main path's:
+#: `string_len` 24); csrc/mcam_search.cu SPECIALISED_SL
+SPECIALISED_SL = 24
+
+#: what `prove_forms` counts, in the order of csrc/mcam_search.cu
+PROVED_FORMS = ("uniform", "angle", "radius", "cos", "byte_float",
+                "abs_diff")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PHYSICS = [_I, ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_float]
 _SIGNATURES = {
-    "mcam_search_dense": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+    "mcam_search_dense": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           *_PHYSICS, _P],
     "mcam_search_gathered": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                             _I, _I, *_PHYSICS, _P],
+                             _I, _I, _I, *_PHYSICS, _P],
+    "mcam_search_prove_forms": [_P, _P],
 }
+
+
+def search_instance(sl: int, *grids: torch.Tensor) -> int:
+    """The kernel instance for strings of `sl` cells: `SPECIALISED_SL`
+    (cells unrolled, a string read as three 8-byte words) when sl is that
+    and every grid starts on an 8-byte boundary, else 0 (the generic cell
+    loop over byte loads)."""
+    if sl == SPECIALISED_SL and all(g.data_ptr() % 8 == 0 for g in grids):
+        return SPECIALISED_SL
+    return 0
 
 
 def _pairs_plain(q: torch.Tensor, s: torch.Tensor, qidx: torch.Tensor,
@@ -61,7 +83,7 @@ def _pairs_plain(q: torch.Tensor, s: torch.Tensor, qidx: torch.Tensor,
                              float(MAX_MISMATCH))
         e = torch.exp(mc * log_rho)
         r = e if r is None else r + e
-    cur = float(sl) / r
+    cur = torch.div(torch.tensor(float(sl)), r)
     if noisy:
         rd = mcam_lib.hash_normal(b, sid, seed=cfg.seed + READ_SEED_OFFSET)
         cur = cur * (1.0 + f32(cfg.sigma_read) * rd)
@@ -171,6 +193,7 @@ def mcam_search(q_strings: torch.Tensor, s_strings: torch.Tensor,
         _build.ptr(thresholds), ctypes.c_int(thresholds.shape[0]),
         _build.ptr(qi), _build.ptr(votes), _build.ptr(dist),
         ctypes.c_int(B), ctypes.c_int(N), ctypes.c_int(S), ctypes.c_int(sl),
+        ctypes.c_int(search_instance(sl, q_strings, s_strings)),
         *_physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_dense")
     _build.count_launch("mcam_search")
@@ -220,8 +243,23 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
         _build.ptr(nr), _build.ptr(weights), _build.ptr(thresholds),
         ctypes.c_int(thresholds.shape[0]), _build.ptr(qi), _build.ptr(votes),
         ctypes.c_int(B), ctypes.c_int(K), ctypes.c_int(N), ctypes.c_int(S),
-        ctypes.c_int(sl), *_physics_args(cfg, noisy),
-        _build.stream_ptr(s_strings.device))
+        ctypes.c_int(sl), ctypes.c_int(search_instance(sl, q_strings,
+                                                       s_strings)),
+        *_physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_gathered")
     _build.count_launch("mcam_rescore")
     return votes
+
+
+def prove_forms(device) -> dict[str, int]:
+    """Runs the kernels' check of their cheaper arithmetic forms (the
+    Box-Muller pieces without unreachable branches, the byte conversions)
+    against the plain version's arithmetic on all 2**32 hash words, on
+    the card. Returns, per form, the number of words where any bit
+    differs; the kernels are exact only where every count is 0."""
+    diffs = torch.zeros(len(PROVED_FORMS), dtype=torch.int64, device=device)
+    lib = _build.load("mcam_search", _SIGNATURES)
+    err = lib.mcam_search_prove_forms(_build.ptr(diffs),
+                                      _build.stream_ptr(diffs.device))
+    _build.check(lib, err, "mcam_search_prove_forms")
+    return dict(zip(PROVED_FORMS, diffs.tolist()))

@@ -53,7 +53,7 @@ def mcam_search_ref(q_strings: torch.Tensor, s_strings: torch.Tensor,
         else:
             m_eff = m
         r = torch.exp(m_eff * log_rho).sum(-1)                  # (N, S)
-        cur = float(sl) / r
+        cur = torch.div(torch.tensor(float(sl)), r)
         if noisy:
             rd = mcam_lib.hash_normal(b, string_id,
                                       seed=cfg.seed + READ_SEED_OFFSET)

@@ -220,10 +220,69 @@ def test_string_current_votes_and_ideal_current():
     jv = np.asarray(j_mcam.sa_votes(jnp.asarray(jn), cfg_j))
     tv = _np(t_mcam.sa_votes(torch.as_tensor(tn), cfg_t))
     assert (jv == tv).mean() >= 0.999
+    # ideal_current divides once in both packages: equal bit for bit
     s = np.arange(0, 37, dtype=np.int32)
-    np.testing.assert_allclose(
+    np.testing.assert_array_equal(
         _np(t_mcam.ideal_current(torch.as_tensor(s), cfg_t)),
-        np.asarray(j_mcam.ideal_current(jnp.asarray(s), cfg_j)), rtol=1e-7)
+        np.asarray(j_mcam.ideal_current(jnp.asarray(s), cfg_j)))
+
+
+# -- divisions round once, as JAX's do ----------------------------------------
+# `number / tensor` in PyTorch is `tensor.reciprocal() * number`: two
+# roundings against JAX's one. These pin the port's tensor-by-tensor form.
+
+
+@pytest.mark.parametrize("kw", [{}, {"string_len": 20, "rho": 4.0},
+                                {"string_len": 12, "rho": 6.5}])
+def test_ideal_current_is_bit_exact(kw):
+    cfg_j, cfg_t = j_mcam.MCAMConfig(**kw), t_mcam.MCAMConfig(**kw)
+    s = np.arange(0, int(1.5 * cfg_j.string_len) + 1, dtype=np.int32)
+    np.testing.assert_array_equal(
+        _np(t_mcam.ideal_current(torch.as_tensor(s), cfg_t)),
+        np.asarray(jax.jit(lambda x: j_mcam.ideal_current(x, cfg_j))(s)))
+
+
+@pytest.mark.parametrize("n_cells", [24, 20])
+def test_current_from_resistance_is_bit_exact(n_cells):
+    """Random string resistances over the whole reachable range, with and
+    without read noise: every current equal. The noisy case runs JAX
+    eagerly: under jit, XLA:CPU contracts `1 + sigma * noise` into an
+    FMA, which the reference's own op-by-op semantics do not have."""
+    cfg_j, cfg_t = j_mcam.MCAMConfig(), t_mcam.MCAMConfig()
+    rng = np.random.default_rng(n_cells)
+    r = rng.uniform(n_cells, n_cells * 512, size=20000).astype(np.float32)
+    rn = rng.standard_normal(20000).astype(np.float32)
+    j = np.asarray(jax.jit(lambda a: j_mcam.current_from_resistance(
+        a, n_cells, cfg_j))(r))
+    t = _np(t_mcam.current_from_resistance(torch.as_tensor(r), n_cells,
+                                           cfg_t))
+    np.testing.assert_array_equal(t, j)
+    j = np.asarray(j_mcam.current_from_resistance(
+        jnp.asarray(r), n_cells, cfg_j, read_noise=jnp.asarray(rn)))
+    t = _np(t_mcam.current_from_resistance(
+        torch.as_tensor(r), n_cells, cfg_t, read_noise=torch.as_tensor(rn)))
+    np.testing.assert_array_equal(t, j)
+
+
+def _f32_bits(h: int) -> np.float32:
+    return np.array([h], np.uint32).view(np.float32)[0]
+
+
+@pytest.mark.parametrize("lo,hi,x,word", [
+    (0xc02810be, 0x402139ce, 0x401f82c0, 96),
+    (0xbfb0d696, 0x3fa0528c, 0xbf92fc47, 8),
+    (0xc028f231, 0x4002837c, 0x3fbd481d, 85)])
+def test_affine_quantize_at_97_levels_gives_the_reference_word(lo, hi, x,
+                                                               word):
+    """The main path's MTMC level count; a scale rounded twice moves each
+    of these words by one level."""
+    lo, hi, x = _f32_bits(lo), _f32_bits(hi), _f32_bits(x)
+    j = np.asarray(jax.jit(lambda a, b, c: j_quant.affine_quantize(
+        a, 97, b, c))(np.array([x]), lo, hi))
+    t = _np(t_quant.affine_quantize(torch.tensor([x]), 97, torch.tensor(lo),
+                                    torch.tensor(hi)))
+    assert j[0] == word
+    np.testing.assert_array_equal(t, j)
 
 
 # -- layouts and the reference search -----------------------------------------

@@ -17,14 +17,18 @@ from repro_torch.core import avss as avss_lib
 from repro_torch.core.encodings import make_encoding
 from repro_torch.core.memory import MemoryConfig
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
-from repro_torch.kernels import _build, mcam_dist, ops
+from repro_torch.core.mcam import MCAMConfig
+from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
 from repro_torch.kernels import shortlist
 
 pytestmark = pytest.mark.cuda
 
 torch.set_num_threads(1)
 
-PHYSICS_MIN_AGREEMENT = 0.999   # kernel vs plain votes, per (query, row)
+# card vs CPU votes, per (query, row): libdevice and the CPU's libm may
+# differ by ulps, so a current on a threshold may vote differently. On the
+# card the kernels equal their plain versions bit for bit.
+PHYSICS_MIN_AGREEMENT = 0.999
 
 
 @pytest.fixture
@@ -169,36 +173,118 @@ def _grids(seed, n=300, b=8, cl=8, d=48):
 
 @pytest.mark.parametrize("noisy", [False, True])
 def test_physics_kernels_match_plain(dev, noisy):
-    """dist exact; votes on >= 99.9% of pairs (precise libdevice against
-    the CPU's libm); the gathered entry equals the dense entry at the same
-    (query, global row), noise rows and query coordinates included."""
+    """Votes and dist equal the plain version run on the card, bit for
+    bit; the gathered entry equals the dense entry at the same (query,
+    global row), noise rows and query coordinates included."""
     enc, qg, sg = _grids(13)
     cfg = avss_lib.SearchConfig("mtmc", cl=8, noisy=noisy)
-    th = torch.as_tensor(cfg.mcam.thresholds())
-    w = enc.weights_array()
-    qidx = torch.tensor([3, 2**31 + 1, 0, 9, 4, 5, 6, 7])
-    pv, pd = ops.mcam_search(qg, sg, w, cfg, th, qidx=qidx)
-    kv, kd = ops.mcam_search(qg.to(dev), sg.to(dev), w.to(dev), cfg,
-                             th.to(dev), qidx=qidx.to(dev))
+    th = torch.as_tensor(cfg.mcam.thresholds(), device=dev)
+    w = enc.weights_array(device=dev)
+    qidx = torch.tensor([3, 2**31 + 1, 0, 9, 4, 5, 6, 7], device=dev)
+    qs = ops.flatten_strings(ops.broadcast_query(qg, enc.length)).to(dev)
+    ss = ops.flatten_strings(sg).to(dev)
+    ws = w.repeat(qs.shape[1] // w.shape[0])
+    pv, pd = mcam_search.mcam_search_plain(qs, ss, ws, th, cfg.mcam,
+                                           noisy=noisy, qidx=qidx)
+    kv, kd = ops.mcam_search(qg.to(dev), sg.to(dev), w, cfg, th, qidx=qidx)
     torch.cuda.synchronize()
-    assert torch.equal(kd.cpu(), pd)
-    assert float((kv.cpu() == pv).float().mean()) >= PHYSICS_MIN_AGREEMENT
+    assert torch.equal(kd, pd)
+    assert torch.equal(kv, pv)
     rows = torch.topk(-kd, 16, dim=1).indices
-    rv = ops.rescore_shortlist(qg.to(dev), sg.to(dev), rows, w.to(dev), cfg,
-                               th.to(dev), noise_qidx=qidx.to(dev))
+    rv = ops.rescore_shortlist(qg.to(dev), sg.to(dev), rows, w, cfg, th,
+                               noise_qidx=qidx)
     torch.cuda.synchronize()
     assert torch.equal(rv, torch.take_along_dim(kv, rows, dim=1))
     # shard-local rows with global noise rows: equal to the dense search
     # of a store in which those rows sit at their global position
     big = torch.zeros((400,) + tuple(sg.shape[1:]), dtype=torch.int8)
     big[100:] = sg
-    bv, _ = ops.mcam_search(qg.to(dev), big.to(dev), w.to(dev), cfg,
-                            th.to(dev), qidx=qidx.to(dev))
-    lv = ops.rescore_shortlist(qg.to(dev), sg.to(dev), rows, w.to(dev), cfg,
-                               th.to(dev), noise_idx=rows + 100,
-                               noise_qidx=qidx.to(dev))
+    bv, _ = ops.mcam_search(qg.to(dev), big.to(dev), w, cfg, th, qidx=qidx)
+    lv = ops.rescore_shortlist(qg.to(dev), sg.to(dev), rows, w, cfg, th,
+                               noise_idx=rows + 100, noise_qidx=qidx)
     torch.cuda.synchronize()
     assert torch.equal(lv, torch.take_along_dim(bv, rows + 100, dim=1))
+
+
+# (B, N, S, sl, noisy, grid values): both instances (sl = 24 and not),
+# S below / not a multiple of 32, B = 1 and 300, N of no round size, the
+# noiseless path, and int8 values beyond the 2-bit cell codes
+PHYSICS_CASES = [(16, 1001, 64, 24, True, 4), (1, 517, 64, 24, True, 4),
+                 (300, 67, 40, 24, True, 4), (7, 333, 64, 20, True, 4),
+                 (5, 129, 33, 24, False, 4), (3, 250, 64, 13, False, 4),
+                 (9, 257, 64, 24, True, 256)]
+
+
+def _physics_case(dev, b, n, S, sl, values, seed):
+    rng = np.random.default_rng(seed)
+    lo = 0 if values == 4 else -128
+    q = torch.as_tensor(rng.integers(lo, lo + values, size=(b, S, sl)),
+                        dtype=torch.int8).to(dev)
+    s = torch.as_tensor(rng.integers(lo, lo + values, size=(n, S, sl)),
+                        dtype=torch.int8).to(dev)
+    w = torch.as_tensor(rng.integers(1, 4, size=S), dtype=torch.float32,
+                        device=dev)
+    qidx = torch.as_tensor(rng.integers(0, 2**32, size=b), device=dev)
+    qidx[0] = 2**32 - 1
+    return q, s, w, qidx
+
+
+@pytest.mark.parametrize("b,n,S,sl,noisy,values", PHYSICS_CASES)
+def test_dense_physics_kernel_equals_plain_bit_for_bit(dev, b, n, S, sl,
+                                                       noisy, values):
+    q, s, w, qidx = _physics_case(dev, b, n, S, sl, values, b + n + sl)
+    cfg = MCAMConfig(string_len=sl, seed=7)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    got = mcam_search.mcam_search(q, s, w, th, cfg, noisy=noisy, qidx=qidx)
+    want = mcam_search.mcam_search_plain(q, s, w, th, cfg, noisy=noisy,
+                                         qidx=qidx)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("b,n,S,sl,noisy,values", PHYSICS_CASES)
+def test_gathered_physics_kernel_equals_plain_bit_for_bit(dev, b, n, S, sl,
+                                                          noisy, values):
+    """Rows outside [0, N) give NaN; every other candidate equals the plain
+    version with its global noise row."""
+    q, s, w, qidx = _physics_case(dev, b, n, S, sl, values, b * n + sl)
+    cfg = MCAMConfig(string_len=sl, seed=3)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    rng = np.random.default_rng(n)
+    rows = torch.as_tensor(rng.integers(-2, n + 2, size=(b, 11)), device=dev)
+    noise = rows + 5000
+    got = mcam_search.mcam_rescore(q, s, rows, w, th, cfg, noisy=noisy,
+                                   noise_rows=noise, qidx=qidx)
+    inside = (rows >= 0) & (rows < n)
+    want = mcam_search.mcam_rescore_plain(
+        q, s, torch.where(inside, rows, 0), w, th, cfg, noisy=noisy,
+        noise_rows=noise, qidx=qidx)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[~inside]).all()
+    assert torch.equal(got[inside], want[inside])
+
+
+def test_shifted_grid_takes_the_generic_instance_with_the_same_result(dev):
+    """A 24-cell grid off an 8-byte boundary runs the generic cell loop and
+    gives the same bits as the aligned copy through the unrolled one."""
+    q, s, w, qidx = _physics_case(dev, 4, 100, 64, 24, 4, 5)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int8, device=dev),
+                      s.reshape(-1)])
+    shifted = flat[1:].view(s.shape)
+    assert mcam_search.search_instance(24, q, shifted) == 0
+    assert mcam_search.search_instance(24, q, s) == 24
+    cfg = MCAMConfig()
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    a = mcam_search.mcam_search(q, s, w, th, cfg, qidx=qidx)
+    b = mcam_search.mcam_search(q, shifted, w, th, cfg, qidx=qidx)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cheaper_forms_equal_the_plain_arithmetic_on_every_word(dev):
+    forms = mcam_search.prove_forms(dev)
+    assert forms == {k: 0 for k in mcam_search.PROVED_FORMS}
 
 
 def test_wrappers_count_one_launch_per_call_and_check_inputs(dev):

@@ -347,6 +347,71 @@ def test_mcam_search_matches_ref_oracle(noisy):
     assert (_np(rv) == _np(tv)).mean() >= 0.99
 
 
+def test_search_instance_follows_length_and_alignment():
+    """The unrolled instance takes strings of SPECIALISED_SL cells whose
+    grids start on an 8-byte boundary; any other length or a shifted view
+    takes the generic cell loop."""
+    sl = mcam_search.SPECIALISED_SL
+    g = torch.zeros(9, 4, sl, dtype=torch.int8)
+    assert mcam_search.search_instance(sl, g, g) == sl
+    assert mcam_search.search_instance(sl, g[3:], g) == sl   # 3 * 96 bytes
+    shifted = torch.zeros(4 * sl + 1, dtype=torch.int8)[1:].view(1, 4, sl)
+    assert shifted.data_ptr() % 8 != 0
+    assert mcam_search.search_instance(sl, g, shifted) == 0
+    for other in (sl - 1, sl + 1, 16, 32):
+        h = torch.zeros(2, 4, other, dtype=torch.int8)
+        assert mcam_search.search_instance(other, h, h) == 0
+
+
+_FAKE_NVCC = """#!/bin/sh
+# stands in for nvcc: writes the -o file unless the source name holds
+# "bad", and reports when it started and ended
+out=""; src=""
+while [ $# -gt 0 ]; do
+  case "$1" in -o) out="$2"; shift;; *.cu) src="$1";; esac; shift
+done
+echo "start $(date +%s.%N)"
+sleep 1
+echo "end $(date +%s.%N)"
+case "$src" in *bad*) echo "error in $src"; exit 2;; esac
+echo "ptxas info    : Used 8 registers" && touch "$out"
+"""
+
+
+def test_build_runs_every_nvcc_together(tmp_path, monkeypatch):
+    """The sources build in parallel: every nvcc starts before any ends.
+    A failing source raises with its log, leaves no library, and does
+    not keep the others from being built."""
+    home = tmp_path / "cuda"
+    (home / "bin").mkdir(parents=True)
+    nvcc = home / "bin" / "nvcc"
+    nvcc.write_text(_FAKE_NVCC)
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("one", "two", "three", "four", "bad"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setenv("CUDA_HOME", str(home))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    logs = _build.build(("one", "two", "three"))
+    assert set(logs) == {"one", "two", "three"}
+    starts = [float(t.split()[1]) for t in logs.values()
+              for t in t.splitlines() if t.startswith("start")]
+    ends = [float(t.split()[1]) for t in logs.values()
+            for t in t.splitlines() if t.startswith("end")]
+    assert max(starts) < min(ends)
+    assert all(_build.library_path(n).exists() for n in logs)
+    assert _build.ptxas_report(logs["one"]) == [
+        "ptxas info    : Used 8 registers"]
+    assert _build.build(("one", "two")) == {}        # cached by content
+    with pytest.raises(RuntimeError, match="error in .*bad.cu"):
+        _build.build(("bad", "four"))
+    assert not _build.library_path("bad").exists()
+    assert _build.library_path("four").exists()
+    assert not list((tmp_path / "build").glob("*.tmp"))
+
+
 def test_rescore_shortlist_with_noise_coordinates_matches_reference():
     """Gathered candidates with global noise rows (shard offsets) and
     per-query coordinates (one >= 2**31): votes agree with the JAX rescore
