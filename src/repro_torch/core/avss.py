@@ -120,23 +120,27 @@ def _string_ids(n: int, seg: int, L: int,
 
 def votes_from_mismatch(mm: torch.Tensor, qidx, weights: torch.Tensor,
                         cfg: SearchConfig, thresholds: torch.Tensor, *,
-                        noisy: bool | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        noisy: bool | None = None, noise_stream=None,
+                        step_fn=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The mismatch-grid -> (votes, dist) forward of the reference.
 
     mm: (..., N, seg, L, sl) per-cell mismatch levels (float). qidx:
     integer query coordinates broadcastable to mm.shape[:-1]. noisy
-    overrides cfg.noisy when not None. The training-side arguments of the
-    JAX function (noise_stream, step_fn) wait for the HAT slice."""
+    overrides cfg.noisy when not None. noise_stream: an optional leading
+    noise coordinate (a uint32 value; None gives the serving noise).
+    step_fn: a differentiable sense-amp step (`mcam.ste_step`), forward
+    equal to the hard comparison."""
     n, seg, L, sl = mm.shape[-4:]
     if noisy is None:
         noisy = cfg.noisy
     if noisy:
         coords = (qidx, _string_ids(n, seg, L, mm.device))
+        if noise_stream is not None:
+            coords = (noise_stream,) + coords
         cur = mcam_lib.string_current(mm, cfg.mcam, noise_idx=coords)
     else:
         cur = mcam_lib.string_current(mm, cfg.mcam)
-    votes = mcam_lib.sa_votes(cur, cfg.mcam, thresholds)
+    votes = mcam_lib.sa_votes(cur, cfg.mcam, thresholds, step_fn=step_fn)
     w = weights.to(mm.device)[None, None, :]
     votes = (votes * w).sum((-1, -2))
     dist = (mm.sum(-1) * w).sum((-1, -2))
@@ -172,3 +176,41 @@ def predict_1nn(result: dict[str, torch.Tensor],
                 labels: torch.Tensor) -> torch.Tensor:
     """Label of the most-similar support (the paper's retrieval rule)."""
     return labels[best_support(result)]
+
+
+def score_supports(result: dict[str, torch.Tensor]) -> torch.Tensor:
+    """Votes with an infinitesimal ideal-distance tie-break, (B, N): for
+    class-vote sums only (the 1e-6 falls below an f32 ulp once votes
+    reach ~16; rank with `best_support`)."""
+    return result["votes"] - 1e-6 * result["dist"]
+
+
+def _onehot(labels: torch.Tensor, n_classes: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    return F.one_hot(labels.to(torch.int64), n_classes).to(dtype)
+
+
+def class_scores(result: dict[str, torch.Tensor], labels: torch.Tensor,
+                 n_classes: int) -> torch.Tensor:
+    """Per-class vote sums (B, n_classes) with distance tie-breaking."""
+    scores = score_supports(result)
+    return scores @ _onehot(labels, n_classes, scores.dtype)
+
+
+def class_mean_votes(votes: torch.Tensor, labels: torch.Tensor,
+                     n_classes: int) -> torch.Tensor:
+    """Mean vote score per class (B, n_classes): HAT's episodic logits and
+    the served evaluation's head, so the two agree exactly when the votes
+    do. The division is tensor by tensor and rounds once, as JAX's."""
+    onehot = _onehot(labels, n_classes, votes.dtype)
+    counts = onehot.sum(0) + 1e-8
+    return torch.div(votes @ onehot, counts)
+
+
+def predict_class_vote(result: dict[str, torch.Tensor], labels: torch.Tensor,
+                       n_classes: int) -> torch.Tensor:
+    return torch.argmax(class_scores(result, labels, n_classes), dim=-1)
+
+
+def accuracy(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return (pred == target.to(pred.device)).to(torch.float32).mean()

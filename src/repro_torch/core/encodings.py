@@ -8,8 +8,8 @@
   * SRE   -- simple repetition encoding: the 4-level value repeated r times.
 
 Every code word is an integer in [0, 3] (one MLC unit cell = 4 states).
-The straight-through encoders used by hardware-aware training are not part
-of this module yet (ROADMAP Queue A5).
+`encode_words_ste` is the straight-through encoder of hardware-aware
+training: its forward is `Encoding.encode`, bit for bit.
 """
 
 from __future__ import annotations
@@ -88,6 +88,49 @@ _ENCODERS = {
     "sre": _sre_encode,
     "b4we": _b4we_encode,
 }
+
+
+# ---------------------------------------------------------------------------
+# Differentiable (straight-through) encoders for hardware-aware training.
+# The forward values are the hard encoders' above, bit for bit on
+# integer-valued inputs; only the gradient differs.
+# ---------------------------------------------------------------------------
+
+
+def _f32(x: float) -> torch.Tensor:
+    return torch.tensor(float(x), dtype=torch.float32)
+
+
+class _MtmcWordSte(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, c, cl):
+        ctx.cl = cl
+        x = torch.floor(torch.div(v, _f32(cl)))
+        n = v - x * cl
+        return torch.clamp(x + (c >= cl - n).to(v.dtype), 0, MAX_MISMATCH)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.div(g, _f32(ctx.cl)), None, None
+
+
+def mtmc_word_ste(v: torch.Tensor, c: int, cl: int) -> torch.Tensor:
+    """c-th MTMC code word of the integer-valued float v; gradient 1/CL
+    (the discrete encoder's trend line). Forward equals column c of the
+    hard MTMC encoder."""
+    return _MtmcWordSte.apply(v, c, cl)
+
+
+def encode_words_ste(v: torch.Tensor, enc: Encoding) -> torch.Tensor:
+    """(...,) integer-valued float values -> (..., length) code words with
+    straight-through gradients: forward `enc.encode(v)`, gradient 1/CL per
+    word for MTMC and 1/length to each word otherwise."""
+    if enc.name == "mtmc":
+        return torch.stack([mtmc_word_ste(v, c, enc.cl)
+                            for c in range(enc.cl)], dim=-1)
+    hard = enc.encode(v.to(torch.int32)).to(torch.float32)
+    vv = v[..., None]
+    return hard + torch.div(vv - vv.detach(), _f32(enc.length))
 
 
 def make_encoding(name: str, cl: int) -> Encoding:

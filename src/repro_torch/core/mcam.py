@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import kinks
 from repro_torch.core.encodings import MAX_MISMATCH
 
 DEFAULT_STRING_LEN = 24
@@ -138,7 +139,7 @@ def string_resistance(cell_mismatch: torch.Tensor, cfg: MCAMConfig,
     m = cell_mismatch.to(torch.float32)
     if device_noise is not None:
         m = m + f32(cfg.sigma_device) * device_noise
-        m = torch.clamp(m, 0.0, float(MAX_MISMATCH))
+        m = kinks.clip(m, 0.0, float(MAX_MISMATCH))
     rho = torch.tensor(cfg.rho, dtype=torch.float32, device=m.device)
     return torch.pow(rho, m).sum(-1)
 
@@ -175,13 +176,40 @@ def string_current(cell_mismatch: torch.Tensor, cfg: MCAMConfig, *,
     return current_from_resistance(r, n_cells, cfg, read_noise=rn)
 
 
+class _SteStep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tau):
+        ctx.save_for_backward(x)
+        ctx.tau = tau
+        return (x > 0).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        tau = torch.tensor(f32(ctx.tau), dtype=torch.float32)
+        s = torch.sigmoid(torch.div(x, tau))
+        return torch.div(g * s * (1 - s), tau), None
+
+
+def ste_step(x: torch.Tensor, tau: float) -> torch.Tensor:
+    """Sense-amp comparator STE: the hard step (x > 0) forward, the
+    sigmoid's slope s (1 - s) / tau with s = sigmoid(x / tau) backward.
+    The forward is the comparison `sa_votes` makes, so the vote values are
+    the same with or without it."""
+    return _SteStep.apply(x, tau)
+
+
 def sa_votes(currents: torch.Tensor, cfg: MCAMConfig,
-             thresholds: torch.Tensor | None = None) -> torch.Tensor:
+             thresholds: torch.Tensor | None = None, *,
+             step_fn=None) -> torch.Tensor:
     """Sense-amplifier voting: count of reference levels the current
-    exceeds, as float32."""
+    exceeds, as float32. step_fn: a differentiable step (`ste_step`) whose
+    forward is the hard comparison; only the gradient changes."""
     th = torch.as_tensor(cfg.thresholds() if thresholds is None
                          else thresholds, device=currents.device)
-    return (currents[..., None] > th).sum(-1).to(torch.float32)
+    if step_fn is None:
+        return (currents[..., None] > th).sum(-1).to(torch.float32)
+    return step_fn(currents[..., None] - th).sum(-1)
 
 
 def ideal_current(total_mismatch: torch.Tensor, cfg: MCAMConfig

@@ -8,9 +8,13 @@ rescore of a row does not depend on which kernel evaluates it. The search
 runs on the store's device: on a CUDA store the kernel wrappers launch
 the kernels of `csrc/`, on a CPU store their plain versions.
 
+`episode_votes` / `episode_scores` are the differentiable training twin
+of `search(mode="full")`: the straight-through estimators wrapped around
+the same quantizer, encoder, layout and physics, so that the votes equal
+the served ones bit for bit for the same embeddings and range.
+
 Not ported yet (they raise NotImplementedError): the sharded and routed
-searches (`SearchRequest.axes` / `nprobe`), `search_tenants`, and the
-training forward `episode_votes` / `episode_scores`.
+searches (`SearchRequest.axes` / `nprobe`) and `search_tenants`.
 """
 
 from __future__ import annotations
@@ -18,15 +22,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Hashable
 
+import numpy as np
 import torch
 
 from repro_torch.core import avss as avss_lib
 from repro_torch.core import encodings as enc_lib
+from repro_torch.core import mcam as mcam_lib
+from repro_torch.core import quantization as quant_lib
 from repro_torch.core.avss import SearchConfig
 from repro_torch.engine.api import SearchRequest, SearchResult
 from repro_torch.engine.backends import resolve_backend
 from repro_torch.engine.store import MemoryStore, _not_ported
 from repro_torch.kernels import mcam_dist
+from repro_torch.kernels import mcam_episode
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref as ref_kernels
 from repro_torch.kernels import shortlist as shortlist_kernel
@@ -38,6 +46,21 @@ from repro_torch.kernels import shortlist as shortlist_kernel
 # interpret mode; it has not been measured on the card. Override it per
 # engine (`fused_min_rows=`) or per request (`SearchRequest.fused_min_rows`).
 IDEAL_FUSED_MIN_ROWS = 1024
+
+
+def noise_stream(key) -> int | None:
+    """Fold a key (an int, or an integer array such as the two uint32
+    words of `jax.random.key_data(k)`) into one uint32 noise-stream
+    coordinate, as `repro.engine.engine._noise_stream` folds it: s =
+    golden, then s = mix(s ^ word) for each word. None passes through: the
+    stream-less coordinates are the serving ones."""
+    if key is None:
+        return None
+    words = np.atleast_1d(np.asarray(key)).ravel().astype(np.int64)
+    s = torch.tensor(0x9E3779B9, dtype=torch.int64)
+    for w in words:
+        s = mcam_lib._mix(s ^ (int(w) & 0xFFFFFFFF))
+    return int(s)
 
 
 def _local_shortlist(q: torch.Tensor, proj: torch.Tensor,
@@ -127,11 +150,88 @@ class RetrievalEngine:
     def search_tenants(self, *args, **kwargs) -> SearchResult:
         raise _not_ported("RetrievalEngine.search_tenants", "A7")
 
-    def episode_votes(self, *args, **kwargs) -> dict:
-        raise _not_ported("RetrievalEngine.episode_votes (HAT)", "A5")
+    # -- differentiable episodic forward (hardware-aware training) ---------
 
-    def episode_scores(self, *args, **kwargs) -> torch.Tensor:
-        raise _not_ported("RetrievalEngine.episode_scores (HAT)", "A5")
+    def episode_votes(self, q_emb: torch.Tensor, s_emb: torch.Tensor, *,
+                      clip_std: float = 2.5, sa_tau: float = 0.02,
+                      key=None, noisy: bool | None = None,
+                      rng_range: tuple[torch.Tensor, torch.Tensor] | None
+                      = None) -> dict[str, Any]:
+        """Differentiable end-to-end MCAM forward on float embeddings, on
+        their device: asymmetric STE fake-quant, STE word encoding, the
+        write-time string layout and the string physics
+        (`kernels/mcam_episode.py`: the dense search kernel forward and the
+        episodic backward kernel on the card, autograd through the plain
+        version on the CPU).
+
+        Given the same embeddings and range, the votes and dist equal
+        `search(mode="full")` on a store programmed with the same supports,
+        bit for bit: noiseless, and noisy when `key` is None (the noise
+        then has the serving coordinates). A key (int or integer array) is
+        folded into a leading noise-stream coordinate (`noise_stream`):
+        fresh noise a training step.
+
+        q_emb (B, dim), s_emb (N, dim); rng_range: an explicit (lo, hi),
+        e.g. a store's calibrated range; noisy overrides cfg.noisy.
+        Returns {votes (B, N), dist (B, N), iterations}."""
+        cfg = self.cfg
+        q, s, weights, thresholds = self.episode_grids(
+            q_emb, s_emb, clip_std=clip_std, rng_range=rng_range)
+        votes, dist = mcam_episode.episode_physics(
+            q, s, weights, thresholds, cfg.mcam,
+            noisy=cfg.noisy if noisy is None else noisy,
+            stream=noise_stream(key), tau=sa_tau)
+        return {"votes": votes, "dist": dist,
+                "iterations": self._iterations(q_emb.shape[-1])}
+
+    def episode_grids(self, q_emb: torch.Tensor, s_emb: torch.Tensor, *,
+                      clip_std: float = 2.5,
+                      rng_range: tuple[torch.Tensor, torch.Tensor] | None
+                      = None) -> tuple[torch.Tensor, ...]:
+        """The episodic forward's inputs to the physics: straight-through
+        string grids q (B, S, sl) and s (N, S, sl) (float, integer cell
+        values, differentiable in the embeddings), per-string weights (S,)
+        and the sense-amp thresholds."""
+        cfg = self.cfg
+        enc = cfg.enc
+        sl = cfg.mcam.string_len
+        if cfg.mode == "avss":
+            q, v = quant_lib.quantize_asymmetric(
+                q_emb, s_emb, enc.levels, clip_std, 4, rng=rng_range)
+        else:
+            v, _, rng = quant_lib.fake_quant(
+                s_emb, quant_lib.QuantSpec(enc.levels, clip_std), rng_range)
+            q, _, _ = quant_lib.fake_quant(
+                q_emb, quant_lib.QuantSpec(enc.levels, clip_std), rng)
+        s_grid = avss_lib.layout_support_words(
+            enc_lib.encode_words_ste(v, enc), sl)          # (N, seg, L, sl)
+        if cfg.mode == "avss":
+            q_grid = avss_lib.layout_query(q, enc, "avss", sl)
+        else:
+            q_grid = avss_lib.layout_support_words(
+                enc_lib.encode_words_ste(q, enc), sl)
+        seg, L = s_grid.shape[1], s_grid.shape[2]
+        dev = s_grid.device
+        return (kernel_ops.flatten_strings(
+                    kernel_ops.broadcast_query(q_grid, L)),
+                kernel_ops.flatten_strings(s_grid),
+                enc.weights_array(device=dev).repeat(seg),
+                torch.as_tensor(cfg.mcam.thresholds(), device=dev))
+
+    def episode_scores(self, q_emb: torch.Tensor, s_emb: torch.Tensor,
+                       s_labels: torch.Tensor, n_classes: int, *,
+                       clip_std: float = 2.5, sa_tau: float = 0.02,
+                       key=None, noisy: bool | None = None,
+                       rng_range: tuple[torch.Tensor, torch.Tensor] | None
+                       = None) -> torch.Tensor:
+        """Per-class episodic logits (B, n_classes): `episode_votes`
+        aggregated by `avss.class_mean_votes`, the head HAT's loss trains
+        and the served evaluation reuses."""
+        votes = self.episode_votes(
+            q_emb, s_emb, clip_std=clip_std, sa_tau=sa_tau, key=key,
+            noisy=noisy, rng_range=rng_range)["votes"]
+        return avss_lib.class_mean_votes(votes, s_labels.to(votes.device),
+                                         n_classes)
 
     def _search_unsharded(self, store: MemoryStore, q: torch.Tensor,
                           req: SearchRequest,

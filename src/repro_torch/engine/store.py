@@ -15,9 +15,11 @@
 
 The store lives on one device, CUDA unless the caller passes
 `device="cpu"`. Updates are functional: `calibrate` and `write` return a
-new store and leave the old one as it was. Sharding, routing, host
-residency and persistence are not ported yet; they raise
-NotImplementedError naming their ROADMAP item.
+new store and leave the old one as it was. `save` / `restore` use the JAX
+package's checkpoint format (`repro_torch.checkpoint.ckpt`), so a store
+crosses between the packages in both directions. Sharding, routing and
+host residency are not ported yet; they raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import avss as avss_lib
 from repro_torch.core import quantization as quant_lib
 from repro_torch.core.avss import SearchConfig
@@ -182,20 +185,71 @@ class MemoryStore:
         return out
 
     @classmethod
-    def from_episode(cls, *args, **kwargs) -> "MemoryStore":
-        raise _not_ported("MemoryStore.from_episode (HAT training)", "A5")
+    def from_episode(cls, s_emb, q_emb, labels, search_cfg: SearchConfig,
+                     clip_std: float = 2.5, capacity: int | None = None,
+                     device: torch.device | str | None = None
+                     ) -> "MemoryStore":
+        """Program an episode's float support embeddings the way the
+        hardware-aware trainer quantized them: calibrated on the support
+        and query sample together, as `quantize_asymmetric` saw it. Searches
+        of the returned store equal the episodic training forward
+        (`RetrievalEngine.episode_votes`) bit for bit. The store lands on
+        `device`, by default the embeddings' device where they are
+        tensors, else the card."""
+        if device is None and isinstance(s_emb, torch.Tensor):
+            device = s_emb.device
+        s = torch.as_tensor(s_emb).detach()
+        q = torch.as_tensor(q_emb).detach()
+        cfg = MemoryConfig(capacity=capacity or s.shape[0], dim=s.shape[1],
+                           search=search_cfg, clip_std=clip_std)
+        sample = torch.cat([s.reshape(-1), q.reshape(-1).to(s.device)])
+        return cls.create(cfg, device).calibrate(sample).write(s, labels)
 
     @classmethod
-    def from_state(cls, *args, **kwargs) -> "MemoryStore":
-        raise _not_ported("MemoryStore.from_state (legacy dict state)",
-                          "A12")
+    def from_state(cls, state: dict, cfg: MemoryConfig,
+                   device: torch.device | str | None = None
+                   ) -> "MemoryStore":
+        """Adopt a state dict (`to_state()`'s keys). proj_packed and the
+        router sketch are integer functions of (values, proj, labels),
+        rebuilt here exactly. The store is marked calibrated: the state's
+        (lo, hi) is its calibration."""
+        dev = resolve_device(device)
+        leaf = {k: torch.as_tensor(v).to(device=dev, dtype=_LEAF_DTYPES[k])
+                for k, v in state.items()}
+        values, labels = leaf["values"], leaf["labels"]
+        sk_sums, sk_counts = router_lib.build_sketch(values, labels, 1)
+        return cls(values=values, proj=leaf["proj"],
+                   proj_packed=kernel_ops.pack_projection(leaf["proj"],
+                                                          cfg.search.enc),
+                   s_grid=leaf["s_grid"].contiguous(), labels=labels,
+                   size=leaf["size"], lo=leaf["lo"], hi=leaf["hi"],
+                   sketch_sums=sk_sums, sketch_counts=sk_counts, cfg=cfg,
+                   calibrated=True)
 
-    def save(self, *args, **kwargs) -> None:
-        raise _not_ported("MemoryStore.save (checkpoint)", "A4")
+    def to_state(self) -> dict[str, torch.Tensor]:
+        """The persisted leaves: what a separate serving process needs to
+        search bit-identically (the keys of the JAX package's state)."""
+        return {"values": self.values, "proj": self.proj,
+                "s_grid": self.s_grid, "labels": self.labels,
+                "size": self.size, "lo": self.lo, "hi": self.hi}
+
+    def save(self, directory: str, step: int = 0) -> None:
+        """Persist the store (values, labels, the write-time proj / s_grid,
+        the calibrated range and the ring size) in the JAX package's
+        checkpoint format."""
+        ckpt.save(directory, step, self.to_state())
 
     @classmethod
-    def restore(cls, *args, **kwargs) -> "MemoryStore":
-        raise _not_ported("MemoryStore.restore (checkpoint)", "A4")
+    def restore(cls, directory: str, cfg: MemoryConfig,
+                step: int | None = None,
+                device: torch.device | str | None = None) -> "MemoryStore":
+        """Load a store that `save` wrote, in this package or the JAX one,
+        onto `device` (default: the card), marked calibrated: searches on
+        it equal the writer's bit for bit."""
+        target = {k: 0 for k in ("values", "proj", "s_grid", "labels",
+                                 "size", "lo", "hi")}
+        state = ckpt.restore(directory, target, step=step, device="cpu")
+        return cls.from_state(state, cfg, device)
 
     def shard(self, mesh=None, axes=("data",), *, n_shards=None,
               residency: str = "device") -> "MemoryStore":

@@ -26,13 +26,14 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("shortlist", "mcam_dist", "mcam_search")
+SOURCES = ("shortlist", "mcam_dist", "mcam_search", "mcam_episode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: wrapper launches per kernel name; chip_smoke.py zeroes and reads these
 LAUNCHES: dict[str, int] = {"shortlist": 0, "mcam_dist": 0,
-                            "mcam_search": 0, "mcam_rescore": 0}
+                            "mcam_search": 0, "mcam_rescore": 0,
+                            "mcam_episode": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -60,7 +61,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library of csrc/<name>.cu, keyed by a hash of the source, the
+    headers of csrc/ (which a source may include) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

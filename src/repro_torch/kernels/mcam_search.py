@@ -5,7 +5,9 @@ gathered-candidate twin that replaces the jnp math of
 For query b, support row n (its noise row r, = n unless given), string s
 of S and cell of sl, see `kernels/ref.py` for the semantics. Two entries:
 
-  mcam_search   dense: q (B, S, sl) x s (N, S, sl) -> votes, dist (B, N)
+  mcam_search   dense: q (B, S, sl) x s (N, S, sl) -> votes, dist (B, N),
+                optionally with a leading noise-stream coordinate (HAT's
+                episodic forward; `kernels/mcam_episode.py`)
   mcam_rescore  gathered: candidate rows (B, k) of s, their noise rows and
                 per-query noise coordinates -> votes (B, k)
 
@@ -25,13 +27,14 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.core import kinks
 from repro_torch.core import mcam as mcam_lib
 from repro_torch.core.encodings import MAX_MISMATCH
 from repro_torch.core.mcam import MCAMConfig, f32
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import READ_SEED_OFFSET
 
-_PLAIN_CELLS = 1 << 26   # cells per plain-version block (bounds its memory)
+PLAIN_CELLS = 1 << 26   # cells per plain-version block (bounds its memory)
 
 #: the string length of the kernels' unrolled instance (the main path's:
 #: `string_len` 24); csrc/mcam_search.cu SPECIALISED_SL
@@ -43,9 +46,11 @@ PROVED_FORMS = ("uniform", "angle", "radius", "cos", "byte_float",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _PHYSICS = [_I, ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+#: the noise-stream arguments of the dense entry: has_stream, stream
+STREAM_ARGS = [_I, ctypes.c_uint]
 _SIGNATURES = {
     "mcam_search_dense": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
-                          *_PHYSICS, _P],
+                          *_PHYSICS, *STREAM_ARGS, _P],
     "mcam_search_gathered": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
                              _I, _I, _I, *_PHYSICS, _P],
     "mcam_search_prove_forms": [_P, _P],
@@ -64,52 +69,70 @@ def search_instance(sl: int, *grids: torch.Tensor) -> int:
 
 def _pairs_plain(q: torch.Tensor, s: torch.Tensor, qidx: torch.Tensor,
                  rows: torch.Tensor, weights: torch.Tensor,
-                 thresholds: torch.Tensor, cfg: MCAMConfig, noisy: bool
+                 thresholds: torch.Tensor, cfg: MCAMConfig, noisy: bool, *,
+                 stream: int | None = None, step_fn=None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q, s (..., S, sl) int8 (broadcasting); qidx, rows int64 broadcastable
-    to (...,) -> votes, dist (...,)."""
+    """q, s (..., S, sl) int8, or float holding integer cell values
+    (broadcasting); qidx, rows int64 broadcastable to (...,) -> votes,
+    dist (...,).
+
+    stream: a leading noise coordinate (uint32 value), as HAT's episodic
+    forward draws it; None gives the serving noise. step_fn: a
+    differentiable sense-amp step (`core.mcam.ste_step`) whose forward is
+    the comparison `x > 0`. With float grids that require grad, the
+    function is differentiable, and |q - s| and the clip take jax.grad's
+    rules at their kinks (core/kinks.py): this is the plain version of the
+    episodic backward kernel (kernels/mcam_episode.py)."""
     S, sl = s.shape[-2:]
-    m = torch.abs(q.to(torch.int32) - s.to(torch.int32)).to(torch.float32)
+    m = kinks.abs(q.to(torch.float32) - s.to(torch.float32))
     sid = (rows.to(torch.int64)[..., None] * S
            + torch.arange(S, dtype=torch.int64, device=s.device)) & 0xFFFFFFFF
     b = qidx.to(torch.int64)[..., None]
+    coords = (b, sid) if stream is None else (stream, b, sid)
     log_rho = f32(np.log(cfg.rho))
     r = None
     for c in range(sl):
         mc = m[..., c]
         if noisy:
-            dev = mcam_lib.hash_normal(b, sid, c, seed=cfg.seed)
-            mc = torch.clamp(mc + f32(cfg.sigma_device) * dev, 0.0,
-                             float(MAX_MISMATCH))
+            dev = mcam_lib.hash_normal(*coords, c, seed=cfg.seed)
+            mc = kinks.clip(mc + f32(cfg.sigma_device) * dev, 0.0,
+                            float(MAX_MISMATCH))
         e = torch.exp(mc * log_rho)
         r = e if r is None else r + e
     cur = torch.div(torch.tensor(float(sl)), r)
     if noisy:
-        rd = mcam_lib.hash_normal(b, sid, seed=cfg.seed + READ_SEED_OFFSET)
+        rd = mcam_lib.hash_normal(*coords, seed=cfg.seed + READ_SEED_OFFSET)
         cur = cur * (1.0 + f32(cfg.sigma_read) * rd)
     w = weights.to(torch.float32)
-    count = (cur[..., None] > thresholds.to(torch.float32)).sum(-1)
-    votes = (count.to(torch.float32) * w).sum(-1)
+    th = thresholds.to(torch.float32)
+    if step_fn is None:
+        count = (cur[..., None] > th).sum(-1).to(torch.float32)
+    else:
+        count = step_fn(cur[..., None] - th).sum(-1)
+    votes = (count * w).sum(-1)
     dist = (m.sum(-1) * w).sum(-1)
     return votes, dist
 
 
 def mcam_search_plain(q_strings, s_strings, weights, thresholds,
-                      cfg: MCAMConfig, *, noisy: bool = True, qidx=None
+                      cfg: MCAMConfig, *, noisy: bool = True, qidx=None,
+                      stream: int | None = None, step_fn=None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of `mcam_search`, in row blocks of bounded size."""
+    """Plain version of `mcam_search`, in row blocks of bounded size
+    (`step_fn`: see `_pairs_plain`)."""
     B, S, sl = q_strings.shape
     N = s_strings.shape[0]
     dev = s_strings.device
     if qidx is None:
         qidx = torch.arange(B, device=dev)
-    step = max(1, _PLAIN_CELLS // max(1, B * S * sl))
+    step = max(1, PLAIN_CELLS // max(1, B * S * sl))
     votes, dist = [], []
     for n0 in range(0, N, step):
         s = s_strings[n0:n0 + step]
         rows = torch.arange(n0, n0 + s.shape[0], device=dev)
         v, d = _pairs_plain(q_strings[:, None], s[None], qidx[:, None],
-                            rows[None], weights, thresholds, cfg, noisy)
+                            rows[None], weights, thresholds, cfg, noisy,
+                            stream=stream, step_fn=step_fn)
         votes.append(v)
         dist.append(d)
     if not votes:
@@ -133,10 +156,17 @@ def mcam_rescore_plain(q_strings, s_strings, rows, weights, thresholds,
     return votes
 
 
-def _physics_args(cfg: MCAMConfig, noisy: bool) -> list:
+def physics_args(cfg: MCAMConfig, noisy: bool) -> list:
     return [ctypes.c_int(int(noisy)), ctypes.c_uint(cfg.seed & 0xFFFFFFFF),
             ctypes.c_float(cfg.sigma_device), ctypes.c_float(cfg.sigma_read),
             ctypes.c_float(f32(np.log(cfg.rho)))]
+
+
+def stream_args(stream: int | None) -> list:
+    """has_stream, stream of a C entry that takes a noise stream."""
+    if stream is None:
+        return [ctypes.c_int(0), ctypes.c_uint(0)]
+    return [ctypes.c_int(1), ctypes.c_uint(int(stream) & 0xFFFFFFFF)]
 
 
 def _check_strings(name, q_strings, s_strings, weights, thresholds) -> None:
@@ -163,18 +193,19 @@ def _qidx(qidx, B: int, device) -> torch.Tensor:
 def mcam_search(q_strings: torch.Tensor, s_strings: torch.Tensor,
                 weights: torch.Tensor, thresholds: torch.Tensor,
                 cfg: MCAMConfig, *, noisy: bool = True,
-                qidx: torch.Tensor | None = None
+                qidx: torch.Tensor | None = None, stream: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """q (B, S, sl) int8, s (N, S, sl) int8, weights (S,) f32 per string,
     thresholds (K,) f32 -> votes (B, N), dist (B, N) float32. qidx: (B,)
-    per-query noise coordinates (default arange(B)).
+    per-query noise coordinates (default arange(B)). stream: a leading
+    noise coordinate (a uint32 value; None: the serving coordinates).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the dense
     kernel (or raises)."""
     _check_strings("mcam_search", q_strings, s_strings, weights, thresholds)
     if s_strings.device.type == "cpu" and q_strings.device.type == "cpu":
         return mcam_search_plain(q_strings, s_strings, weights, thresholds,
-                                 cfg, noisy=noisy, qidx=qidx)
+                                 cfg, noisy=noisy, qidx=qidx, stream=stream)
     if s_strings.device.type != "cuda":
         raise ValueError(f"mcam_search: unsupported device "
                          f"{s_strings.device}")
@@ -194,7 +225,8 @@ def mcam_search(q_strings: torch.Tensor, s_strings: torch.Tensor,
         _build.ptr(qi), _build.ptr(votes), _build.ptr(dist),
         ctypes.c_int(B), ctypes.c_int(N), ctypes.c_int(S), ctypes.c_int(sl),
         ctypes.c_int(search_instance(sl, q_strings, s_strings)),
-        *_physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
+        *physics_args(cfg, noisy), *stream_args(stream),
+        _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_dense")
     _build.count_launch("mcam_search")
     return votes, dist
@@ -245,7 +277,7 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
         ctypes.c_int(B), ctypes.c_int(K), ctypes.c_int(N), ctypes.c_int(S),
         ctypes.c_int(sl), ctypes.c_int(search_instance(sl, q_strings,
                                                        s_strings)),
-        *_physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
+        *physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_gathered")
     _build.count_launch("mcam_rescore")
     return votes

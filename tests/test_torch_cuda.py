@@ -18,7 +18,8 @@ from repro_torch.core.encodings import make_encoding
 from repro_torch.core.memory import MemoryConfig
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
 from repro_torch.core.mcam import MCAMConfig
-from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
+from repro_torch.kernels import _build, mcam_dist, mcam_episode, mcam_search
+from repro_torch.kernels import ops
 from repro_torch.kernels import shortlist
 
 pytestmark = pytest.mark.cuda
@@ -303,7 +304,8 @@ def test_wrappers_count_one_launch_per_call_and_check_inputs(dev):
     mcam_dist.lut_dist_matmul(ops.query_onehot(q), proj)
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"shortlist": 1, "mcam_dist": 1,
-                               "mcam_search": 1, "mcam_rescore": 1}
+                               "mcam_search": 1, "mcam_rescore": 1,
+                               "mcam_episode": 0}
     with pytest.raises(ValueError, match="contiguous"):
         mcam_dist.lut_dist_matmul(ops.query_onehot(q), proj.T.contiguous().T)
     with pytest.raises(TypeError):
@@ -334,3 +336,169 @@ def test_engine_on_the_card_matches_the_cpu(dev, mode, fmr):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     assert float((a.votes.cpu() == b.votes).float().mean()) \
         >= PHYSICS_MIN_AGREEMENT
+
+
+# -- the episodic physics of hardware-aware training --------------------------
+
+# (B, N, S, sl, noisy): ragged B and N, S = 33, the unrolled sl = 24 and the
+# generic instance at 13 cells, noisy and noiseless
+EPISODE_CASES = [(37, 101, 64, 24, True), (5, 67, 33, 24, True),
+                 (12, 40, 64, 13, True), (9, 70, 33, 24, False),
+                 (3, 17, 40, 13, False)]
+# backward kernel vs autograd through the plain forward: the same terms,
+# summed in another order (the kernel: over b or n in order; autograd:
+# torch's reductions), so relative to the largest gradient entry
+EPISODE_GRAD_RTOL = 1e-4
+EPISODE_GRAD_MIN_COSINE = 0.99999
+
+
+def _episode_case(dev, b, n, S, sl, seed):
+    """Grids of cell values in [0, 3] where about half the cells match
+    (|q - s| = 0, the kink of abs), weights, gradients and qidx."""
+    rng = np.random.default_rng(seed)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, S, sl)),
+                        dtype=torch.int8)
+    s = torch.as_tensor(rng.integers(0, 4, size=(n, S, sl)),
+                        dtype=torch.int8)
+    same = torch.as_tensor(rng.random((n, S, sl)) < 0.5)
+    s = torch.where(same, q[torch.arange(n) % b], s)
+    w = torch.as_tensor(rng.integers(1, 4, size=S), dtype=torch.float32)
+    gv = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32)
+    gd = torch.as_tensor(rng.standard_normal((b, n)), dtype=torch.float32)
+    qidx = torch.as_tensor(rng.integers(0, 2**32, size=b))
+    return [t.to(dev) for t in (q, s, w, gv, gd, qidx)]
+
+
+def _close(got, want):
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.reshape(1, -1).double(), want.reshape(1, -1).double()))
+    return err <= EPISODE_GRAD_RTOL * scale and cos >= \
+        EPISODE_GRAD_MIN_COSINE, (err, scale, cos)
+
+
+@pytest.mark.parametrize("stream", [None, 0, 0xDEADBEEF])
+@pytest.mark.parametrize("b,n,S,sl,noisy", EPISODE_CASES)
+def test_stream_forward_equals_plain_bit_for_bit(dev, b, n, S, sl, noisy,
+                                                 stream):
+    """The dense entry with a noise stream equals its plain version; the
+    stream moves the noise (a noisy search with a stream differs from the
+    one without), and without it the bits are the serving ones."""
+    q, s, w, _, _, qidx = _episode_case(dev, b, n, S, sl, b + n)
+    cfg = MCAMConfig(string_len=sl, seed=5)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    got = mcam_search.mcam_search(q, s, w, th, cfg, noisy=noisy, qidx=qidx,
+                                  stream=stream)
+    want = mcam_search.mcam_search_plain(q, s, w, th, cfg, noisy=noisy,
+                                         qidx=qidx, stream=stream)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if stream is not None and noisy:
+        base = mcam_search.mcam_search(q, s, w, th, cfg, qidx=qidx)
+        torch.cuda.synchronize()
+        assert not torch.equal(base[0], got[0])
+
+
+@pytest.mark.parametrize("stream", [None, 77])
+@pytest.mark.parametrize("b,n,S,sl,noisy", EPISODE_CASES)
+def test_episode_backward_kernel_matches_plain_autograd(dev, b, n, S, sl,
+                                                        noisy, stream):
+    """dq and ds of the backward kernel against autograd through the plain
+    forward on the card (same physics, jax.grad's kink rules), within
+    EPISODE_GRAD_RTOL of the largest entry and EPISODE_GRAD_MIN_COSINE; a
+    second run gives the same bits. tau = 0.5 keeps most strings on the
+    sigmoid's slope."""
+    q, s, w, gv, gd, qidx = _episode_case(dev, b, n, S, sl, 3 * b + n)
+    cfg = MCAMConfig(string_len=sl, seed=11)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    kw = dict(noisy=noisy, qidx=qidx, stream=stream, tau=0.5)
+    _build.reset_launches()
+    dq, ds = mcam_episode.episode_backward(q, s, gv, gd, w, th, cfg, **kw)
+    dq2, ds2 = mcam_episode.episode_backward(q, s, gv, gd, w, th, cfg, **kw)
+    pq, ps = mcam_episode.episode_backward_plain(q, s, gv, gd, w, th, cfg,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["mcam_episode"] == 2
+    assert torch.equal(dq, dq2) and torch.equal(ds, ds2)
+    ok, why = _close(dq, pq)
+    assert ok, ("dq", why)
+    ok, why = _close(ds, ps)
+    assert ok, ("ds", why)
+
+
+@pytest.mark.parametrize("mode", ["avss", "svss"])
+def test_episode_votes_on_the_card_match_the_plain_route(dev, mode,
+                                                         monkeypatch):
+    """The engine's episodic forward and backward on the card (the dense
+    kernel and the backward kernel) against the same function through the
+    plain route on the card: votes and dist bit for bit, the embedding
+    gradients within EPISODE_GRAD_RTOL (AVSS sums the query's gradient over
+    the L strings of a segment outside the kernel)."""
+    from repro_torch.core.avss import SearchConfig
+    rng = np.random.default_rng(21)
+    qe = np.maximum(rng.standard_normal((10, 48)), 0).astype(np.float32)
+    se = np.maximum(rng.standard_normal((30, 48)), 0).astype(np.float32)
+    se[:10] = qe
+    eng = RetrievalEngine(SearchConfig("mtmc", cl=8, mode=mode))
+    R = torch.as_tensor(rng.standard_normal((10, 30)), dtype=torch.float32,
+                        device=dev)
+
+    def run():
+        q = torch.tensor(qe, device=dev, requires_grad=True)
+        s = torch.tensor(se, device=dev, requires_grad=True)
+        r = eng.episode_votes(q, s, key=9, sa_tau=0.5)
+        ((r["votes"] * R).sum() + 0.01 * (r["dist"] * R).sum()).backward()
+        torch.cuda.synchronize()
+        return r["votes"].detach(), r["dist"].detach(), q.grad, s.grad
+    _build.reset_launches()
+    kernel = run()
+    assert _build.LAUNCHES["mcam_search"] == 1
+    assert _build.LAUNCHES["mcam_episode"] == 1
+    monkeypatch.setattr(mcam_episode, "episode_physics",
+                        mcam_episode.episode_physics_plain)
+    plain = run()
+    assert torch.equal(kernel[0], plain[0])
+    assert torch.equal(kernel[1], plain[1])
+    for a, b in zip(kernel[2:], plain[2:]):
+        ok, why = _close(a, b)
+        assert ok, why
+
+
+def test_episode_backward_refuses_what_it_does_not_take(dev):
+    q, s, w, gv, gd, qidx = _episode_case(dev, 4, 20, 64, 24, 1)
+    cfg = MCAMConfig()
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    kw = dict(noisy=True, qidx=qidx)
+    with pytest.raises(ValueError, match="contiguous"):
+        mcam_episode.episode_backward(q, s.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), gv, gd, w, th, cfg,
+                                      **kw)
+    with pytest.raises(ValueError, match="tensors on"):
+        mcam_episode.episode_backward(q, s, gv.cpu(), gd, w, th, cfg, **kw)
+    with pytest.raises(ValueError, match="cells"):
+        long_q = torch.zeros(4, 2, 65, dtype=torch.int8, device=dev)
+        long_s = torch.zeros(20, 2, 65, dtype=torch.int8, device=dev)
+        mcam_episode.episode_backward(long_q, long_s, gv, gd, w[:2], th,
+                                      cfg, **kw)
+    with pytest.raises(TypeError):
+        mcam_episode.episode_backward(q.float(), s, gv, gd, w, th, cfg, **kw)
+
+
+def test_train_hat_on_the_card_closes_the_loop(dev, tmp_path):
+    """The trainer on the card at a few steps of the smoke configuration:
+    finite losses, both episodic kernels launched, the served class
+    scores equal to the in-training head bit for bit, checkpoints
+    written."""
+    from repro_torch.launch import train as train_lib
+    _build.reset_launches()
+    out = train_lib.train_hat(pretrain_steps=2, meta_steps=2, n_way=4,
+                              k_shot=2, n_query=2, eval_episodes=1,
+                              ckpt_dir=str(tmp_path), log_every=1)
+    torch.cuda.synchronize()
+    assert out["parity"]
+    assert np.isfinite(out["pre_losses"]).all()
+    assert np.isfinite(out["meta_losses"]).all()
+    assert _build.LAUNCHES["mcam_episode"] == 2
+    assert _build.LAUNCHES["mcam_search"] >= 2
+    assert (tmp_path / "store").is_dir()

@@ -225,13 +225,9 @@ def test_unported_features_name_their_roadmap_item():
     q = np.zeros((1, 48), np.int32)
     for call in (lambda: st.shard(n_shards=2), lambda: st.shard(object()),
                  lambda: st.shard(n_shards=2, residency="host"),
-                 lambda: st.save("/dev/null"),
-                 lambda: MemoryStore.restore("x", tcfg),
-                 lambda: MemoryStore.from_state({}, tcfg),
                  lambda: eng.search(st, q, SearchRequest(nprobe=1)),
                  lambda: eng.search(st, q, SearchRequest(axes=("data",))),
-                 lambda: eng.search_tenants(None, q, [0]),
-                 lambda: eng.episode_votes(q, q)):
+                 lambda: eng.search_tenants(None, q, [0])):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
             call()
 
@@ -450,6 +446,12 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
+    assert {"repro_torch.checkpoint.ckpt", "repro_torch.core.hat",
+            "repro_torch.core.kinks", "repro_torch.configs.omniglot_conv4",
+            "repro_torch.data.fsl", "repro_torch.kernels.mcam_episode",
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.models.controller", "repro_torch.optim.optimizers",
+            "repro_torch.tree"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
