@@ -34,11 +34,22 @@ Then hardware-aware training (paper Sec. 3.3):
                 d = 48, MTMC CL = 32, AVSS; MCAMConfig(sigma_device=0.15,
                 sigma_read=0.05) and Conv4 width 32 as `launch/train.py`;
                 4 queries a class: B = 800, N = 2,000, 2.46 G cells a
-                step): HAT_PRETRAIN_STEPS pretrain steps (batch 32 over
-                the 964 training classes) and HAT_META_STEPS meta steps on
-                one episode, made once on the host and reused; every loss
-                finite, the dense and backward kernels launched once a
-                meta step. Then the trained
+                step), under the trainer's deterministic settings
+                (`launch/train.make_deterministic`, from [episode] on; its
+                CUBLAS_WORKSPACE_CONFIG is set before any CUDA work):
+                first a probe of which settings make the gradient
+                of a first pretrain and meta step give the same bits in
+                DETERMINISM_RUNS runs (none, cuDNN's deterministic
+                convolutions, torch's deterministic algorithms, the
+                trainer's; the trainer's must); then HAT_PRETRAIN_STEPS
+                pretrain steps (batch 32 over the 964 training classes)
+                and HAT_META_STEPS meta steps on one episode, made once on
+                the host and reused; every loss finite, the dense and
+                backward kernels launched once a meta step. The same steps
+                run again from the same start without the settings
+                (their cost) and with them, which must repeat every loss
+                and every parameter and optimizer leaf bit for bit. Then
+                the trained
                 controller is served: `MemoryStore.from_episode` ->
                 `search(mode="full", noisy=False)`, whose class-mean votes
                 must equal `episode_scores(noisy=False)` bit for bit; and
@@ -75,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -120,6 +132,11 @@ EPISODE_SHAPE = (20, 10, 4)
 # [hat]: queries a class and Conv4 width, as launch/train.py
 HAT_QUERIES, HAT_WIDTH = 4, 32
 HAT_PRETRAIN_STEPS = HAT_META_STEPS = 3
+# [hat]'s determinism probe: the settings it compares (CUBLAS_WORKSPACE_
+# CONFIG is set for the whole process, before CUDA starts), and the runs
+# of a step's gradient under each
+DETERMINISM_SETTINGS = ("none", "cudnn", "torch", "trainer")
+DETERMINISM_RUNS = 3
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -160,7 +177,8 @@ def kernel_resources(nvcc_log: str) -> dict[str, str]:
         if m:
             mangled = m.group(1)
             base = re.search(r"(search_dense|search_gathered|prove_forms|"
-                             r"episode_grad)((?:I(?:L[ib]\d+E)+E)?)",
+                             r"episode_grad_sum|episode_grad)"
+                             r"((?:I(?:L[ib]\d+E)+E)?)",
                              mangled)
             args = re.findall(r"L[ib](\d+)E", base.group(2)) if base else []
             name = mangled if base is None else base.group(1) + (
@@ -206,7 +224,13 @@ def run(args, torch) -> int:
     from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
     from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
     from repro_torch.kernels import shortlist
+    from repro_torch.launch import train as train_lib
 
+    # the trainer's cuBLAS setting (make_deterministic, which [episode] and
+    # [hat] run under) is read at the first cuBLAS handle: set it before
+    # any CUDA work; the serving phases run as a server runs them
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                          train_lib.CUBLAS_WORKSPACE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -636,6 +660,7 @@ def run(args, torch) -> int:
     timing = argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
                                 host_ms=host_ms, event_ms=event_ms,
                                 device_ms=device_ms)
+    train_lib.make_deterministic()
     episode = run_episode(timing, args.seed)
     hat = run_hat(timing, args, launches)
     path_ms.update(hat.pop("phases_ms"))
@@ -648,8 +673,8 @@ def run(args, torch) -> int:
         device_ms_in_step=bwd["device_ms_in_step"],
         max_rel_err=bwd["max_rel_err"],
         cosine=bwd["cosine"], episode=episode,
-        resources=resources.get("episode_grad<24,1,1,1>"),
-        resources_dq=resources.get("episode_grad<24,1,1,0>"),
+        resources=resources.get("episode_grad<24,1,1>"),
+        resources_sum=resources.get("episode_grad_sum"),
         shape=bwd["shape"])
 
     for r in kernels:       # with the [hat] path's launches
@@ -774,6 +799,7 @@ def run_hat(t, args, launches: dict) -> dict:
     torch, dev = t.torch, t.dev
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.configs.omniglot_conv4 import get_config
+    from repro_torch.core import hat as hat_lib
     from repro_torch.core.avss import class_mean_votes
     from repro_torch.core.hat import cross_entropy
     from repro_torch.data.fsl import (EpisodeSampler, OmniglotLike,
@@ -806,19 +832,42 @@ def run_hat(t, args, launches: dict) -> dict:
           f"{cs.mcam.sigma_device} sigma_read={cs.mcam.sigma_read}, Conv4 "
           f"width {width}, {fsl.image_size}x{fsl.image_size} images")
 
-    # stage 1: pretrain steps (batch 32 over the training classes)
-    opt_state = pre_opt.init(params)
-    pre_losses, pre_times = [], []
-    for step in range(HAT_PRETRAIN_STEPS):
-        batch = place(pretrain_batch(ds, train_ids, batch=32, step=step))
-        t.sync()
-        t0 = time.perf_counter()
-        params, opt_state, loss = pre_step(params, opt_state, batch)
-        t.sync()
-        pre_times.append((time.perf_counter() - t0) * 1e3)
-        pre_losses.append(float(loss))
-    if not all(np.isfinite(pre_losses)):
-        fail(f"[hat] non-finite pretrain loss: {pre_losses}")
+    def run_steps(step_fn, state, inputs):
+        """step_fn over `inputs` (argument tuples) from state = (params,
+        opt_state), each step synchronised and timed -> (params,
+        opt_state), losses, ms."""
+        params, opt = state
+        losses, times = [], []
+        for step_args in inputs:
+            t.sync()
+            t0 = time.perf_counter()
+            params, opt, loss = step_fn(params, opt, *step_args)
+            t.sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        return (params, opt), losses, times
+
+    def clone(tree):
+        return tree_lib.tree_map(torch.clone, tree)
+
+    def differing(a, b) -> list[str]:
+        """Names of the leaves of two trees whose bits differ."""
+        def bits(x):
+            return x.view(torch.int32) if x.dtype == torch.float32 else x
+        names, xs = tree_lib.flatten_with_names(a)
+        return [nm for nm, x, y in zip(names, xs, tree_lib.leaves(b))
+                if not torch.equal(bits(x), bits(y))]
+
+    def apply_settings(name: str) -> None:
+        """One of DETERMINISM_SETTINGS: "trainer" is make_deterministic();
+        "torch" torch's deterministic algorithms alone, "cudnn" cuDNN's
+        deterministic convolutions alone, "none" neither."""
+        if name == "trainer":
+            train_lib.make_deterministic()
+            return
+        torch.use_deterministic_algorithms(name == "torch")
+        torch.backends.cudnn.deterministic = name == "cudnn"
+        torch.backends.cudnn.benchmark = False
 
     # one full-width episode, made once on the host and reused
     t0 = time.perf_counter()
@@ -829,22 +878,55 @@ def run_hat(t, args, launches: dict) -> dict:
                     "support_labels": ep.support_labels,
                     "query_images": ep.query_images,
                     "query_labels": ep.query_labels})
+    batches = [(place(pretrain_batch(ds, train_ids, batch=32, step=step)),)
+               for step in range(HAT_PRETRAIN_STEPS)]
+    meta_inputs = [(arrays, train_lib.step_key(args.seed, step))
+                   for step in range(HAT_META_STEPS)]
+    pre_start = (params, pre_opt.init(params))
+
+    # which settings make a step's gradient reproducible: the gradient of
+    # the first pretrain step and of a first meta step, DETERMINISM_RUNS
+    # times under each setting; the leaves that differ from the first run
+    meta_probe = {"backbone": params["backbone"]}
+    episode = {**arrays, "n_way": fsl.n_way}
+    probe = {}
+    for name in DETERMINISM_SETTINGS:
+        apply_settings(name)
+        runs = {"pretrain": [hat_lib.value_and_grad(
+                    hat_lib.pretrain_loss, params, batches[0][0],
+                    apply_conv4) for _ in range(DETERMINISM_RUNS)],
+                "meta": [hat_lib.value_and_grad(
+                    hat_lib.meta_loss, meta_probe, episode, apply_conv4,
+                    hat_cfg, meta_inputs[0][1])
+                    for _ in range(DETERMINISM_RUNS)]}
+        t.sync()
+        probe[name] = {
+            stage: sorted({nm for loss, g in r[1:]
+                           for nm in differing({"loss": r[0][0], **r[0][1]},
+                                               {"loss": loss, **g})})
+            for stage, r in runs.items()}
+    train_lib.make_deterministic()
+    t.log(f"[determinism] leaves (and the loss) of a first step's gradient "
+          f"that differ between {DETERMINISM_RUNS} runs: {probe}")
+    if probe["trainer"]["pretrain"] or probe["trainer"]["meta"]:
+        fail(f"[hat] under the trainer's settings a step's gradient "
+             f"differs between runs: {probe['trainer']}")
+
+    # stage 1: pretrain steps (batch 32 over the training classes)
+    pre_state, pre_losses, pre_times = run_steps(pre_step, clone(pre_start),
+                                                 batches)
+    params = pre_state[0]
+    if not all(np.isfinite(pre_losses)):
+        fail(f"[hat] non-finite pretrain loss: {pre_losses}")
 
     # stage 2: meta steps through the simulated MCAM: each launches the
     # dense forward and the backward kernel once
-    meta_params = {"backbone": params["backbone"]}
-    opt_state2 = meta_opt.init(meta_params)
+    meta_start = ({"backbone": params["backbone"]},
+                  meta_opt.init({"backbone": params["backbone"]}))
     _build.reset_launches()
-    meta_losses, meta_times = [], []
-    for step in range(HAT_META_STEPS):
-        t.sync()
-        t0 = time.perf_counter()
-        meta_params, opt_state2, loss = meta_step(
-            meta_params, opt_state2, arrays,
-            train_lib.step_key(args.seed, step))
-        t.sync()
-        meta_times.append((time.perf_counter() - t0) * 1e3)
-        meta_losses.append(float(loss))
+    meta_state, meta_losses, meta_times = run_steps(
+        meta_step, clone(meta_start), meta_inputs)
+    meta_params, opt_state2 = meta_state
     t.sync()
     meta_counts = dict(_build.LAUNCHES)
     want = {"mcam_search": HAT_META_STEPS, "mcam_episode": HAT_META_STEPS}
@@ -853,6 +935,34 @@ def run_hat(t, args, launches: dict) -> dict:
              f"expected {want}")
     if not all(np.isfinite(meta_losses)):
         fail(f"[hat] non-finite meta loss: {meta_losses}")
+
+    # the cost of the settings: the same steps from the same start without
+    # them, then with them again, which must repeat the first run's bits
+    apply_settings("none")
+    _, _, pre_free_times = run_steps(pre_step, clone(pre_start), batches)
+    _, _, meta_free_times = run_steps(meta_step, clone(meta_start),
+                                      meta_inputs)
+    train_lib.make_deterministic()
+    pre_again, pre_again_losses, pre_again_times = run_steps(
+        pre_step, clone(pre_start), batches)
+    meta_again, meta_again_losses, meta_again_times = run_steps(
+        meta_step, clone(meta_start), meta_inputs)
+    for stage, first, again in (
+            ("pretrain", (pre_losses, pre_state),
+             (pre_again_losses, pre_again)),
+            ("meta", (meta_losses, meta_state),
+             (meta_again_losses, meta_again))):
+        leaves = differing(first[1], again[1])
+        if first[0] != again[0] or leaves:
+            fail(f"[hat] a second run of the {stage} steps from the same "
+                 f"state differs: losses {first[0]} vs {again[0]}, leaves "
+                 f"{leaves}")
+    t.log(f"[hat] a second run of the pretrain and meta steps from a clone "
+          f"of the same start gives the same losses and parameter and "
+          f"optimizer leaves bit for bit; step ms with the trainer's "
+          f"settings: pretrain {pre_times} then {pre_again_times}, meta "
+          f"{meta_times} then {meta_again_times}; without them: pretrain "
+          f"{pre_free_times}, meta {meta_free_times}")
 
     # the served evaluation, counted on its own: episode_scores and
     # search(full) launch the dense kernel once each
@@ -1000,6 +1110,11 @@ def run_hat(t, args, launches: dict) -> dict:
                  on_device, key=lambda kv: -kv[1])[:8]]}
     out = {"pretrain_losses": pre_losses, "meta_losses": meta_losses,
            "pretrain_step_ms": pre_times, "meta_step_ms": meta_times,
+           "pretrain_step_ms_again": pre_again_times,
+           "meta_step_ms_again": meta_again_times,
+           "pretrain_step_ms_without_settings": pre_free_times,
+           "meta_step_ms_without_settings": meta_free_times,
+           "determinism_probe": probe,
            "episode_host_ms": episode_host_ms, "served_accuracy": acc,
            "forward": forward, "backward": backward,
            "agreement": agree, "meta_step_trace": trace,

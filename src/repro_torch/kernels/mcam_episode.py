@@ -16,8 +16,11 @@ with the STE step, `|q - s|` and the clip at jax.grad's kink rules). A
 CUDA tensor runs `EpisodePhysics`: its forward is the dense entry of
 `csrc/mcam_search.cu` (the same bits, with the noise-stream coordinate),
 its backward the kernel of `csrc/mcam_episode.cu`, which recomputes each
-string's current with the forward's device code and sums in a fixed
-order. `episode_backward_plain` is the backward kernel's plain version:
+string's current once with the forward's device code, sends its cell
+gradients into dq and ds at once and sums in a fixed order (partial sums
+per row tile and query chunk in a workspace, then a second launch over
+them: `episode_tiling`). `episode_backward_plain` is the backward kernel's
+plain version:
 the same autograd through the plain forward, which the tests and
 chip_smoke.py hold the kernel against.
 """
@@ -35,15 +38,30 @@ from repro_torch.kernels import mcam_search as search_kernel
 
 #: the longest string the generic instance takes (csrc/mcam_episode.cu)
 MAX_GENERIC_SL = 64
+#: rows of the backward kernel's tile: a warp's lanes (csrc ROWS)
+ROW_TILE = 32
+#: the most queries a block of the backward kernel walks (csrc MAX_CHUNK)
+QUERY_CHUNK = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "mcam_episode_backward": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                              _I, _I, _I, ctypes.c_uint, ctypes.c_float,
-                              ctypes.c_float, ctypes.c_float,
+    "mcam_episode_backward": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, ctypes.c_uint,
+                              ctypes.c_float, ctypes.c_float, ctypes.c_float,
                               *search_kernel.STREAM_ARGS, ctypes.c_float,
                               _P],
 }
+
+
+def episode_tiling(B: int, N: int) -> tuple[int, int, int]:
+    """(row tiles, query chunks, queries a chunk) of the backward kernel
+    for B queries and N rows: a warp owns ROW_TILE rows of one string and
+    walks one chunk of queries, the chunks as even as QUERY_CHUNK allows.
+    dq is summed over the tiles' partial sums, ds over the chunks'; both
+    depend on the shape alone, so a shape has one summation order."""
+    tiles = -(-N // ROW_TILE)
+    chunks = -(-B // QUERY_CHUNK)
+    return tiles, chunks, -(-B // chunks) if chunks else 1
 
 
 def _step(tau: float):
@@ -144,18 +162,29 @@ def episode_backward(q8: torch.Tensor, s8: torch.Tensor,
                          f"B={B}")
     _build.require_cuda("episode_backward", q8, s8, g_votes, g_dist,
                         weights, thresholds, qi)
-    dq = torch.empty(B, S, sl, dtype=torch.float32, device=q8.device)
-    ds = torch.empty(N, S, sl, dtype=torch.float32, device=q8.device)
+    dev = q8.device
+    dq = torch.empty(B, S, sl, dtype=torch.float32, device=dev)
+    ds = torch.empty(N, S, sl, dtype=torch.float32, device=dev)
+    # the partial sums: dq's per row tile, then ds's per query chunk; ds's
+    # start 4 * dq_len bytes in, a multiple of 16 at sl = 24, where the
+    # unrolled instance stores them as float4
+    tiles, chunks, per_chunk = episode_tiling(B, N)
+    dq_len = tiles * B * S * sl
+    work = torch.empty(dq_len + chunks * N * S * sl, dtype=torch.float32,
+                       device=dev)
     lib = _build.load("mcam_episode", _SIGNATURES)
     err = lib.mcam_episode_backward(
         _build.ptr(q8), _build.ptr(s8), _build.ptr(g_votes),
         _build.ptr(g_dist), _build.ptr(weights), _build.ptr(thresholds),
         ctypes.c_int(thresholds.shape[0]), _build.ptr(qi),
-        _build.ptr(dq), _build.ptr(ds),
+        _build.ptr(dq), _build.ptr(ds), _build.ptr(work),
+        ctypes.c_void_p(work.data_ptr() + 4 * dq_len),
         ctypes.c_int(B), ctypes.c_int(N), ctypes.c_int(S), ctypes.c_int(sl),
+        ctypes.c_int(search_kernel.search_instance(sl, q8, s8)),
+        ctypes.c_int(per_chunk),
         *search_kernel.physics_args(cfg, noisy),
         *search_kernel.stream_args(stream), ctypes.c_float(f32(tau)),
-        _build.stream_ptr(q8.device))
+        _build.stream_ptr(dev))
     _build.check(lib, err, "mcam_episode_backward")
     _build.count_launch("mcam_episode")
     return dq, ds

@@ -17,11 +17,19 @@ Queue A10):
 4. Checkpoint the controller and the last store (the JAX package's
    format).
 
-It runs on the card unless `--device cpu` is given. The one documented
-difference from the reference: each meta step's hardware noise stream is
-folded from (seed, step) (`engine.noise_stream`) where the reference
-folds `jax.random.fold_in(PRNGKey(seed), step)`; the noise has the same
-distribution and other draws.
+It runs on the card unless `--device cpu` is given. Each meta step's
+hardware noise is the reference's: `step_key(seed, step)` is the key data
+of `jax.random.fold_in(PRNGKey(seed), step)` (`core.prng`), which
+`engine.noise_stream` folds as the reference folds it. The one documented
+difference from the reference is the controller's random init
+(`init_conv4` draws numpy's normals, not jax.random's).
+
+Training is reproducible bit for bit on the card: `train_hat` (and so
+the `__main__` entry) first calls `make_deterministic()`, which turns on
+torch's deterministic algorithms and cuDNN's deterministic convolutions
+and sets `CUBLAS_WORKSPACE_CONFIG`. cuBLAS reads that variable when it
+makes its first handle, so a program that does CUDA work before training
+calls `make_deterministic()` before that work.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs.omniglot_conv4 import FSLConfig, get_smoke_config
 from repro_torch.core.avss import SearchConfig, class_mean_votes
 from repro_torch.core.hat import HATConfig
+from repro_torch.core import prng
 from repro_torch.core.mcam import MCAMConfig
 from repro_torch.data.fsl import EpisodeSampler, OmniglotLike, pretrain_batch
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
@@ -47,6 +56,8 @@ from repro_torch.models.controller import apply_conv4, init_conv4
 from repro_torch.optim import adamw
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_hat_ckpt")
+#: cuBLAS's reproducible workspace setting (make_deterministic)
+CUBLAS_WORKSPACE = ":4096:8"
 
 
 def hat_config(fsl: FSLConfig) -> HATConfig:
@@ -72,8 +83,24 @@ def init_params(fsl: FSLConfig, n_train: int, seed: int, width: int,
 
 
 def step_key(seed: int, step: int) -> np.ndarray:
-    """The words folded into meta step `step`'s noise stream."""
-    return np.array([seed, step], dtype=np.uint32)
+    """Meta step `step`'s key: the (2,) uint32 key data of
+    `jax.random.fold_in(jax.random.PRNGKey(seed), step)`, which the
+    reference trainer passes, folded into the step's noise stream."""
+    return prng.fold_in(prng.PRNGKey(seed), step)
+
+
+def make_deterministic() -> None:
+    """Make training on the card give the same bits on every run: torch's
+    deterministic algorithms (the gradient of a gather sums without
+    atomics; an op with no deterministic form raises), cuDNN's
+    deterministic convolution algorithms without benchmarking, and cuBLAS's
+    fixed workspace (`CUBLAS_WORKSPACE_CONFIG`, kept where the caller set
+    it). cuBLAS reads the variable when it makes its first handle: call
+    this before the process's first CUDA work."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE)
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
@@ -86,6 +113,7 @@ def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
     serve loop (module docstring). Returns the loss curves, the
     in-training and served eval accuracies, and whether every served class
     score equalled the in-training head's bit for bit."""
+    make_deterministic()
     fsl = fsl or get_smoke_config()
     dev = resolve_device(device)
     ds = OmniglotLike(n_classes=fsl.n_train_classes + fsl.n_test_classes,

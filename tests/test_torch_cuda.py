@@ -341,12 +341,17 @@ def test_engine_on_the_card_matches_the_cpu(dev, mode, fmr):
 # -- the episodic physics of hardware-aware training --------------------------
 
 # (B, N, S, sl, noisy): ragged B and N, S = 33, the unrolled sl = 24 and the
-# generic instance at 13 cells, noisy and noiseless
+# generic instance at 13 cells, noisy and noiseless; the last three span
+# several of the backward kernel's row tiles (32 rows) with a ragged edge,
+# and two of them several query chunks (B > 128), S = 9 a string group of
+# 8 with one string in it
 EPISODE_CASES = [(37, 101, 64, 24, True), (5, 67, 33, 24, True),
                  (12, 40, 64, 13, True), (9, 70, 33, 24, False),
-                 (3, 17, 40, 13, False)]
+                 (3, 17, 40, 13, False), (130, 300, 64, 24, True),
+                 (70, 257, 33, 13, True), (300, 40, 9, 24, True)]
 # backward kernel vs autograd through the plain forward: the same terms,
-# summed in another order (the kernel: over b or n in order; autograd:
+# summed in another order (the kernel: ds over b in order, dq over a
+# warp's rows in a fixed tree, then over row tiles in order; autograd:
 # torch's reductions), so relative to the largest gradient entry
 EPISODE_GRAD_RTOL = 1e-4
 EPISODE_GRAD_MIN_COSINE = 0.99999
@@ -427,6 +432,96 @@ def test_episode_backward_kernel_matches_plain_autograd(dev, b, n, S, sl,
     assert ok, ("ds", why)
 
 
+def test_shifted_grids_take_the_generic_backward_with_close_results(dev):
+    """24-cell grids off an 8-byte boundary take the backward kernel's
+    generic instance (byte loads, another reduction order): dq and ds
+    agree with the plain version as the unrolled instance's do, and with
+    the unrolled instance's on the same values within the same bounds."""
+    q, s, w, gv, gd, qidx = _episode_case(dev, 40, 70, 16, 24, 5)
+    cfg = MCAMConfig(string_len=24, seed=3)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    kw = dict(noisy=True, qidx=qidx, stream=5, tau=0.5)
+
+    def shifted(g):
+        buf = torch.empty(g.numel() + 1, dtype=torch.int8, device=dev)
+        out = buf[1:].view(g.shape)
+        out.copy_(g)
+        return out
+    qs, ss = shifted(q), shifted(s)
+    assert mcam_search.search_instance(24, qs, ss) == 0
+    dq, ds = mcam_episode.episode_backward(qs, ss, gv, gd, w, th, cfg, **kw)
+    uq, us = mcam_episode.episode_backward(q, s, gv, gd, w, th, cfg, **kw)
+    pq, ps = mcam_episode.episode_backward_plain(q, s, gv, gd, w, th, cfg,
+                                                 **kw)
+    torch.cuda.synchronize()
+    for got, want in ((dq, pq), (ds, ps), (dq, uq), (ds, us)):
+        ok, why = _close(got, want)
+        assert ok, why
+
+
+@pytest.fixture
+def trainer_settings(monkeypatch):
+    """The trainer's deterministic settings for one test, then torch's
+    settings as they were."""
+    from repro_torch.launch import train as train_lib
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", train_lib.CUBLAS_WORKSPACE)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    train_lib.make_deterministic()
+    yield
+    torch.use_deterministic_algorithms(saved[0])
+    torch.backends.cudnn.deterministic = saved[1]
+    torch.backends.cudnn.benchmark = saved[2]
+
+
+def test_meta_steps_repeat_bit_for_bit_on_the_card(dev, trainer_settings):
+    """Two runs of `make_hat_train_steps`' meta step from clones of one
+    state (parameters and AdamW state), two steps each on the trainer's
+    step keys, give the same losses and every parameter and optimizer leaf
+    bit for bit."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.omniglot_conv4 import get_smoke_config
+    from repro_torch.data.fsl import EpisodeSampler, OmniglotLike
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.steps import make_hat_train_steps
+    from repro_torch.models.controller import apply_conv4
+    from repro_torch.optim import adamw
+    fsl = get_smoke_config()
+    ds = OmniglotLike(24, image_size=fsl.image_size, seed=0)
+    ep = EpisodeSampler(ds, np.arange(24), n_way=8, k_shot=4, n_query=4,
+                        seed=2).episode(0)
+    opt = adamw(1e-3)
+    _, meta_step, place = make_hat_train_steps(
+        apply_conv4, train_lib.hat_config(fsl), opt, n_way=8, device=dev)
+    arrays = place({f: getattr(ep, f) for f in (
+        "support_images", "support_labels", "query_images",
+        "query_labels")})
+    params = {"backbone": train_lib.init_params(fsl, 24, 0, 16,
+                                                dev)["backbone"]}
+    start = (params, opt.init(params))
+
+    def run():
+        p, st = tree_lib.tree_map(torch.clone, start)
+        losses = []
+        for step in range(2):
+            p, st, loss = meta_step(p, st, arrays,
+                                    train_lib.step_key(0, step))
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        return losses, (p, st)
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    a, b = run(), run()
+    assert np.isfinite(a[0]).all()
+    assert a[0] == b[0]
+    names, xs = tree_lib.flatten_with_names(a[1])
+    differ = [n for n, x, y in zip(names, xs, tree_lib.leaves(b[1]))
+              if not torch.equal(bits(x), bits(y))]
+    assert not differ, differ
+
+
 @pytest.mark.parametrize("mode", ["avss", "svss"])
 def test_episode_votes_on_the_card_match_the_plain_route(dev, mode,
                                                          monkeypatch):
@@ -485,7 +580,8 @@ def test_episode_backward_refuses_what_it_does_not_take(dev):
         mcam_episode.episode_backward(q.float(), s, gv, gd, w, th, cfg, **kw)
 
 
-def test_train_hat_on_the_card_closes_the_loop(dev, tmp_path):
+def test_train_hat_on_the_card_closes_the_loop(dev, tmp_path,
+                                               trainer_settings):
     """The trainer on the card at a few steps of the smoke configuration:
     finite losses, both episodic kernels launched, the served class
     scores equal to the in-training head bit for bit, checkpoints

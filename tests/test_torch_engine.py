@@ -447,7 +447,8 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     assert {"repro_torch.checkpoint.ckpt", "repro_torch.core.hat",
-            "repro_torch.core.kinks", "repro_torch.configs.omniglot_conv4",
+            "repro_torch.core.kinks", "repro_torch.core.prng",
+            "repro_torch.configs.omniglot_conv4",
             "repro_torch.data.fsl", "repro_torch.kernels.mcam_episode",
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.models.controller", "repro_torch.optim.optimizers",

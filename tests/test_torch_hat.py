@@ -13,6 +13,7 @@ convolutions run in oneDNN here and in XLA there.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -595,17 +596,37 @@ def test_configs_match_the_reference():
         assert dataclasses.asdict(a.search) == dataclasses.asdict(b.search)
 
 
-def test_train_hat_closes_the_loop_on_the_cpu(tmp_path, capsys):
+@pytest.fixture
+def restore_determinism(monkeypatch):
+    """Put back torch's determinism settings after a test that runs the
+    trainer (`launch.train.make_deterministic` sets them for the process)."""
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    yield
+    torch.use_deterministic_algorithms(saved[0])
+    torch.backends.cudnn.deterministic = saved[1]
+    torch.backends.cudnn.benchmark = saved[2]
+
+
+def test_train_hat_closes_the_loop_on_the_cpu(tmp_path, capsys,
+                                              restore_determinism):
     """`python -m repro_torch.launch.train --hat --device cpu` at a few
     steps: finite losses, served class scores equal the in-training head
     bit for bit, and the controller and store checkpoints restore (the
-    store searches as it did)."""
+    store searches as it did); the trainer turned on its deterministic
+    settings."""
     t_train.main(["--hat", "--device", "cpu", "--hat-pretrain-steps", "2",
                   "--hat-meta-steps", "2", "--hat-n-way", "3",
                   "--hat-k-shot", "2", "--hat-eval-episodes", "1",
                   "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "score bit-parity: True" in out and "parity=True" in out
+    assert torch.are_deterministic_algorithms_enabled()
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == t_train.CUBLAS_WORKSPACE
     fsl = t_configs.get_smoke_config()
     target = {"params": {"backbone": t_ctrl.init_conv4(
         0, width=32, embed_dim=fsl.embed_dim)}}

@@ -491,3 +491,21 @@ def test_cuda_request_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build(("mcam_dist",))
     assert not _build.BUILD_DIR.exists()
+
+
+@pytest.mark.parametrize("B,N", [(800, 2000), (80, 200), (130, 300),
+                                 (70, 257), (300, 40), (1, 1), (0, 5),
+                                 (5, 0), (16383, 33), (20000, 7)])
+def test_episode_tiling_covers_every_query_and_row(B, N):
+    """The backward kernel's tiling: the row tiles cover the N rows, the
+    query chunks cover the B queries, none is empty, and a chunk is at
+    most QUERY_CHUNK queries (the kernel's shared-memory hash prefixes);
+    at the paper's episode 63 tiles and 7 chunks of 115 queries."""
+    from repro_torch.kernels import mcam_episode
+    tiles, chunks, per = mcam_episode.episode_tiling(B, N)
+    assert tiles * mcam_episode.ROW_TILE >= N > (tiles - 1) * 32 or N == 0
+    assert 1 <= per <= mcam_episode.QUERY_CHUNK
+    assert chunks * per >= B and (chunks == 0) == (B == 0)
+    assert chunks == 0 or (chunks - 1) * per < B      # the last is not empty
+    if (B, N) == (800, 2000):
+        assert (tiles, chunks, per) == (63, 7, 115)
