@@ -20,6 +20,15 @@ store of 65,536 supports (4,096 classes x 16 shots):
                 the whole (256 x N) matrix, then the exact key selection
   5. full       16 queries against every row: dense physics kernel
 
+Then the same path at the paper's CUB geometry:
+
+  [cub-serve]  d = 480, MTMC CL = 25 (500 strings of 24 cells a support,
+               480-word packed rows, a 1,920-deep LUT product) on a store
+               of the same size: two_phase (fused), ideal, two_phase on
+               mxu and full (B = 4), each path with its launch counts, top-1
+               accuracy >= MIN_ACCURACY, and each kernel held against its
+               plain version bit for bit (a row each, `<kernel>_cub`)
+
 Then hardware-aware training (paper Sec. 3.3):
 
   6. [episode]  a 20-way 10-shot episode with 4 queries a class (B = 80,
@@ -57,6 +66,25 @@ Then hardware-aware training (paper Sec. 3.3):
                 the restored store searching to the same bits. The
                 backward kernel is held against its plain version at this
                 width (the plain version runs in row blocks).
+  8. [cub]      the same at the paper's CUB width (`configs/cub_resnet12`:
+                50-way 5-shot, d = 480, MTMC CL = 25, 4 queries a class:
+                B = 200, N = 250, 500 strings a support), ResNet12 (64,
+                160, 320, 640) on 84x84x3 CUB-like images:
+                CUB_PRETRAIN_STEPS + CUB_META_STEPS steps repeated bit for
+                bit from the same start, their cost without the settings,
+                the peak memory, train == serve bit for bit, the episodic
+                kernels against their plain versions (row
+                `mcam_episode_cub`), and one profiled meta step (ResNet12
+                against the episodic kernels).
+
+Then the paper's evaluation and the other optimizers:
+
+  9. [paper]    the evaluation twin (`repro_torch.examples.fsl_omniglot`)
+                with full searches and with two_phase on the fused route:
+                every cell of the matrix launched its kernels, the serve
+                check held; the quickstart twin answers 100%
+ 10. [optim]    adamw8bit, adafactor and sgd over a ResNet12 tree on the
+                card against the CPU, within OPTIM_RTOL
 
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -70,7 +98,9 @@ search's votes of that row, and a small store searched on the CPU (plain
 versions) is held against the same store on the card.
 
 Times are medians of CUDA-event (kernels) or synchronised host-clock
-(paths) runs after a warm-up; each kernel row adds `device_ms`, the
+(paths) runs after a warm-up, except the plain versions of the CUB rows
+and of the episodic backward, timed by CUDA events in the one call that
+checks them; each kernel row adds `device_ms`, the
 kernels' own device time from torch.profiler (recording after one call
 it leaves out and a pause), which leaves out the wrapper's host time between
 launches; the backward's row also adds `device_ms_in_step`, its device
@@ -137,6 +167,34 @@ HAT_PRETRAIN_STEPS = HAT_META_STEPS = 3
 # of a step's gradient under each
 DETERMINISM_SETTINGS = ("none", "cudnn", "torch", "trainer")
 DETERMINISM_RUNS = 3
+
+# [cub] (ResNet12 at the paper's CUB width): queries a class, the
+# controller's widths, and the depth it is cut to
+CUB_QUERIES = 4
+CUB_WIDTHS = (64, 160, 320, 640)
+CUB_PRETRAIN_STEPS = CUB_META_STEPS = 2
+# [cub-serve]: queries of two_phase and ideal, and of the full search (its
+# plain version holds (B, rows, 500, 24) temporaries, in row blocks)
+CUB_SERVE_QUERIES, CUB_FULL_QUERIES = 256, 4
+# [paper]: training steps of each run of the evaluation twin
+PAPER_STEPS = 2
+# [optim]: steps of each optimizer, and the agreement of the card with the
+# CPU (tests/test_torch_optim.py's tolerance: of each leaf's largest entry)
+OPTIM_STEPS = 5
+OPTIM_RTOL = 1e-5
+
+# a profiled training step's device time by kind of kernel, by the parts
+# of their names (the first kind that matches): the episodic physics, the
+# controller's convolutions and matrix products (cuDNN's implicit GEMMs,
+# FFT convolutions, layout transposes; cuBLAS), and torch's elementwise
+# and reduction kernels (GroupNorm, ReLU, the STE stack, AdamW)
+STEP_KERNEL_KINDS = {
+    "episodic": ("episode_grad", "search_dense"),
+    "convolution_and_gemm": ("cudnn", "xmma", "gemm", "fft", "conv",
+                             "pointwise_mult_and_sum_complex",
+                             "nhwcToNchw", "nchwToNhwc"),
+    "elementwise_and_reduction": ("elementwise", "reduce", "Reduce"),
+}
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -266,6 +324,19 @@ def run(args, torch) -> int:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def timed(fn):
+        """One call of fn and its time by CUDA events -> (result, ms): for
+        plain versions too slow to run more than the once the comparison
+        needs."""
+        sync()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
 
     def device_ms(fn, part, reps=REPS, sessions=3):
         """Device time per call of the kernels whose name holds `part`
@@ -656,14 +727,29 @@ def run(args, torch) -> int:
         if not same or vag < 0.99:
             fail(f"card vs CPU on a {m}-row store: {req}")
 
-    # -- hardware-aware training ---------------------------------------------
     timing = argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
                                 host_ms=host_ms, event_ms=event_ms,
-                                device_ms=device_ms)
+                                device_ms=device_ms, timed=timed, row=row)
+
+    # -- the serving path at the paper's CUB geometry ------------------------
+    cub_serve = run_cub_serve(timing, args, launches)
+    path_ms.update(cub_serve.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
+    # -- hardware-aware training ---------------------------------------------
     train_lib.make_deterministic()
     episode = run_episode(timing, args.seed)
     hat = run_hat(timing, args, launches)
     path_ms.update(hat.pop("phases_ms"))
+    torch.cuda.empty_cache()
+    cub = run_cub(timing, args, launches)
+    path_ms.update(cub.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
+    # -- the paper's evaluation, and the other optimizers --------------------
+    paper = run_paper(timing, launches)
+    path_ms.update(paper.pop("phases_ms"))
+    optim = run_optim(timing, args)
     bwd = hat["backward"]
     row("mcam_episode", "mcam_episode.cu",
         "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
@@ -677,16 +763,241 @@ def run(args, torch) -> int:
         resources_sum=resources.get("episode_grad_sum"),
         shape=bwd["shape"])
 
-    for r in kernels:       # with the [hat] path's launches
+    for r in kernels:       # with the later paths' launches
         r["launches"] = launches[r["name"]]
     log(json.dumps({"phases_ms": {"program": program_ms, **path_ms},
-                    "accuracy_two_phase": acc, "hat": hat, "card": card}))
+                    "accuracy_two_phase": acc, "hat": hat,
+                    "cub_serve": cub_serve, "cub": cub, "paper": paper,
+                    "optim": optim, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _count(launches: dict, counts: dict, suffix: str = "") -> None:
+    for kname, c in counts.items():
+        launches[kname + suffix] = launches.get(kname + suffix, 0) + c
+
+
+def run_cub_serve(t, args, launches: dict) -> dict:
+    """[cub-serve]: the serving path at the paper's CUB geometry (d = 480,
+    MTMC CL = 25: 20 segments x 25 words = 500 strings of 24 cells a
+    support, 480-word packed rows of 8-bit fields, a 1,920-deep LUT
+    product), on a store of `--capacity` supports (4,096 classes x 16
+    shots), clustered data as the Omniglot serving store. Each path runs
+    with the launch counts zeroed just before it and read just after
+    (counted under `<kernel>_cub`); each kernel is then held against its
+    plain version on the path's inputs, bit for bit, and adds a row to the
+    kernels line."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.configs.cub_resnet12 import get_config
+    from repro_torch.core import avss as avss_lib
+    from repro_torch.core.avss import SearchConfig
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
+    from repro_torch.kernels import shortlist
+
+    fsl = get_config()
+    shots, d, cl = 16, fsl.embed_dim, fsl.cl
+    n = args.capacity
+    classes = n // shots
+    rng = np.random.default_rng(args.seed + 17)
+    centres = rng.standard_normal((classes, d), dtype=np.float32) * 2.0
+    labels_np = np.repeat(np.arange(classes, dtype=np.int32), shots)
+    support_np = centres[labels_np] + 0.3 * rng.standard_normal(
+        (n, d), dtype=np.float32)
+    qcls = rng.choice(classes, size=CUB_SERVE_QUERIES,
+                      replace=classes < CUB_SERVE_QUERIES)
+    queries_np = centres[qcls] + 0.3 * rng.standard_normal(
+        (CUB_SERVE_QUERIES, d), dtype=np.float32)
+    support = torch.from_numpy(support_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+    queries = torch.from_numpy(queries_np).to(dev)
+    qcls_t = torch.from_numpy(qcls.astype(np.int64)).to(dev)
+    del support_np, centres
+    cfg = MemoryConfig(capacity=n, dim=d,
+                       search=SearchConfig("mtmc", cl=cl, mode="avss"))
+    cs = cfg.search
+    engine = RetrievalEngine(cs)
+
+    def program():
+        return MemoryStore.create(cfg).calibrate(support).write(support,
+                                                                labels)
+    program_ms = t.host_ms(program, reps=1)
+    store = program()
+    t.sync()
+    seg, L = store.s_grid.shape[1:3]
+    S, sl = seg * L, store.s_grid.shape[3]
+    if store.pack_bits != 8 or store.proj_packed.shape != (n, d) \
+            or S != 500:
+        fail(f"[cub-serve] pack_bits {store.pack_bits}, packed "
+             f"{tuple(store.proj_packed.shape)}, {S} strings a support")
+    mb = sum(getattr(store, f).numel() * getattr(store, f).element_size()
+             for f in ("values", "proj", "proj_packed", "s_grid")) / 1e6
+    t.log(f"[cub-serve] d={d} mtmc cl={cl} levels={cs.enc.levels} "
+          f"capacity={n} ({classes} classes x {shots} shots), {S} strings "
+          f"of {sl} cells a support; program {program_ms:.2f} ms, store "
+          f"{mb:.1f} MB on the card")
+
+    qf = queries[:CUB_FULL_QUERIES]
+    paths = {
+        "two_phase": (queries, SearchRequest(mode="two_phase", k=64),
+                      ("shortlist", "mcam_rescore")),
+        "ideal": (queries, SearchRequest(mode="ideal", k=64),
+                  ("shortlist",)),
+        "two_phase_mxu": (queries, SearchRequest(
+            mode="two_phase", k=64, backend="mxu", fused_min_rows=n + 1),
+            ("mcam_dist", "mcam_rescore")),
+        "full": (qf, SearchRequest(mode="full"), ("mcam_search",)),
+    }
+    results, path_ms = {}, {}
+    for name, (qs, req, needs) in paths.items():
+        _build.reset_launches()
+        res = engine.search(store, qs, req)
+        t.sync()
+        counts = dict(_build.LAUNCHES)
+        for kname in needs:
+            if counts[kname] < 1:
+                fail(f"[cub-serve] path {name} did not launch kernel "
+                     f"{kname}: {counts}")
+        _count(launches, counts, "_cub")
+        for f in ("votes", "dist"):
+            if not torch.isfinite(getattr(res, f)).all():
+                fail(f"[cub-serve] path {name}: non-finite {f}")
+        results[name] = res
+        path_ms[f"cub_{name}"] = t.host_ms(
+            lambda: engine.search(store, qs, req))
+        t.log(f"[cub-serve {name}] {path_ms[f'cub_{name}']:.3f} ms, "
+              f"launches { {k: v for k, v in counts.items() if v} }")
+    tp, ideal, tpm, full = (results[k] for k in
+                            ("two_phase", "ideal", "two_phase_mxu", "full"))
+    acc = float((tp.predict() == qcls_t).float().mean())
+    acc_full = float((full.predict() == qcls_t[:CUB_FULL_QUERIES])
+                     .float().mean())
+    t.log(f"[cub-serve accuracy] top-1 two_phase {acc:.4f}  full("
+          f"{CUB_FULL_QUERIES}) {acc_full:.4f}")
+    if acc < MIN_ACCURACY:
+        fail(f"[cub-serve] two_phase top-1 accuracy {acc} < {MIN_ACCURACY}")
+    for name, other in (("ideal", ideal), ("two_phase_mxu", tpm)):
+        if not (torch.equal(other.indices, tp.indices)
+                and torch.equal(other.dist, tp.dist)):
+            fail(f"[cub-serve] {name} shortlist differs from the fused one")
+    if not torch.equal(tpm.votes, tp.votes):
+        fail("[cub-serve] two_phase votes differ between fused and mxu")
+    tpf = engine.search(store, qf, SearchRequest(mode="two_phase", k=64))
+    if not torch.equal(torch.take_along_dim(full.votes, tpf.indices, dim=1),
+                       tpf.votes):
+        fail("[cub-serve] two_phase votes differ from the full search's")
+
+    def held(name, kernel, plain):
+        """The kernel's result (tuple or tensor) equals the plain
+        version's bit for bit -> (max abs error, plain ms, kernel out)."""
+        got = kernel()
+        t.sync()
+        want, plain_ms = t.timed(plain)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"[cub-serve] {name} kernel differs from its plain version "
+                 f"by {err}")
+        return err, plain_ms, got
+
+    # phase 1: the shortlist, 480-word rows staged in windows of words
+    qw = store.quantize_queries(queries)
+    valid, packed = store.valid, store.proj_packed
+    nq = CUB_SERVE_QUERIES
+    plan = shortlist.shortlist_plan(nq, n, packed.shape[1], 64)
+
+    def sl_kernel():
+        return shortlist.lut_shortlist(qw, None, 64, valid=valid,
+                                       packed=packed, pack_bits=8)
+    err, plain_ms, _ = held("shortlist", sl_kernel, lambda: (
+        shortlist.lut_shortlist_plain(qw, None, 64, valid=valid,
+                                      packed=packed, pack_bits=8)))
+    q1h_f = ops.query_onehot(qw, torch.float32)
+    proj_f = store.proj.float()
+    pen = torch.where(valid, 0.0, shortlist.SHORTLIST_MASK_PENALTY)[None]
+    t.row("shortlist_cub", "shortlist.cu",
+          "src/repro/kernels/shortlist.py:210", err, t.event_ms(sl_kernel),
+          plain_ms, packed.numel() * 4 + qw.numel() * 4 + n + nq * 64 * 12,
+          nq * n * d, F32_OPS_PER_S, t.event_ms(lambda: torch.sort(
+              torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0]
+              [:, :64]),
+          device_ms=t.device_ms(sl_kernel, "shortlist_"),
+          window=plan.window, row_words=packed.shape[1],
+          shape=f"B={nq} N={n} d={d} packed 8-bit ({packed.shape[1]} words "
+                f"a row, staged {plan.window} at a time) k=64")
+
+    # the LUT product at K = 4d = 1,920
+    q1h = ops.query_onehot(qw, torch.bfloat16)
+    proj = store.proj
+    err, plain_ms, _ = held(
+        "mcam_dist", lambda: mcam_dist.lut_dist_matmul(q1h, proj),
+        lambda: mcam_dist.lut_dist_matmul_plain(q1h, proj))
+    t.row("mcam_dist_cub", "mcam_dist.cu", "src/repro/kernels/mcam_dist.py:32",
+          err, t.event_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj)),
+          plain_ms, (q1h.numel() + proj.numel()) * 2 + nq * n * 4,
+          2 * nq * n * 4 * d, BF16_TENSOR_OPS_PER_S,
+          t.event_ms(lambda: torch.matmul(q1h_f, proj_f.T)),
+          device_ms=t.device_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj),
+                                "lut_dist_"),
+          shape=f"({nq} x {4 * d}) x ({n} x {4 * d})^T bf16 -> f32")
+    del q1h_f, proj_f
+
+    # the physics: dense (full) and gathered (two_phase's rescore)
+    qs = ops.flatten_strings(ops.broadcast_query(avss_lib.layout_query(
+        store.quantize_queries(qf), cs.enc, "avss"), L)).to(
+            torch.int8).contiguous()
+    ss = ops.flatten_strings(store.s_grid)
+    w = cs.enc.weights_array(device=dev).repeat(seg)
+    th = torch.as_tensor(cs.mcam.thresholds(), device=dev)
+
+    def ms_kernel():
+        return mcam_search.mcam_search(qs, ss, w, th, cs.mcam)
+    err, plain_ms, (kv, kdist) = held(
+        "mcam_search", ms_kernel,
+        lambda: mcam_search.mcam_search_plain(qs, ss, w, th, cs.mcam))
+    if not (torch.equal(kv, full.votes) and torch.equal(kdist, full.dist)):
+        fail("[cub-serve] mcam_search kernel != the full search's result")
+    cells = CUB_FULL_QUERIES * n * S * sl
+    t.row("mcam_search_cub", "mcam_search.cu",
+          "src/repro/kernels/mcam_search.py:37", err, t.event_ms(ms_kernel),
+          plain_ms, ss.numel() + qs.numel() + CUB_FULL_QUERIES * n * 8
+          + w.numel() * 4, cells * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+          device_ms=t.device_ms(ms_kernel, "search_dense"),
+          instance=mcam_search.search_instance(sl, qs, ss),
+          shape=f"B={CUB_FULL_QUERIES} N={n} S={S} sl={sl} noisy")
+    qsb = ops.flatten_strings(ops.broadcast_query(avss_lib.layout_query(
+        qw, cs.enc, "avss"), L)).to(torch.int8).contiguous()
+    rows = tp.indices
+
+    def rs_kernel():
+        return mcam_search.mcam_rescore(qsb, ss, rows, w, th, cs.mcam)
+    err, plain_ms, (rk,) = held(
+        "mcam_rescore", rs_kernel,
+        lambda: mcam_search.mcam_rescore_plain(qsb, ss, rows, w, th,
+                                               cs.mcam))
+    if not torch.equal(rk, tp.votes):
+        fail("[cub-serve] mcam_rescore kernel != the two_phase votes")
+    uniq = int(torch.unique(rows).numel())
+    t.row("mcam_rescore_cub", "mcam_search.cu",
+          "src/repro/kernels/mcam_search.py:37", err, t.event_ms(rs_kernel),
+          plain_ms, uniq * S * sl + qsb.numel() + rows.numel() * 16
+          + rk.numel() * 4 + w.numel() * 4,
+          nq * 64 * S * sl * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+          also_replaces="src/repro/kernels/ops.py:186",
+          device_ms=t.device_ms(rs_kernel, "search_gathered"),
+          shape=f"B={nq} k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
+    return {"program_ms": program_ms, "accuracy_two_phase": acc,
+            "accuracy_full": acc_full, "store_mb": mb,
+            "phases_ms": {"cub_program": program_ms, **path_ms}}
 
 
 def _grad_agreement(torch, got, want) -> tuple[float, float, float]:
@@ -790,6 +1101,220 @@ def run_episode(t, seed: int) -> dict:
     return out
 
 
+def _run_steps(t, step_fn, state, inputs):
+    """step_fn over `inputs` (argument tuples) from state = (params,
+    opt_state), each step synchronised and timed -> (params, opt_state),
+    losses, ms."""
+    params, opt = state
+    losses, times = [], []
+    for step_args in inputs:
+        t.sync()
+        t0 = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, *step_args)
+        t.sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return (params, opt), losses, times
+
+
+def _clone(torch, tree):
+    from repro_torch import tree as tree_lib
+    return tree_lib.tree_map(torch.clone, tree)
+
+
+def _differing(torch, a, b) -> list[str]:
+    """Names of the leaves of two trees whose bits differ."""
+    from repro_torch import tree as tree_lib
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    names, xs = tree_lib.flatten_with_names(a)
+    return [nm for nm, x, y in zip(names, xs, tree_lib.leaves(b))
+            if not torch.equal(bits(x), bits(y))]
+
+
+def _apply_settings(torch, name: str) -> None:
+    """One of DETERMINISM_SETTINGS: "trainer" is make_deterministic();
+    "torch" torch's deterministic algorithms alone, "cudnn" cuDNN's
+    deterministic convolutions alone, "none" neither."""
+    from repro_torch.launch import train as train_lib
+    if name == "trainer":
+        train_lib.make_deterministic()
+        return
+    torch.use_deterministic_algorithms(name == "torch")
+    torch.backends.cudnn.deterministic = name == "cudnn"
+    torch.backends.cudnn.benchmark = False
+
+
+def _repeat_bit_for_bit(t, phase, pre_step, meta_step, pre_start,
+                        meta_start, batches, meta_inputs, first):
+    """The cost of the trainer's settings and whether they repeat a run:
+    the pretrain and meta steps from clones of the same start without the
+    settings, then with them again, which must give the first run's
+    (losses, (params, opt_state)) of each stage bit for bit. Returns the
+    step times without the settings and again with them."""
+    torch = t.torch
+    _apply_settings(torch, "none")
+    _, _, pre_free = _run_steps(t, pre_step, _clone(torch, pre_start),
+                                batches)
+    _, _, meta_free = _run_steps(t, meta_step, _clone(torch, meta_start),
+                                 meta_inputs)
+    _apply_settings(torch, "trainer")
+    pre_again, pre_again_losses, pre_again_times = _run_steps(
+        t, pre_step, _clone(torch, pre_start), batches)
+    meta_again, meta_again_losses, meta_again_times = _run_steps(
+        t, meta_step, _clone(torch, meta_start), meta_inputs)
+    for stage, (losses, state), again in (
+            ("pretrain", first["pretrain"], (pre_again_losses, pre_again)),
+            ("meta", first["meta"], (meta_again_losses, meta_again))):
+        leaves = _differing(torch, state, again[1])
+        if losses != again[0] or leaves:
+            fail(f"{phase} a second run of the {stage} steps from the same "
+                 f"state differs: losses {losses} vs {again[0]}, leaves "
+                 f"{leaves}")
+    return {"pretrain_free": pre_free, "meta_free": meta_free,
+            "pretrain_again": pre_again_times, "meta_again": meta_again_times}
+
+
+def _served_check(t, phase, apply_fn, backbone, arrays, n_way, hat_cfg):
+    """Train == serve for a trained controller on one episode: the served
+    class-mean votes (`MemoryStore.from_episode` -> `search(full,
+    noisy=False)`) must equal `episode_scores(noisy=False)` bit for bit;
+    the two launch the dense kernel once each and the backward never.
+    Returns (engine, support and query embeddings, store, the full
+    request, the launches, the served accuracy on the episode)."""
+    torch = t.torch
+    from repro_torch.core.avss import class_mean_votes
+    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build
+    cs = hat_cfg.search
+    _build.reset_launches()
+    eng = RetrievalEngine(cs)
+    s_lab = arrays["support_labels"]
+    with torch.no_grad():
+        s_emb = apply_fn(backbone, arrays["support_images"])
+        q_emb = apply_fn(backbone, arrays["query_images"])
+        scores = eng.episode_scores(q_emb, s_emb, s_lab, n_way,
+                                    clip_std=hat_cfg.clip_std,
+                                    sa_tau=hat_cfg.sa_tau, noisy=False)
+        store = MemoryStore.from_episode(s_emb, q_emb, s_lab, cs,
+                                         clip_std=hat_cfg.clip_std)
+        full_req = SearchRequest(mode="full", noisy=False)
+        res = eng.search(store, q_emb, full_req)
+        served = class_mean_votes(res.votes, store.labels, n_way)
+    t.sync()
+    counts = dict(_build.LAUNCHES)
+    if (counts["mcam_search"], counts["mcam_episode"]) != (2, 0):
+        fail(f"{phase} episode_scores + search(full) launched {counts}; "
+             f"expected mcam_search twice and mcam_episode never")
+    if store.device.type != t.dev.type:
+        fail(f"{phase} store on {store.device}, expected the card")
+    if not torch.equal(scores, served):
+        bad = int((scores != served).sum())
+        fail(f"{phase} served class scores differ from episode_scores in "
+             f"{bad} of {scores.numel()}")
+    acc = float((served.argmax(-1) == arrays["query_labels"]).float().mean())
+    return eng, s_emb, q_emb, store, full_req, counts, acc
+
+
+def _episode_kernels(t, phase, eng, q_emb, s_emb, arrays, n_way, hat_cfg,
+                     stream) -> dict:
+    """The episodic kernels on a trained controller's episode: the dense
+    forward with the noise stream `stream` against its plain version bit
+    for bit, and the backward on the meta loss's gradient of the votes
+    against its plain version (`_check_backward`), then their times.
+    Returns the backward's row fields and the forward's times."""
+    torch = t.torch
+    from repro_torch.core.avss import class_mean_votes
+    from repro_torch.core.hat import cross_entropy
+    from repro_torch.kernels import mcam_episode, mcam_search
+    mcfg = hat_cfg.search.mcam
+    with torch.no_grad():
+        q, s, w, th = eng.episode_grids(q_emb, s_emb,
+                                        clip_std=hat_cfg.clip_std)
+    q8, s8 = q.to(torch.int8).contiguous(), s.to(torch.int8).contiguous()
+    (B, S, sl), N = q8.shape, s8.shape[0]
+    votes = mcam_search.mcam_search(q8, s8, w, th, mcfg, stream=stream)[0]
+    t.sync()
+    pv = mcam_search.mcam_search_plain(q8, s8, w, th, mcfg, stream=stream)[0]
+    t.sync()
+    if not torch.equal(votes, pv):
+        fail(f"{phase} stream forward != plain at this width")
+    v_leaf = votes.clone().requires_grad_(True)
+    with torch.enable_grad():
+        loss = cross_entropy(torch.div(
+            class_mean_votes(v_leaf, arrays["support_labels"], n_way),
+            torch.tensor(hat_cfg.temperature, device=t.dev)),
+            arrays["query_labels"])
+        (gv,) = torch.autograd.grad(loss, v_leaf)
+    gd = torch.zeros_like(gv)
+    agree = _check_backward(t, phase, q8, s8, gv, gd, w, th, mcfg, stream,
+                            hat_cfg.sa_tau)
+    kw = dict(noisy=True, stream=stream, tau=hat_cfg.sa_tau)
+
+    def bwd():
+        return mcam_episode.episode_backward(q8, s8, gv, gd, w, th, mcfg,
+                                             **kw)
+
+    def fwd():
+        return mcam_search.mcam_search(q8, s8, w, th, mcfg, stream=stream)
+    _, plain_ms = t.timed(lambda: mcam_episode.episode_backward_plain(
+        q8, s8, gv, gd, w, th, mcfg, **kw))
+    cells = B * N * S * sl
+    return {"shape": f"B={B} N={N} S={S} sl={sl} noisy, stream (one meta "
+                     f"step)",
+            "cells": cells, "ms": t.event_ms(bwd),
+            "device_ms": t.device_ms(bwd, "episode_grad"),
+            "plain_ms": plain_ms,
+            "max_abs_err": max(a["max_abs_err"] for a in agree.values()),
+            "max_rel_err": max(a["max_rel_err"] for a in agree.values()),
+            "cosine": min(a["cosine"] for a in agree.values()),
+            "bytes": q8.numel() + s8.numel() + 2 * gv.numel() * 4
+            + (q8.numel() + s8.numel()) * 4 + w.numel() * 4,
+            "tiling": mcam_episode.episode_tiling(B, N),
+            "agreement": agree,
+            "forward": {"ms": t.event_ms(fwd),
+                        "device_ms": t.device_ms(fwd, "search_dense")}}
+
+
+def _profile_step(t, step_fn, *step_args) -> dict:
+    """One more step under torch.profiler, after one it leaves out and a
+    pause (as device_ms does): its wall time, the device time of each
+    kernel, the device's busy share, and the episodic kernels' part."""
+    torch = t.torch
+    prof = torch.profiler
+    t.sync()
+    with prof.profile(activities=[prof.ProfilerActivity.CPU,
+                                  prof.ProfilerActivity.CUDA],
+                      schedule=prof.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as pr:
+        for i in range(2):
+            if i == 1:
+                time.sleep(PROFILER_SETTLE_S)
+            t0 = time.perf_counter()
+            step_fn(*step_args)
+            t.sync()
+            wall = (time.perf_counter() - t0) * 1e3
+            pr.step()
+    on_device = [(e.key, e.device_time_total / 1e3) for e in pr.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith("ProfilerStep")]
+    busy = sum(ms for _, ms in on_device)
+    backward = sum(ms for k, ms in on_device if "episode_grad" in k)
+    forward = sum(ms for k, ms in on_device if "search_dense" in k)
+    by_kind = {kind: 0.0 for kind in (*STEP_KERNEL_KINDS, "other")}
+    for k, ms in on_device:
+        kind = next((kind for kind, parts in STEP_KERNEL_KINDS.items()
+                     if any(part in k for part in parts)), "other")
+        by_kind[kind] += ms
+    return {"wall_ms": wall, "device_ms": busy,
+            "busy_share": busy / wall if wall else None,
+            "backward_device_ms": backward, "forward_device_ms": forward,
+            "device_ms_by_kind": by_kind,
+            "top": [(k[:80], ms) for k, ms in sorted(
+                on_device, key=lambda kv: -kv[1])[:12]]}
+
+
 def run_hat(t, args, launches: dict) -> dict:
     """[hat]: the trainer at the paper's full Omniglot width, then the
     trained controller served and checkpointed."""
@@ -800,13 +1325,11 @@ def run_hat(t, args, launches: dict) -> dict:
     from repro_torch.checkpoint.ckpt import CheckpointManager
     from repro_torch.configs.omniglot_conv4 import get_config
     from repro_torch.core import hat as hat_lib
-    from repro_torch.core.avss import class_mean_votes
-    from repro_torch.core.hat import cross_entropy
     from repro_torch.data.fsl import (EpisodeSampler, OmniglotLike,
                                       pretrain_batch)
-    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    from repro_torch.engine import MemoryStore, SearchRequest
     from repro_torch.engine.engine import noise_stream
-    from repro_torch.kernels import _build, mcam_episode, mcam_search
+    from repro_torch.kernels import _build
     from repro_torch.launch import train as train_lib
     from repro_torch.launch.steps import make_hat_train_steps
     from repro_torch.models.controller import apply_conv4
@@ -832,43 +1355,6 @@ def run_hat(t, args, launches: dict) -> dict:
           f"{cs.mcam.sigma_device} sigma_read={cs.mcam.sigma_read}, Conv4 "
           f"width {width}, {fsl.image_size}x{fsl.image_size} images")
 
-    def run_steps(step_fn, state, inputs):
-        """step_fn over `inputs` (argument tuples) from state = (params,
-        opt_state), each step synchronised and timed -> (params,
-        opt_state), losses, ms."""
-        params, opt = state
-        losses, times = [], []
-        for step_args in inputs:
-            t.sync()
-            t0 = time.perf_counter()
-            params, opt, loss = step_fn(params, opt, *step_args)
-            t.sync()
-            times.append((time.perf_counter() - t0) * 1e3)
-            losses.append(float(loss))
-        return (params, opt), losses, times
-
-    def clone(tree):
-        return tree_lib.tree_map(torch.clone, tree)
-
-    def differing(a, b) -> list[str]:
-        """Names of the leaves of two trees whose bits differ."""
-        def bits(x):
-            return x.view(torch.int32) if x.dtype == torch.float32 else x
-        names, xs = tree_lib.flatten_with_names(a)
-        return [nm for nm, x, y in zip(names, xs, tree_lib.leaves(b))
-                if not torch.equal(bits(x), bits(y))]
-
-    def apply_settings(name: str) -> None:
-        """One of DETERMINISM_SETTINGS: "trainer" is make_deterministic();
-        "torch" torch's deterministic algorithms alone, "cudnn" cuDNN's
-        deterministic convolutions alone, "none" neither."""
-        if name == "trainer":
-            train_lib.make_deterministic()
-            return
-        torch.use_deterministic_algorithms(name == "torch")
-        torch.backends.cudnn.deterministic = name == "cudnn"
-        torch.backends.cudnn.benchmark = False
-
     # one full-width episode, made once on the host and reused
     t0 = time.perf_counter()
     ep = EpisodeSampler(ds, train_ids, n_way=fsl.n_way, k_shot=fsl.k_shot,
@@ -891,7 +1377,7 @@ def run_hat(t, args, launches: dict) -> dict:
     episode = {**arrays, "n_way": fsl.n_way}
     probe = {}
     for name in DETERMINISM_SETTINGS:
-        apply_settings(name)
+        _apply_settings(torch, name)
         runs = {"pretrain": [hat_lib.value_and_grad(
                     hat_lib.pretrain_loss, params, batches[0][0],
                     apply_conv4) for _ in range(DETERMINISM_RUNS)],
@@ -902,8 +1388,9 @@ def run_hat(t, args, launches: dict) -> dict:
         t.sync()
         probe[name] = {
             stage: sorted({nm for loss, g in r[1:]
-                           for nm in differing({"loss": r[0][0], **r[0][1]},
-                                               {"loss": loss, **g})})
+                           for nm in _differing(torch,
+                                                {"loss": r[0][0], **r[0][1]},
+                                                {"loss": loss, **g})})
             for stage, r in runs.items()}
     train_lib.make_deterministic()
     t.log(f"[determinism] leaves (and the loss) of a first step's gradient "
@@ -913,8 +1400,8 @@ def run_hat(t, args, launches: dict) -> dict:
              f"differs between runs: {probe['trainer']}")
 
     # stage 1: pretrain steps (batch 32 over the training classes)
-    pre_state, pre_losses, pre_times = run_steps(pre_step, clone(pre_start),
-                                                 batches)
+    pre_state, pre_losses, pre_times = _run_steps(
+        t, pre_step, _clone(torch, pre_start), batches)
     params = pre_state[0]
     if not all(np.isfinite(pre_losses)):
         fail(f"[hat] non-finite pretrain loss: {pre_losses}")
@@ -924,10 +1411,8 @@ def run_hat(t, args, launches: dict) -> dict:
     meta_start = ({"backbone": params["backbone"]},
                   meta_opt.init({"backbone": params["backbone"]}))
     _build.reset_launches()
-    meta_state, meta_losses, meta_times = run_steps(
-        meta_step, clone(meta_start), meta_inputs)
-    meta_params, opt_state2 = meta_state
-    t.sync()
+    meta_state, meta_losses, meta_times = _run_steps(
+        t, meta_step, _clone(torch, meta_start), meta_inputs)
     meta_counts = dict(_build.LAUNCHES)
     want = {"mcam_search": HAT_META_STEPS, "mcam_episode": HAT_META_STEPS}
     if {k: meta_counts[k] for k in want} != want:
@@ -938,25 +1423,14 @@ def run_hat(t, args, launches: dict) -> dict:
 
     # the cost of the settings: the same steps from the same start without
     # them, then with them again, which must repeat the first run's bits
-    apply_settings("none")
-    _, _, pre_free_times = run_steps(pre_step, clone(pre_start), batches)
-    _, _, meta_free_times = run_steps(meta_step, clone(meta_start),
-                                      meta_inputs)
-    train_lib.make_deterministic()
-    pre_again, pre_again_losses, pre_again_times = run_steps(
-        pre_step, clone(pre_start), batches)
-    meta_again, meta_again_losses, meta_again_times = run_steps(
-        meta_step, clone(meta_start), meta_inputs)
-    for stage, first, again in (
-            ("pretrain", (pre_losses, pre_state),
-             (pre_again_losses, pre_again)),
-            ("meta", (meta_losses, meta_state),
-             (meta_again_losses, meta_again))):
-        leaves = differing(first[1], again[1])
-        if first[0] != again[0] or leaves:
-            fail(f"[hat] a second run of the {stage} steps from the same "
-                 f"state differs: losses {first[0]} vs {again[0]}, leaves "
-                 f"{leaves}")
+    rerun = _repeat_bit_for_bit(
+        t, "[hat]", pre_step, meta_step, pre_start, meta_start, batches,
+        meta_inputs, {"pretrain": (pre_losses, pre_state),
+                      "meta": (meta_losses, meta_state)})
+    pre_free_times, meta_free_times = rerun["pretrain_free"], \
+        rerun["meta_free"]
+    pre_again_times, meta_again_times = rerun["pretrain_again"], \
+        rerun["meta_again"]
     t.log(f"[hat] a second run of the pretrain and meta steps from a clone "
           f"of the same start gives the same losses and parameter and "
           f"optimizer leaves bit for bit; step ms with the trainer's "
@@ -964,38 +1438,14 @@ def run_hat(t, args, launches: dict) -> dict:
           f"{meta_times} then {meta_again_times}; without them: pretrain "
           f"{pre_free_times}, meta {meta_free_times}")
 
-    # the served evaluation, counted on its own: episode_scores and
-    # search(full) launch the dense kernel once each
-    _build.reset_launches()
-    eng = RetrievalEngine(cs)
-    backbone = meta_params["backbone"]
-    s_lab, q_lab = arrays["support_labels"], arrays["query_labels"]
-    with torch.no_grad():
-        s_emb = apply_conv4(backbone, arrays["support_images"])
-        q_emb = apply_conv4(backbone, arrays["query_images"])
-        scores = eng.episode_scores(q_emb, s_emb, s_lab, fsl.n_way,
-                                    clip_std=hat_cfg.clip_std,
-                                    sa_tau=hat_cfg.sa_tau, noisy=False)
-        store = MemoryStore.from_episode(s_emb, q_emb, s_lab, cs,
-                                         clip_std=hat_cfg.clip_std)
-        full_req = SearchRequest(mode="full", noisy=False)
-        res = eng.search(store, q_emb, full_req)
-        served = class_mean_votes(res.votes, store.labels, fsl.n_way)
-    t.sync()
-    served_counts = dict(_build.LAUNCHES)
-    if (served_counts["mcam_search"], served_counts["mcam_episode"]) != (2, 0):
-        fail(f"[hat] episode_scores + search(full) launched {served_counts}; "
-             f"expected mcam_search twice and mcam_episode never")
+    # the served evaluation, counted on its own
+    meta_params, opt_state2 = meta_state
+    eng, s_emb, q_emb, store, full_req, served_counts, acc = _served_check(
+        t, "[hat]", apply_conv4, meta_params["backbone"], arrays, fsl.n_way,
+        hat_cfg)
     for counts in (meta_counts, served_counts):
         for kname, c in counts.items():
             launches[kname] += c
-    if store.device.type != dev.type:
-        fail(f"[hat] store on {store.device}, expected the card")
-    if not torch.equal(scores, served):
-        bad = int((scores != served).sum())
-        fail(f"[hat] served class scores differ from episode_scores in "
-             f"{bad} of {scores.numel()}")
-    acc = float((served.argmax(-1) == q_lab).float().mean())
     t.log(f"[hat] losses pretrain {pre_losses} meta {meta_losses}; launches "
           f"in the meta steps "
           f"{ {k: v for k, v in meta_counts.items() if v} }, in the served "
@@ -1029,85 +1479,18 @@ def run_hat(t, args, launches: dict) -> dict:
           "leaves are equal")
 
     # the episodic kernels at this width, on this step's inputs: the
-    # forward with the step's stream bit for bit, and the backward on the
-    # meta loss's gradient of the votes, against their plain versions
-    stream = noise_stream(train_lib.step_key(args.seed, HAT_META_STEPS))
-    with torch.no_grad():
-        q, s, w, th = eng.episode_grids(q_emb, s_emb,
-                                        clip_std=hat_cfg.clip_std)
-    q8, s8 = q.to(torch.int8).contiguous(), s.to(torch.int8).contiguous()
-    S, sl = s8.shape[1:]
-    mcfg = cs.mcam
-    votes = mcam_search.mcam_search(q8, s8, w, th, mcfg, stream=stream)[0]
-    t.sync()
-    pv = mcam_search.mcam_search_plain(q8, s8, w, th, mcfg, stream=stream)[0]
-    t.sync()
-    if not torch.equal(votes, pv):
-        fail("[hat] stream forward != plain at full width")
-    v_leaf = votes.clone().requires_grad_(True)
-    with torch.enable_grad():
-        loss = cross_entropy(torch.div(
-            class_mean_votes(v_leaf, s_lab, fsl.n_way),
-            torch.tensor(hat_cfg.temperature)), q_lab)
-        (gv,) = torch.autograd.grad(loss, v_leaf)
-    gd = torch.zeros_like(gv)
-    agree = _check_backward(t, "[hat]", q8, s8, gv, gd, w, th, mcfg, stream,
-                            hat_cfg.sa_tau)
-
-    def bwd():
-        return mcam_episode.episode_backward(q8, s8, gv, gd, w, th, mcfg,
-                                             noisy=True, stream=stream,
-                                             tau=hat_cfg.sa_tau)
-
-    def fwd():
-        return mcam_search.mcam_search(q8, s8, w, th, mcfg, stream=stream)
-
-    def plain():
-        return mcam_episode.episode_backward_plain(
-            q8, s8, gv, gd, w, th, mcfg, noisy=True, stream=stream,
-            tau=hat_cfg.sa_tau)
-    cells = B * N * S * sl
-    backward = {
-        "shape": f"B={B} N={N} S={S} sl={sl} noisy, stream (one meta step)",
-        "cells": cells, "ms": t.event_ms(bwd),
-        "device_ms": t.device_ms(bwd, "episode_grad"),
-        "plain_ms": t.event_ms(plain, reps=1),
-        "max_abs_err": max(a["max_abs_err"] for a in agree.values()),
-        "max_rel_err": max(a["max_rel_err"] for a in agree.values()),
-        "cosine": min(a["cosine"] for a in agree.values()),
-        "bytes": q8.numel() + s8.numel() + 2 * gv.numel() * 4
-        + (q8.numel() + s8.numel()) * 4 + w.numel() * 4}
-    forward = {"ms": t.event_ms(fwd),
-               "device_ms": t.device_ms(fwd, "search_dense")}
-
-    # one more meta step under torch.profiler, after one it leaves out and
-    # a pause (as device_ms does): the device time of each kernel of a
-    # step, and the device's busy share of the step's wall time
-    prof = torch.profiler
-    t.sync()
-    with prof.profile(activities=[prof.ProfilerActivity.CPU,
-                                  prof.ProfilerActivity.CUDA],
-                      schedule=prof.schedule(wait=0, warmup=1, active=1,
-                                             repeat=1)) as pr:
-        for i in range(2):
-            if i == 1:
-                time.sleep(PROFILER_SETTLE_S)
-            t0 = time.perf_counter()
-            meta_step(meta_params, opt_state2, arrays,
-                      train_lib.step_key(args.seed, HAT_META_STEPS))
-            t.sync()
-            wall = (time.perf_counter() - t0) * 1e3
-            pr.step()
-    on_device = [(e.key, e.device_time_total / 1e3) for e in pr.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.key.startswith("ProfilerStep")]
-    busy = sum(ms for _, ms in on_device)
-    backward["device_ms_in_step"] = sum(ms for k, ms in on_device
-                                        if "episode_grad" in k)
-    trace = {"wall_ms": wall, "device_ms": busy,
-             "busy_share": busy / wall if wall else None,
-             "top": [(k[:80], ms) for k, ms in sorted(
-                 on_device, key=lambda kv: -kv[1])[:8]]}
+    # forward with the next step's stream, and the backward on the meta
+    # loss's gradient of the votes, against their plain versions
+    backward = _episode_kernels(
+        t, "[hat]", eng, q_emb, s_emb, arrays, fsl.n_way, hat_cfg,
+        noise_stream(train_lib.step_key(args.seed, HAT_META_STEPS)))
+    forward = backward.pop("forward")
+    agree = backward.pop("agreement")
+    cells = backward["cells"]
+    trace = _profile_step(t, meta_step, meta_params, opt_state2, arrays,
+                          train_lib.step_key(args.seed, HAT_META_STEPS))
+    backward["device_ms_in_step"] = trace["backward_device_ms"]
+    wall, busy = trace["wall_ms"], trace["device_ms"]
     out = {"pretrain_losses": pre_losses, "meta_losses": meta_losses,
            "pretrain_step_ms": pre_times, "meta_step_ms": meta_times,
            "pretrain_step_ms_again": pre_again_times,
@@ -1130,6 +1513,309 @@ def run_hat(t, args, launches: dict) -> dict:
     t.log(f"[hat] one meta step under torch.profiler: wall {wall:.1f} ms, "
           f"device busy {busy:.1f} ms; kernels by device time "
           f"{trace['top']}")
+    return out
+
+
+def run_cub(t, args, launches: dict) -> dict:
+    """[cub]: hardware-aware training at the paper's CUB width: ResNet12
+    (widths CUB_WIDTHS, 480-d embeddings) on 84x84x3 CUB-like images,
+    `cub_resnet12.get_config()` (50-way 5-shot, MTMC CL = 25, AVSS; 4
+    queries a class: B = 200, N = 250, S = 500), the trainer's HAT
+    setting (`launch/train.hat_config`) and step keys, composed with
+    `make_hat_train_steps(apply_resnet12, ...)` as the reference's
+    bench_hat composes its own controller. Cut in depth only:
+    CUB_PRETRAIN_STEPS pretrain and CUB_META_STEPS meta steps on one
+    episode, under the trainer's deterministic settings, run again from
+    clones of the same start without them (their cost) and with them
+    (every loss and leaf bit for bit). Then the trained controller serves
+    (train == serve bit for bit), and the episodic kernels are held against
+    their plain versions at this width."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.configs.cub_resnet12 import get_config
+    from repro_torch.data.fsl import CUBLike, EpisodeSampler, pretrain_batch
+    from repro_torch.engine.engine import noise_stream
+    from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.steps import make_hat_train_steps
+    from repro_torch.models.controller import apply_resnet12, init_resnet12
+    from repro_torch.optim import adamw
+
+    fsl = get_config()
+    hat_cfg = train_lib.hat_config(fsl)
+    cs = hat_cfg.search
+    B, N = fsl.n_way * CUB_QUERIES, fsl.n_way * fsl.k_shot
+    ds = CUBLike(n_classes=fsl.n_train_classes + fsl.n_test_classes,
+                 image_size=fsl.image_size, seed=0)
+    train_ids = np.arange(fsl.n_train_classes)
+    pre_opt = adamw(1e-3, weight_decay=1e-4)
+    meta_opt = adamw(1e-4, weight_decay=1e-4)
+    pre_step, meta_step, place = make_hat_train_steps(
+        apply_resnet12, hat_cfg, pre_opt, meta_opt, n_way=fsl.n_way,
+        device=dev)
+    # the trainer's head (launch/train.init_params) over a ResNet12
+    rng = np.random.default_rng(args.seed + 1)
+    params = {"backbone": init_resnet12(args.seed, in_ch=fsl.channels,
+                                        widths=CUB_WIDTHS,
+                                        embed_dim=fsl.embed_dim, device=dev),
+              "head": {"w": torch.as_tensor(
+                  rng.standard_normal((fsl.embed_dim, len(train_ids)))
+                  * 0.05, dtype=torch.float32, device=dev),
+                  "b": torch.zeros(len(train_ids), device=dev)}}
+    t.log(f"[cub] {fsl.name}: {fsl.n_way}-way {fsl.k_shot}-shot, "
+          f"{CUB_QUERIES} queries a class (B={B}, N={N}), d={fsl.embed_dim}, "
+          f"mtmc cl={fsl.cl} {cs.mode}, sigma_device={cs.mcam.sigma_device} "
+          f"sigma_read={cs.mcam.sigma_read}, ResNet12 {CUB_WIDTHS}, "
+          f"{fsl.image_size}x{fsl.image_size}x{fsl.channels} images")
+
+    t0 = time.perf_counter()
+    ep = EpisodeSampler(ds, train_ids, n_way=fsl.n_way, k_shot=fsl.k_shot,
+                        n_query=CUB_QUERIES, seed=11 + args.seed).episode(0)
+    episode_host_ms = (time.perf_counter() - t0) * 1e3
+    arrays = place({"support_images": ep.support_images,
+                    "support_labels": ep.support_labels,
+                    "query_images": ep.query_images,
+                    "query_labels": ep.query_labels})
+    batches = [(place(pretrain_batch(ds, train_ids, batch=32, step=step)),)
+               for step in range(CUB_PRETRAIN_STEPS)]
+    meta_inputs = [(arrays, train_lib.step_key(args.seed, step))
+                   for step in range(CUB_META_STEPS)]
+    pre_start = (params, pre_opt.init(params))
+
+    _apply_settings(torch, "trainer")
+    pre_state, pre_losses, pre_times = _run_steps(
+        t, pre_step, _clone(torch, pre_start), batches)
+    if not all(np.isfinite(pre_losses)):
+        fail(f"[cub] non-finite pretrain loss: {pre_losses}")
+    backbone = {"backbone": pre_state[0]["backbone"]}
+    meta_start = (backbone, meta_opt.init(backbone))
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    meta_state, meta_losses, meta_times = _run_steps(
+        t, meta_step, _clone(torch, meta_start), meta_inputs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    meta_counts = dict(_build.LAUNCHES)
+    want = {"mcam_search": CUB_META_STEPS, "mcam_episode": CUB_META_STEPS}
+    if {k: meta_counts[k] for k in want} != want:
+        fail(f"[cub] {CUB_META_STEPS} meta steps launched {meta_counts}; "
+             f"expected {want}")
+    if not all(np.isfinite(meta_losses)):
+        fail(f"[cub] non-finite meta loss: {meta_losses}")
+    rerun = _repeat_bit_for_bit(
+        t, "[cub]", pre_step, meta_step, pre_start, meta_start, batches,
+        meta_inputs, {"pretrain": (pre_losses, pre_state),
+                      "meta": (meta_losses, meta_state)})
+    t.log(f"[cub] losses pretrain {pre_losses} meta {meta_losses}; a second "
+          f"run from a clone of the same start repeats every loss and "
+          f"parameter and optimizer leaf bit for bit; step ms with the "
+          f"trainer's settings: pretrain {pre_times} then "
+          f"{rerun['pretrain_again']}, meta {meta_times} then "
+          f"{rerun['meta_again']}; without them: pretrain "
+          f"{rerun['pretrain_free']}, meta {rerun['meta_free']}; peak memory "
+          f"of the meta steps {peak_gb:.2f} GB; episode made on the host in "
+          f"{episode_host_ms:.0f} ms")
+
+    # train == serve, then the episodic kernels at this width on the
+    # trained controller's episode, then one profiled meta step
+    meta_params, opt_state2 = meta_state
+    eng, s_emb, q_emb, _, _, _, acc = _served_check(
+        t, "[cub]", apply_resnet12, meta_params["backbone"], arrays,
+        fsl.n_way, hat_cfg)
+    _count(launches, meta_counts, "_cub")
+    bwd = _episode_kernels(
+        t, "[cub]", eng, q_emb, s_emb, arrays, fsl.n_way, hat_cfg,
+        noise_stream(train_lib.step_key(args.seed, CUB_META_STEPS)))
+    agree = bwd.pop("agreement")
+    t.row("mcam_episode_cub", "mcam_episode.cu",
+          "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
+          bwd["max_abs_err"], bwd["ms"], bwd["plain_ms"], bwd["bytes"],
+          bwd["cells"] * EPISODE_BACKWARD_OPS_PER_CELL, F32_OPS_PER_S, None,
+          device_ms=bwd["device_ms"], max_rel_err=bwd["max_rel_err"],
+          cosine=bwd["cosine"], tiling=bwd["tiling"],
+          forward_ms=bwd["forward"]["ms"],
+          forward_device_ms=bwd["forward"]["device_ms"],
+          shape=bwd["shape"].replace("one meta step", "one CUB meta step"))
+    trace = _profile_step(t, meta_step, meta_params, opt_state2, arrays,
+                          train_lib.step_key(args.seed, CUB_META_STEPS))
+    t.log(f"[cub] train == serve: class-mean votes of search(full) == "
+          f"episode_scores bit for bit ({B} x {fsl.n_way}), served accuracy "
+          f"on the episode {acc:.4f}; backward vs plain {agree}; one meta "
+          f"step under torch.profiler: wall {trace['wall_ms']:.1f} ms, "
+          f"device busy {trace['device_ms']:.1f} ms, of which the dense "
+          f"forward {trace['forward_device_ms']:.2f} ms and the backward "
+          f"{trace['backward_device_ms']:.2f} ms; by kind "
+          f"{trace['device_ms_by_kind']}; kernels by device time "
+          f"{trace['top']}")
+    return {"pretrain_losses": pre_losses, "meta_losses": meta_losses,
+            "pretrain_step_ms": pre_times, "meta_step_ms": meta_times,
+            "pretrain_step_ms_again": rerun["pretrain_again"],
+            "meta_step_ms_again": rerun["meta_again"],
+            "pretrain_step_ms_without_settings": rerun["pretrain_free"],
+            "meta_step_ms_without_settings": rerun["meta_free"],
+            "meta_peak_memory_gb": peak_gb, "served_accuracy": acc,
+            "episode_host_ms": episode_host_ms, "agreement": agree,
+            "meta_step_trace": trace,
+            "phases_ms": {"cub_meta_step": statistics.median(meta_times),
+                          "cub_pretrain_step": statistics.median(pre_times)}}
+
+
+def run_paper(t, launches: dict) -> dict:
+    """[paper]: the paper's evaluation on the card through the port's
+    example twins. `examples.fsl_omniglot.main` at its smoke configuration
+    with PAPER_STEPS + PAPER_STEPS training steps, once with `full`
+    searches and once with `--two-phase-eval --engine-backend fused`; each
+    evaluation cell (std / HAT x MTMC / B4E / SRE under AVSS, HAT MTMC
+    under SVSS and AVSS) runs with the launch counts zeroed just before it
+    and read just after, and must launch its kernels; the serve check must
+    hold. The episodes are deterministic in (seed, index), so each is made
+    once on the host and reused by the cells. Then
+    `examples.quickstart.main`, whose accuracies must be 100%."""
+    import functools
+
+    from repro_torch.data.fsl import EpisodeSampler
+    from repro_torch.examples import fsl_omniglot, quickstart
+    from repro_torch.kernels import _build
+
+    class CachedSampler(EpisodeSampler):
+        @functools.lru_cache(maxsize=None)
+        def episode(self, index):
+            return super().episode(index)
+
+    evaluate = fsl_omniglot.evaluate
+    cells: list = []
+
+    def counted(params, sampler, search_cfg, **kw):
+        _build.reset_launches()
+        out = evaluate(params, sampler, search_cfg, **kw)
+        t.sync()
+        cells.append((search_cfg, kw, dict(_build.LAUNCHES), out))
+        return out
+
+    steps = ["--pretrain-steps", str(PAPER_STEPS), "--meta-steps",
+             str(PAPER_STEPS)]
+    runs, phases_ms = {}, {}
+    saved = fsl_omniglot.evaluate, fsl_omniglot.EpisodeSampler
+    fsl_omniglot.evaluate, fsl_omniglot.EpisodeSampler = counted, \
+        CachedSampler
+    try:
+        for name, extra in (("full", []), ("two_phase_fused", [
+                "--two-phase-eval", "--engine-backend", "fused"])):
+            cells.clear()
+            t0 = time.perf_counter()
+            out = fsl_omniglot.main(steps + extra)
+            t.sync()
+            phases_ms[f"paper_{name}"] = (time.perf_counter() - t0) * 1e3
+            if not out["serve_parity"]:
+                fail(f"[paper] {name}: the serve check printed False")
+            if len(cells) != 8:
+                fail(f"[paper] {name}: {len(cells)} evaluation cells, "
+                     f"expected 8")
+            matrix = {}
+            # main's order: std x 3 codes, HAT x 3 codes, HAT SVSS / AVSS
+            for i, (cfg, kw, counts, (acc, sd)) in enumerate(cells):
+                two = kw.get("two_phase", False)
+                needs = ("shortlist", "mcam_rescore") if two \
+                    else ("mcam_search",)
+                label = (f"{'std' if i < 3 else 'HAT'} {cfg.encoding} "
+                         f"{cfg.mode.upper()} "
+                         f"{'two_phase' if two else 'full'}"
+                         f"{' (SVSS vs AVSS)' if i >= 6 else ''}")
+                if any(counts[k] < 1 for k in needs):
+                    fail(f"[paper] {name}: cell {label} launched {counts}")
+                _count(launches, counts)
+                matrix[label] = {"accuracy": acc, "std": sd, "launches": {
+                    k: v for k, v in counts.items() if v}}
+            runs[name] = {"matrix": matrix, "serve_parity": True}
+            t.log(f"[paper] {name}: {phases_ms[f'paper_{name}']:.0f} ms; "
+                  f"cells (accuracy, std, launches): {matrix}")
+    finally:
+        fsl_omniglot.evaluate, fsl_omniglot.EpisodeSampler = saved
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    accs = quickstart.main([])
+    t.sync()
+    phases_ms["paper_quickstart"] = (time.perf_counter() - t0) * 1e3
+    counts = dict(_build.LAUNCHES)
+    # full: the dense physics; two_phase at 512 rows (< fused_min_rows):
+    # the LUT product, then the gathered physics
+    if any(counts[k] < 1 for k in ("mcam_search", "mcam_dist",
+                                   "mcam_rescore")):
+        fail(f"[paper] quickstart launched {counts}")
+    _count(launches, counts)
+    if accs != {"full": 1.0, "two_phase": 1.0}:
+        fail(f"[paper] quickstart accuracies {accs}, expected 100%")
+    t.log(f"[paper] quickstart: accuracies {accs}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return {"runs": runs, "quickstart": accs, "phases_ms": phases_ms}
+
+
+def run_optim(t, args) -> dict:
+    """[optim]: adamw8bit, adafactor and sgd from `make_optimizer` take
+    OPTIM_STEPS steps over a ResNet12 parameter tree at the paper's widths
+    with fixed gradients (numpy's, from the seed), on the card and on the
+    CPU: every parameter and state leaf (the 8-bit moments dequantized)
+    within OPTIM_RTOL of its largest entry, and every state on the card."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.controller import init_resnet12
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    from repro_torch.optim.optimizers import _dq8, _is_q8
+
+    params = init_resnet12(args.seed, widths=CUB_WIDTHS)
+    rng = np.random.default_rng(args.seed + 29)
+    grads = [tree_lib.tree_map(lambda p: torch.as_tensor(
+        rng.standard_normal(tuple(p.shape), dtype=np.float32) * 1e-2
+        * (1 + step)), params) for step in range(OPTIM_STEPS)]
+    n_params = sum(p.numel() for p in tree_lib.leaves(params))
+
+    def dense(tree):
+        """State leaves as float tensors: 8-bit moments dequantized."""
+        flat = []
+        for leaf in tree_lib.leaves(tree, _is_q8):
+            if isinstance(leaf, dict):
+                flat.append(_dq8(leaf["q"], leaf["s"], leaf["q"].shape))
+            else:
+                flat.append(leaf)
+        return flat
+
+    out = {}
+    for name in ("adamw8bit", "adafactor", "sgd"):
+        results, times = {}, []
+        for device in ("cpu", dev):
+            opt = make_optimizer(name, warmup_cosine(1e-3, 2, 10))
+            p = tree_lib.tree_map(lambda x: x.to(device), params)
+            state = opt.init(p)
+            for g in grads:
+                g = tree_lib.tree_map(lambda x: x.to(device), g)
+                t.sync()
+                t0 = time.perf_counter()
+                upd, state = opt.update(g, state, p)
+                p = tree_lib.tree_map(lambda a, b: a + b, p, upd)
+                t.sync()
+                if device != "cpu":
+                    times.append((time.perf_counter() - t0) * 1e3)
+            results[str(device)] = (p, state)
+        (pc, sc), (pg, sg) = results["cpu"], results[str(dev)]
+        if any(x.device.type != dev.type for x in tree_lib.leaves(sg)):
+            fail(f"[optim] {name}: a state leaf is not on the card")
+        worst, differ = 0.0, 0
+        for a, b in zip(tree_lib.leaves(pg) + dense(sg),
+                        tree_lib.leaves(pc) + dense(sc)):
+            a = a.cpu().float()
+            b = b.float()
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            worst = max(worst, err / scale if scale else err)
+            differ += int((a != b).sum())
+        if worst > OPTIM_RTOL:
+            fail(f"[optim] {name}: the card differs from the CPU by {worst} "
+                 f"of a leaf's largest entry (> {OPTIM_RTOL})")
+        out[name] = {"max_rel_err": worst, "elements_differing": differ,
+                     "step_ms": times}
+    t.log(f"[optim] {n_params} ResNet12 parameters, {OPTIM_STEPS} steps on "
+          f"the card and on the CPU, states on the card: {out}")
     return out
 
 

@@ -44,10 +44,48 @@ class Encoding:
         in the dtype of `values`."""
         return _ENCODERS[self.name](torch.as_tensor(values), self.cl)
 
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """(..., length) code words -> (...,) values; the inverse of
+        `encode`. The result's dtype is the reference's: MTMC and B4E sum,
+        which widens integer codes narrower than int32 to int32 (JAX's
+        default integer); SRE and B4WE keep the codes' dtype. Rounding is
+        half to even in both packages."""
+        codes = torch.as_tensor(codes)
+        if self.name == "mtmc":
+            return codes.sum(-1, dtype=_sum_dtype(codes.dtype))
+        if self.name == "sre":
+            # all words equal; the rounded mean is robust to perturbation
+            return torch.round(codes.to(torch.float32).mean(-1)).to(
+                codes.dtype)
+        if self.name == "b4e":
+            w = torch.tensor(self.weights, device=codes.device).to(
+                codes.dtype)
+            return (codes * w).sum(-1, dtype=_sum_dtype(codes.dtype))
+        # b4we: significance j appears 4**j times, MSB group first: each
+        # digit is its group's rounded mean
+        vals = torch.zeros(codes.shape[:-1], dtype=codes.dtype,
+                           device=codes.device)
+        idx = 0
+        for j in reversed(range(self.cl)):
+            rep = CELL_STATES**j
+            digit = torch.round(
+                codes[..., idx:idx + rep].to(torch.float32).mean(-1))
+            vals = vals + digit.to(codes.dtype) * (CELL_STATES**j)
+            idx += rep
+        return vals
+
     def weights_array(self, dtype=torch.float32,
                       device: torch.device | str | None = None
                       ) -> torch.Tensor:
         return torch.tensor(self.weights, dtype=dtype, device=device)
+
+
+def _sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a sum over `dtype` as JAX gives it (64-bit types off):
+    integers narrower than 32 bits widen to int32, others keep theirs."""
+    if dtype.is_floating_point or dtype in (torch.int32, torch.int64):
+        return dtype
+    return torch.int32
 
 
 def _mtmc_encode(values: torch.Tensor, cl: int) -> torch.Tensor:
@@ -97,21 +135,25 @@ _ENCODERS = {
 # ---------------------------------------------------------------------------
 
 
-def _f32(x: float) -> torch.Tensor:
-    return torch.tensor(float(x), dtype=torch.float32)
+def _f32(x: float, device: torch.device) -> torch.Tensor:
+    """A 0-dim float32 divisor on the dividend's device: CUDA multiplies
+    by the reciprocal of a CPU scalar divisor, which rounds twice where
+    JAX's division rounds once (ROADMAP C.P7). It is filled on the
+    device: a tensor copied from the host would wait for the stream."""
+    return torch.full((), float(x), dtype=torch.float32, device=device)
 
 
 class _MtmcWordSte(torch.autograd.Function):
     @staticmethod
     def forward(ctx, v, c, cl):
         ctx.cl = cl
-        x = torch.floor(torch.div(v, _f32(cl)))
+        x = torch.floor(torch.div(v, _f32(cl, v.device)))
         n = v - x * cl
         return torch.clamp(x + (c >= cl - n).to(v.dtype), 0, MAX_MISMATCH)
 
     @staticmethod
     def backward(ctx, g):
-        return torch.div(g, _f32(ctx.cl)), None, None
+        return torch.div(g, _f32(ctx.cl, g.device)), None, None
 
 
 def mtmc_word_ste(v: torch.Tensor, c: int, cl: int) -> torch.Tensor:
@@ -130,7 +172,7 @@ def encode_words_ste(v: torch.Tensor, enc: Encoding) -> torch.Tensor:
                             for c in range(enc.cl)], dim=-1)
     hard = enc.encode(v.to(torch.int32)).to(torch.float32)
     vv = v[..., None]
-    return hard + torch.div(vv - vv.detach(), _f32(enc.length))
+    return hard + torch.div(vv - vv.detach(), _f32(enc.length, v.device))
 
 
 def make_encoding(name: str, cl: int) -> Encoding:
@@ -177,3 +219,10 @@ def avss_sum_lut(enc: Encoding) -> np.ndarray:
 def avss_max_lut(enc: Encoding) -> np.ndarray:
     """(4, levels) int32: max per-word mismatch per (query word, value)."""
     return avss_word_luts(enc).max(0).astype(np.int32)
+
+
+def svss_pair_mismatch(enc: Encoding, a: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """Per-word |code(a) - code(b)| for symmetric search: (..., length), in
+    the values' dtype."""
+    return torch.abs(enc.encode(a) - enc.encode(b))

@@ -61,12 +61,14 @@ def pretrain_loss(params, batch, apply_fn) -> torch.Tensor:
 def meta_loss(params, episode, apply_fn, hat: HATConfig, key,
               noisy: bool = True) -> torch.Tensor:
     """Stage 2: episodic CE through the simulated MCAM. The temperature
-    divides as a 0-dim float32 tensor, rounding once as JAX's does."""
+    divides as a 0-dim float32 tensor filled on the scores' device,
+    rounding once as JAX's does (ROADMAP C.P3, C.P7)."""
     s_emb = apply_fn(params["backbone"], episode["support_images"])
     q_emb = apply_fn(params["backbone"], episode["query_images"])
     scores = simulate_mcam(q_emb, s_emb, episode["support_labels"],
                            episode["n_way"], hat, key, noisy=noisy)
-    temp = torch.tensor(hat.temperature, dtype=torch.float32)
+    temp = torch.full((), hat.temperature, dtype=torch.float32,
+                      device=scores.device)
     return cross_entropy(torch.div(scores, temp), episode["query_labels"])
 
 

@@ -186,7 +186,11 @@ class _SteStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        tau = torch.tensor(f32(ctx.tau), dtype=torch.float32)
+        # a divisor filled on x's device: CUDA multiplies by the
+        # reciprocal of a CPU scalar divisor, which rounds twice (ROADMAP
+        # C.P7)
+        tau = torch.full((), f32(ctx.tau), dtype=torch.float32,
+                         device=x.device)
         s = torch.sigmoid(torch.div(x, tau))
         return torch.div(g * s * (1 - s), tau), None
 

@@ -26,14 +26,17 @@ def _children(tree) -> list[tuple[str, Any]] | None:
     return None
 
 
-def flatten_with_names(tree) -> tuple[list[str], list[Any]]:
-    """(names, leaves) in visiting order."""
+def flatten_with_names(tree, is_leaf: Callable[[Any], bool] | None = None
+                       ) -> tuple[list[str], list[Any]]:
+    """(names, leaves) in visiting order; `is_leaf(node)` true stops the
+    walk at a container, which is then one leaf (as jax.tree_util's)."""
     names, leaves = [], []
 
     def walk(node, path):
         if node is None:
             return
-        kids = _children(node)
+        kids = None if is_leaf is not None and is_leaf(node) \
+            else _children(node)
         if kids is None:
             names.append(SEP.join(path))
             leaves.append(node)
@@ -44,8 +47,8 @@ def flatten_with_names(tree) -> tuple[list[str], list[Any]]:
     return names, leaves
 
 
-def leaves(tree) -> list[Any]:
-    return flatten_with_names(tree)[1]
+def leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list[Any]:
+    return flatten_with_names(tree, is_leaf)[1]
 
 
 def unflatten(tree, new_leaves: list[Any]):

@@ -89,6 +89,37 @@ def test_shortlist_kernel_matches_plain(dev, operand, n, d, ks):
         assert torch.equal(got[1].cpu(), want[1]), k
 
 
+@pytest.mark.parametrize("operand", ["packed8", "packed4", "bf16"])
+def test_shortlist_kernel_at_the_cub_width(dev, operand):
+    """d = 480 (4d = 1,920 LUT columns), B = 256, k = 64 and 1024: 8-bit
+    fields (MTMC CL = 25, B4E) give 480-word rows, which the select pass
+    stages in windows of words; 4-bit fields (SRE) 240-word rows, staged
+    whole; bf16 960 words."""
+    bits, dtype, _ = OPERANDS[operand]
+    vmax = 12 if bits == 4 else 75
+    n, d = 5000, 480
+    rng = np.random.default_rng(480 + (bits or 0))
+    proj = rng.integers(0, vmax + 1, size=(n, 4 * d))
+    q = torch.as_tensor(rng.integers(0, 4, size=(256, d)).astype(np.int32))
+    valid = torch.as_tensor(rng.random(n) > 0.1)
+    if bits is not None:
+        kw = {"packed": torch.as_tensor(pack_words(proj, bits)).to(dev),
+              "pack_bits": bits}
+        sp = None
+    else:
+        kw, sp = {}, torch.as_tensor(proj).to(dtype).to(dev)
+    words = kw["packed"].shape[1] if bits else 2 * d
+    plan = shortlist.shortlist_plan(256, n, words, 64)
+    assert (plan.window < words) == (operand != "packed4")
+    for k in (64, 1024):
+        got = shortlist.lut_shortlist(q.to(dev), sp, k, valid=valid.to(dev),
+                                      **kw)
+        want = shortlist.lut_shortlist_plain(q.to(dev), sp, k,
+                                             valid=valid.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_shortlist_kernel_refuses_k_above_its_limit(dev):
     q = torch.zeros(2, 4, dtype=torch.int32, device=dev)
     proj = torch.zeros(4096, 16, device=dev)
@@ -137,7 +168,10 @@ def test_shortlist_kernel_on_adversarial_orders(dev, order, b, n, k):
     (300, 4099, 384, torch.bfloat16, 96),    # TMA route, ring refilled
     (5, 130, 8, torch.bfloat16, 255),        # TMA route, one short K block
     (64, 512, 192, torch.float32, 96),
-    (37, 1001, 190, torch.float32, 60000)])  # f32 entries above 2**11
+    (37, 1001, 190, torch.float32, 60000),   # f32 entries above 2**11
+    (256, 4099, 1920, torch.bfloat16, 75),   # TMA, CUB's K = 4d, 30 K blocks
+    (40, 1001, 1916, torch.bfloat16, 75),    # ragged route at CUB's depth
+    (64, 515, 1920, torch.float32, 75)])     # f32 at CUB's depth
 def test_lut_dist_kernel_matches_plain(dev, b, n, k, dtype, vmax):
     rng = np.random.default_rng(b + k)
     a = torch.as_tensor(rng.integers(0, 2, size=(b, k))).to(dtype)
@@ -213,7 +247,11 @@ def test_physics_kernels_match_plain(dev, noisy):
 PHYSICS_CASES = [(16, 1001, 64, 24, True, 4), (1, 517, 64, 24, True, 4),
                  (300, 67, 40, 24, True, 4), (7, 333, 64, 20, True, 4),
                  (5, 129, 33, 24, False, 4), (3, 250, 64, 13, False, 4),
-                 (9, 257, 64, 24, True, 256)]
+                 (9, 257, 64, 24, True, 256),
+                 # CUB's 500 strings a support (d = 480, MTMC CL = 25),
+                 # B4E's 6 and SRE's 8 at d = 48
+                 (4, 1001, 500, 24, True, 4), (3, 130, 500, 24, False, 4),
+                 (33, 301, 6, 24, True, 4), (17, 301, 8, 24, True, 4)]
 
 
 def _physics_case(dev, b, n, S, sl, values, seed):
@@ -338,17 +376,51 @@ def test_engine_on_the_card_matches_the_cpu(dev, mode, fmr):
         >= PHYSICS_MIN_AGREEMENT
 
 
+@pytest.mark.parametrize("enc,cl,mode,req_mode", [
+    ("b4e", 3, "avss", "two_phase"), ("b4e", 3, "avss", "ideal"),
+    ("b4e", 3, "avss", "full"), ("sre", 4, "avss", "two_phase"),
+    ("sre", 4, "avss", "full"), ("mtmc", 32, "svss", "full")])
+def test_engine_on_the_card_matches_the_cpu_for_every_code(dev, enc, cl,
+                                                           mode, req_mode):
+    """The evaluation matrix's other codes through the engine: B4E (6
+    strings a support at d = 48, 8-bit LUT fields) and SRE (8 strings,
+    4-bit fields) on the fused route, and an SVSS full search (a query
+    grid of L words a segment); as test_engine_on_the_card_matches_the_cpu
+    holds MTMC."""
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((1100, 48)).astype(np.float32)
+    lab = rng.integers(0, 30, size=1100).astype(np.int32)
+    cfg = MemoryConfig(capacity=1100, dim=48,
+                       search=avss_lib.SearchConfig(enc, cl=cl, mode=mode))
+    cpu = MemoryStore.create(cfg, device="cpu").calibrate(x).write(x, lab)
+    gpu = MemoryStore.from_numpy(cpu.to_numpy(), cfg)
+    eng = RetrievalEngine(cfg.search)
+    req = SearchRequest(mode=req_mode, k=32)
+    _build.reset_launches()
+    a = eng.search(gpu, x[:12], req)
+    b = eng.search(cpu, x[:12], req)
+    torch.cuda.synchronize()
+    want = {"full": ("mcam_search",), "ideal": ("shortlist",),
+            "two_phase": ("shortlist", "mcam_rescore")}[req_mode]
+    assert all(_build.LAUNCHES[k] == 1 for k in want), _build.LAUNCHES
+    for f in ("dist", "indices", "labels"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    assert float((a.votes.cpu() == b.votes).float().mean()) \
+        >= PHYSICS_MIN_AGREEMENT
+
+
 # -- the episodic physics of hardware-aware training --------------------------
 
 # (B, N, S, sl, noisy): ragged B and N, S = 33, the unrolled sl = 24 and the
-# generic instance at 13 cells, noisy and noiseless; the last three span
-# several of the backward kernel's row tiles (32 rows) with a ragged edge,
-# and two of them several query chunks (B > 128), S = 9 a string group of
-# 8 with one string in it
+# generic instance at 13 cells, noisy and noiseless; three span several of
+# the backward kernel's row tiles (32 rows) with a ragged edge, and two of
+# them several query chunks (B > 128), S = 9 a string group of 8 with one
+# string in it; the last has CUB's 500 strings
 EPISODE_CASES = [(37, 101, 64, 24, True), (5, 67, 33, 24, True),
                  (12, 40, 64, 13, True), (9, 70, 33, 24, False),
                  (3, 17, 40, 13, False), (130, 300, 64, 24, True),
-                 (70, 257, 33, 13, True), (300, 40, 9, 24, True)]
+                 (70, 257, 33, 13, True), (300, 40, 9, 24, True),
+                 (20, 70, 500, 24, True)]           # CUB's 500 strings
 # backward kernel vs autograd through the plain forward: the same terms,
 # summed in another order (the kernel: ds over b in order, dq over a
 # warp's rows in a fixed tree, then over row tiles in order; autograd:
@@ -430,6 +502,28 @@ def test_episode_backward_kernel_matches_plain_autograd(dev, b, n, S, sl,
     assert ok, ("dq", why)
     ok, why = _close(ds, ps)
     assert ok, ("ds", why)
+
+
+def test_episode_backward_at_the_cub_episode(dev):
+    """The backward kernel at the paper's CUB episode (50-way 5-shot, 4
+    queries a class: B = 200, N = 250; d = 480, MTMC CL = 25: S = 500),
+    8 row tiles x 2 query chunks, against autograd through the plain
+    forward; a second run gives the same bits."""
+    b, n, S, sl = 200, 250, 500, 24
+    assert mcam_episode.episode_tiling(b, n) == (8, 2, 100)
+    q, s, w, gv, gd, qidx = _episode_case(dev, b, n, S, sl, 500)
+    cfg = MCAMConfig(sigma_device=0.15, sigma_read=0.05)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    kw = dict(noisy=True, qidx=qidx, stream=3, tau=0.02)
+    dq, ds = mcam_episode.episode_backward(q, s, gv, gd, w, th, cfg, **kw)
+    dq2, ds2 = mcam_episode.episode_backward(q, s, gv, gd, w, th, cfg, **kw)
+    pq, ps = mcam_episode.episode_backward_plain(q, s, gv, gd, w, th, cfg,
+                                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and torch.equal(ds, ds2)
+    for got, want in ((dq, pq), (ds, ps)):
+        ok, why = _close(got, want)
+        assert ok, why
 
 
 def test_shifted_grids_take_the_generic_backward_with_close_results(dev):
@@ -598,3 +692,31 @@ def test_train_hat_on_the_card_closes_the_loop(dev, tmp_path,
     assert _build.LAUNCHES["mcam_episode"] == 2
     assert _build.LAUNCHES["mcam_search"] >= 2
     assert (tmp_path / "store").is_dir()
+
+
+def test_scalar_divisors_round_once_on_the_card(dev):
+    """ROADMAP C.P7: CUDA divides by a CPU scalar as a multiplication by
+    its reciprocal, which rounds twice. The straight-through encoders'
+    gradients (g / CL, g / length) take their divisor on the gradient's
+    device, so on the card they equal the CPU's bit for bit, also where
+    1 / CL is not exact (CL = 25, length 3)."""
+    from repro_torch.core import encodings as enc_lib
+    rng = np.random.default_rng(25)
+    v = torch.as_tensor(rng.integers(0, 76, size=(64, 480)),
+                        dtype=torch.float32)
+    g = torch.as_tensor(rng.standard_normal((64, 480, 25)),
+                        dtype=torch.float32)
+    for enc in (enc_lib.make_encoding("mtmc", 25),
+                enc_lib.make_encoding("b4e", 3)):
+        vv = v if enc.name == "mtmc" else v.clamp(max=enc.levels - 1)
+        gg = g[..., :enc.length].clone()
+        gg[..., 1:] = 0     # one word's gradient: sums of it are exact
+        grads = []
+        for d in ("cpu", dev):
+            x = vv.to(d).requires_grad_(True)
+            out = enc_lib.encode_words_ste(x, enc)
+            (grad,) = torch.autograd.grad(out, x, gg.to(d))
+            grads.append((out.detach().cpu(), grad.cpu()))
+        torch.cuda.synchronize()
+        assert torch.equal(grads[0][0], grads[1][0])
+        assert torch.equal(grads[0][1], grads[1][1]), enc.name

@@ -448,10 +448,14 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "print(len(sys.modules))\n")
     assert {"repro_torch.checkpoint.ckpt", "repro_torch.core.hat",
             "repro_torch.core.kinks", "repro_torch.core.prng",
+            "repro_torch.core.costmodel",
             "repro_torch.configs.omniglot_conv4",
+            "repro_torch.configs.cub_resnet12",
             "repro_torch.data.fsl", "repro_torch.kernels.mcam_episode",
             "repro_torch.launch.steps", "repro_torch.launch.train",
             "repro_torch.models.controller", "repro_torch.optim.optimizers",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.fsl_omniglot",
             "repro_torch.tree"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)

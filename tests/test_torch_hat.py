@@ -587,13 +587,20 @@ def test_fsl_copy_gives_identical_arrays():
 
 
 def test_configs_match_the_reference():
+    """Both datasets' configurations (Omniglot / Conv4 and CUB /
+    ResNet12, full and smoke) equal the reference's field by field."""
+    from repro.configs import cub_resnet12 as j_cub
     from repro.configs import omniglot_conv4 as j_configs
-    for name in ("get_config", "get_smoke_config"):
-        a, b = getattr(j_configs, name)(), getattr(t_configs, name)()
-        for f in dataclasses.fields(a):
-            if f.name != "search":
-                assert getattr(a, f.name) == getattr(b, f.name), f.name
-        assert dataclasses.asdict(a.search) == dataclasses.asdict(b.search)
+    from repro_torch.configs import cub_resnet12 as t_cub
+    for j_mod, t_mod in ((j_configs, t_configs), (j_cub, t_cub)):
+        for name in ("get_config", "get_smoke_config"):
+            a, b = getattr(j_mod, name)(), getattr(t_mod, name)()
+            for f in dataclasses.fields(a):
+                if f.name != "search":
+                    assert getattr(a, f.name) == getattr(b, f.name), f.name
+            assert dataclasses.asdict(a.search) == \
+                dataclasses.asdict(b.search)
+    assert type(t_cub.get_config()) is t_configs.FSLConfig
 
 
 @pytest.fixture
