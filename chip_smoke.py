@@ -20,6 +20,29 @@ store of 65,536 supports (4,096 classes x 16 shots):
                 the whole (256 x N) matrix, then the exact key selection
   5. full       16 queries against every row: dense physics kernel
 
+Then the searches over per-query lists of row blocks, each through the
+block-table entry of csrc/shortlist.cu (row `shortlist_blocks`):
+
+  [routed]     the same store in 64 logical shards (1,024 rows, 64
+               classes x 16 shots a shard), two_phase and ideal at nprobe
+               1, 8 and 32: each equal, bit for bit, to the plain route
+               (backend "ref") over the same visited shards; nprobe 64 and
+               None byte for byte to the exhaustive search; two_phase
+               votes equal to the full search's at the same global rows;
+               top-1 and recall@64 against the exhaustive search printed
+  [tenants]    64 Omniglot tenants of ragged capacities (1,024..4,096,
+               some slots never written; 262,144 rows stacked) and 256
+               queries of mixed tenants: two_phase, ideal, full and the
+               dense two_phase on mxu, each equal to every tenant's solo
+               search bit for bit; then TenantServer: 16 flushes of 256
+               submits, a write_at after every 4th, every flush launching
+               the same kernels
+  [pager]      a store of 1,048,576 rows in 256 shards in pinned host
+               memory (2.4 GB), paged through 16 device slots by 8 batches
+               of 64 queries at nprobe 4 (classes written in groups of 4
+               shards; a batch draws from two groups, the next batch
+               shares one): each equal to the device twin's routed search
+
 Then the same path at the paper's CUB geometry:
 
   [cub-serve]  d = 480, MTMC CL = 25 (500 strings of 24 cells a support,
@@ -27,7 +50,9 @@ Then the same path at the paper's CUB geometry:
                of the same size: two_phase (fused), ideal, two_phase on
                mxu and full (B = 4), each path with its launch counts, top-1
                accuracy >= MIN_ACCURACY, and each kernel held against its
-               plain version bit for bit (a row each, `<kernel>_cub`)
+               plain version bit for bit (a row each, `<kernel>_cub`);
+               then [routed cub]: the store in 64 shards at nprobe 8
+               (row `shortlist_blocks_cub`)
 
 Then hardware-aware training (paper Sec. 3.3):
 
@@ -195,6 +220,23 @@ STEP_KERNEL_KINDS = {
                              "nhwcToNchw", "nchwToNhwc"),
     "elementwise_and_reduction": ("elementwise", "reduce", "Reduce"),
 }
+
+# [routed]: logical shards of the main store (1,024 rows, 64 classes x 16
+# shots, a shard) and the nprobe values run
+ROUTED_SHARDS = 64
+ROUTED_NPROBES = (1, 8, 32)
+ROUTED_KERNEL_NPROBE = 8
+# [tenants]: tenants of the stack, its padded capacity (the largest
+# tenant's), the least capacity, and the server's flushes
+TENANTS, TENANT_NPAD, TENANT_MIN_CAPACITY = 64, 4096, 1024
+TENANT_FLUSHES = 16
+# [pager]: classes (x 16 shots: 1,048,576 rows), ring batches of rows,
+# shards (4,096 rows each), shards a group of related classes, device
+# slots, nprobe, batches and their queries
+PAGER_CLASSES, PAGER_WRITE_ROWS = 65536, 65536
+PAGER_SHARDS, PAGER_GROUP = 256, 4
+PAGER_SLOTS, PAGER_NPROBE, PAGER_BATCHES, PAGER_QUERIES = 16, 4, 8, 64
+LEAVES = ("votes", "dist", "indices", "labels")
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -706,6 +748,15 @@ def run(args, torch) -> int:
         resources=resources.get("search_gathered<24>"),
         shape=f"B=256 k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
 
+    # -- routed search over the main store's logical shards ----------------
+    timing = argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
+                                host_ms=host_ms, event_ms=event_ms,
+                                device_ms=device_ms, timed=timed, row=row)
+    routed = run_routed(timing, store, queries, qcls_t,
+                        {"two_phase": tp, "ideal": ideal}, launches,
+                        full16=(q16, full))
+    path_ms.update(routed.pop("phases_ms"))
+
     # -- the card against the CPU (plain versions) on a small store ----------
     m = 1024
     small_cfg = MemoryConfig(capacity=m, dim=d, search=cfg.search)
@@ -727,13 +778,17 @@ def run(args, torch) -> int:
         if not same or vag < 0.99:
             fail(f"card vs CPU on a {m}-row store: {req}")
 
-    timing = argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
-                                host_ms=host_ms, event_ms=event_ms,
-                                device_ms=device_ms, timed=timed, row=row)
-
     # -- the serving path at the paper's CUB geometry ------------------------
     cub_serve = run_cub_serve(timing, args, launches)
     path_ms.update(cub_serve.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
+    # -- many tenants in one batch; a store in host memory -------------------
+    tenants = run_tenants(timing, args, launches)
+    path_ms.update(tenants.pop("phases_ms"))
+    torch.cuda.empty_cache()
+    pager = run_pager(timing, args, launches)
+    path_ms.update(pager.pop("phases_ms"))
     torch.cuda.empty_cache()
 
     # -- hardware-aware training ---------------------------------------------
@@ -766,7 +821,8 @@ def run(args, torch) -> int:
     for r in kernels:       # with the later paths' launches
         r["launches"] = launches[r["name"]]
     log(json.dumps({"phases_ms": {"program": program_ms, **path_ms},
-                    "accuracy_two_phase": acc, "hat": hat,
+                    "accuracy_two_phase": acc, "routed": routed,
+                    "tenants": tenants, "pager": pager, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
                     "optim": optim, "card": card}))
     print(card)
@@ -995,9 +1051,477 @@ def run_cub_serve(t, args, launches: dict) -> dict:
           also_replaces="src/repro/kernels/ops.py:186",
           device_ms=t.device_ms(rs_kernel, "search_gathered"),
           shape=f"B={nq} k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
+    # the routed search at this width: nprobe ROUTED_KERNEL_NPROBE
+    routed = run_routed(t, store, queries, qcls_t,
+                        {"two_phase": tp, "ideal": ideal}, launches,
+                        suffix="_cub", nprobes=(ROUTED_KERNEL_NPROBE,))
+    path_ms.update(routed.pop("phases_ms"))
     return {"program_ms": program_ms, "accuracy_two_phase": acc,
-            "accuracy_full": acc_full, "store_mb": mb,
+            "accuracy_full": acc_full, "store_mb": mb, "routed": routed,
             "phases_ms": {"cub_program": program_ms, **path_ms}}
+
+
+def _equal_results(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in LEAVES)
+
+
+def run_routed(t, store, queries, qcls_t, exhaustive, launches,
+               suffix="", nprobes=ROUTED_NPROBES, full16=None) -> dict:
+    """[routed]: the store in ROUTED_SHARDS logical shards, searched with
+    `nprobe` (the router picks each query's shards; the block-table
+    entry of csrc/shortlist.cu ranks their rows). nprobe None and
+    ROUTED_SHARDS must equal the exhaustive search byte for byte; each
+    routed search equals, bit for bit, the plain route (backend "ref",
+    no kernel) on the card over the same visited shards; with `full16`
+    (queries, full result) routed two_phase votes equal the full search's
+    at the same global rows. Top-1 accuracy and recall@k against the
+    exhaustive search are printed, not gated. Adds the row
+    `shortlist_blocks<suffix>` at nprobe ROUTED_KERNEL_NPROBE."""
+    torch = t.torch
+    from repro_torch.engine import RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build
+    tag = f"[routed{suffix.replace('_', ' ')}]"
+    eng = RetrievalEngine(store.cfg.search)
+    plain = eng.with_backend("ref")
+    rstore = store.shard(n_shards=ROUTED_SHARDS)
+    for mode in ("two_phase", "ideal"):
+        for p in (None, ROUTED_SHARDS):
+            res = eng.search(rstore, queries, SearchRequest(mode=mode, k=64,
+                                                            nprobe=p))
+            if not _equal_results(torch, res, exhaustive[mode]):
+                fail(f"{tag} nprobe={p} {mode} differs from the exhaustive "
+                     f"search")
+    out, phases = {}, {}
+    for p in nprobes:
+        for mode in ("two_phase", "ideal"):
+            req = SearchRequest(mode=mode, k=64, nprobe=p)
+            _build.reset_launches()
+            res = eng.search(rstore, queries, req)
+            t.sync()
+            counts = dict(_build.LAUNCHES)
+            needs = ("shortlist_blocks",) + (
+                ("mcam_rescore",) if mode == "two_phase" else ())
+            for kname in needs:
+                if counts[kname] < 1:
+                    fail(f"{tag} {mode} nprobe={p} did not launch {kname}: "
+                         f"{counts}")
+            if counts["shortlist_blocks"] != 1:
+                fail(f"{tag} {mode} nprobe={p}: {counts['shortlist_blocks']} "
+                     f"block-table launches, expected 1")
+            _count(launches, counts, suffix)
+            if not torch.isfinite(res.dist).all():
+                fail(f"{tag} {mode} nprobe={p}: non-finite dist")
+            ref = plain.search(rstore, queries, req)
+            if not _equal_results(torch, res, ref):
+                fail(f"{tag} {mode} nprobe={p} differs from the plain route")
+            ms = t.host_ms(lambda: eng.search(rstore, queries, req))
+            ex = exhaustive[mode].indices
+            recall = float((res.indices[:, :, None] == ex[:, None, :])
+                           .any(-1).float().mean())
+            acc = float((res.predict() == qcls_t).float().mean())
+            name = f"{mode}_nprobe{p}"
+            out[name] = {"ms": ms, "top1": acc, "recall_at_k": recall,
+                         "launches": {k: v for k, v in counts.items() if v}}
+            phases[f"routed{suffix}_{name}"] = ms
+            t.log(f"{tag} {mode} nprobe={p}: {ms:.3f} ms, top-1 {acc:.4f}, "
+                  f"recall@64 {recall:.4f} vs exhaustive, launches "
+                  f"{out[name]['launches']}; == plain route")
+        if full16 is not None:
+            q16, full = full16
+            tp16 = eng.search(rstore, q16, SearchRequest(mode="two_phase",
+                                                         k=64, nprobe=p))
+            if not torch.equal(torch.take_along_dim(full.votes, tp16.indices,
+                                                    dim=1), tp16.votes):
+                fail(f"{tag} nprobe={p}: two_phase votes differ from the "
+                     f"full search's at the same rows")
+    if full16 is not None:
+        t.log(f"{tag} routed two_phase votes == full votes at the same "
+              f"global rows, 16 queries, nprobe {list(nprobes)}")
+    # where a path's time goes: the routed two_phase against the
+    # exhaustive one on the same store
+    trace = {}
+    for name, p in ((f"two_phase_nprobe{ROUTED_KERNEL_NPROBE}",
+                     ROUTED_KERNEL_NPROBE), ("two_phase_exhaustive", None)):
+        req = SearchRequest(mode="two_phase", k=64, nprobe=p)
+        trace[name] = _profile_search(
+            t, lambda: eng.search(rstore, queries, req))
+        t.log(f"{tag} trace {name}: {trace[name]}")
+    out["trace"] = trace
+    blocks_row(t, rstore, queries, suffix)
+    return {**out, "phases_ms": phases}
+
+
+def _profile_search(t, fn) -> dict:
+    """One search under torch.profiler (`_profiled`): its wall time, the
+    kernels' device time and the device's idle share, the kernel launches
+    and the calls that wait for the device (stream / device
+    synchronisations, blocking copies, scalar reads), the host operations
+    that took the most time of their own, and the kernels that took the
+    most device time."""
+    torch = t.torch
+    events, wall = _profiled(t, fn)
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(e.device_time_total for e in events
+               if e.device_type == cuda) / 1e3
+    host = [e for e in events if e.device_type != cuda]
+    waits = {e.key: e.count for e in host if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+        "aten::_local_scalar_dense")}
+    launches = sum(e.count for e in host if "LaunchKernel" in e.key)
+    top = sorted(((e.key[:60], e.self_cpu_time_total / 1e3, e.count)
+                  for e in host), key=lambda r: -r[1])[:8]
+    kernels = sorted(((e.key[:50], e.device_time_total / 1e3)
+                      for e in events if e.device_type == cuda),
+                     key=lambda r: -r[1])[:8]
+    return {"wall_ms": wall, "device_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "kernel_launches": launches, "waits": waits,
+            "top_host_ops": [(k, round(ms, 4), n) for k, ms, n in top],
+            "top_kernels": [(k, round(ms, 4)) for k, ms in kernels]}
+
+
+def blocks_row(t, rstore, queries, suffix) -> None:
+    """The row `shortlist_blocks<suffix>`: the block-table entry at the
+    routed search's nprobe ROUTED_KERNEL_NPROBE inputs, held against its
+    plain version bit for bit (and on an adversarial table: every row of
+    query 0's visited shards masked, rows in descending distance)."""
+    torch = t.torch
+    from repro_torch.engine import route_scores, top_shards
+    from repro_torch.kernels import ops, shortlist
+    s = ROUTED_SHARDS
+    rows = rstore.capacity // s
+    d = rstore.dim
+    b = queries.shape[0]
+    p = ROUTED_KERNEL_NPROBE
+    qw = rstore.quantize_queries(queries)
+    ids = top_shards(route_scores(qw, rstore.sketch_sums,
+                                  rstore.sketch_counts,
+                                  rstore.cfg.search.enc), p)
+    base = torch.arange(s, device=t.dev) * rows
+    packed = rstore.proj_packed.reshape(s, rows, -1)
+    valid = rstore.valid.reshape(s, rows)
+    args = dict(base=base, ids=ids, valid=valid, packed=packed,
+                pack_bits=rstore.pack_bits)
+
+    def kernel():
+        return shortlist.lut_shortlist_blocks(qw, None, 64, **args)
+
+    def plain():
+        return shortlist.lut_shortlist_blocks_plain(qw, None, 64, **args)
+    got = kernel()
+    t.sync()
+    want, plain_ms = t.timed(plain)
+    err = max(float((got[0] - want[0]).abs().max()),
+              float((got[1] - want[1]).abs().max()))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"shortlist_blocks{suffix} kernel differs from plain by {err}")
+    # adversarial: every row a fixed distance for every query, descending
+    # with the row (each row beats the running k-th key), 16-bit fields,
+    # and query 0's visited shards all masked
+    per_row = torch.arange(s * rows - 1, -1, -1, device=t.dev) * 3
+    per_dim = (per_row // d)[:, None].repeat(1, 4 * d)
+    per_dim[:, :4] += (per_row % d)[:, None]
+    words = per_dim[:, :2 * d] | (per_dim[:, 2 * d:] << 16)
+    words = torch.where(words >= 2**31, words - 2**32, words).to(
+        torch.int32).reshape(s, rows, -1)
+    vmask = valid.clone()
+    vmask[ids[0]] = False
+    for kk in (1, 64, 1024):
+        a = shortlist.lut_shortlist_blocks(qw, None, kk, base=base, ids=ids,
+                                           valid=vmask, packed=words,
+                                           pack_bits=16)
+        t.sync()
+        c = shortlist.lut_shortlist_blocks_plain(
+            qw, None, kk, base=base, ids=ids, valid=vmask, packed=words,
+            pack_bits=16)
+        t.sync()
+        if not (torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])):
+            fail(f"shortlist_blocks{suffix} != plain on the descending, "
+                 f"masked table (k={kk})")
+    adv_ms = t.event_ms(lambda: shortlist.lut_shortlist_blocks(
+        qw, None, 64, base=base, ids=ids, valid=vmask, packed=words,
+        pack_bits=16))
+    visited = int(torch.unique(ids).numel())
+    q1h_f = ops.query_onehot(qw, torch.float32)
+    proj_f = rstore.proj.float()
+    pen = torch.where(rstore.valid, 0.0,
+                      shortlist.SHORTLIST_MASK_PENALTY)[None]
+    library_ms = t.event_ms(lambda: torch.sort(
+        torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0][:, :64])
+    del q1h_f, proj_f
+    t.row(f"shortlist_blocks{suffix}", "shortlist.cu",
+          "src/repro/kernels/shortlist.py:210", err, t.event_ms(kernel),
+          plain_ms,
+          visited * rows * (packed.shape[2] * 4 + 1) + qw.numel() * 4
+          + ids.numel() * 8 + s * 8 + b * 64 * 12,
+          b * p * rows * d, F32_OPS_PER_S, library_ms,
+          device_ms=t.device_ms(kernel, "shortlist_"),
+          descending_masked_ms=adv_ms, visited_shards=visited,
+          also_replaces="jax.vmap of it, src/repro/engine/engine.py:318",
+          shape=f"B={b} d={d} nprobe={p} of {s} shards x {rows} rows, "
+                f"packed {rstore.pack_bits}-bit ({packed.shape[2]} words a "
+                f"row) k=64; library: matmul + mask + sort over all "
+                f"{s * rows} rows")
+
+
+def run_tenants(t, args, launches) -> dict:
+    """[tenants]: TENANTS Omniglot stores (d = 48, MTMC CL = 32) of ragged
+    capacities in TENANT_MIN_CAPACITY..TENANT_NPAD, some slots never
+    written, stacked (n_pad TENANT_NPAD), and 256 queries of uniformly
+    mixed tenants. two_phase, ideal and full on the default backend and
+    two_phase on mxu below the fused threshold (the dense route) must each
+    equal every tenant's solo search on `tenant(t)` bit for bit, queries
+    grouped in batch order; then TenantServer runs TENANT_FLUSHES flushes
+    of 256 submits with a write_at after every 4th, and every flush must
+    launch the same kernels the same number of times."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.core.avss import SearchConfig
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import (MemoryStore, RetrievalEngine,
+                                    SearchRequest, TenantStore)
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import TenantServer
+    shots, d, nq = 16, 48, 256
+    rng = np.random.default_rng(args.seed + 29)
+    caps = rng.integers(TENANT_MIN_CAPACITY // shots,
+                        TENANT_NPAD // shots + 1, TENANTS) * shots
+    caps[0] = TENANT_NPAD
+    search = SearchConfig("mtmc", cl=32, mode="avss")
+    stores, centres, written = [], [], []
+    t0 = time.perf_counter()
+    for cap in caps:
+        cap = int(cap)
+        n_cls = cap // shots
+        cen = rng.standard_normal((n_cls, d), dtype=np.float32) * 2.0
+        lab = np.repeat(np.arange(n_cls, dtype=np.int32), shots)
+        x = cen[lab] + 0.3 * rng.standard_normal((cap, d), dtype=np.float32)
+        n_w = cap - shots * int(rng.integers(0, n_cls // 8 + 1))
+        st = MemoryStore.create(MemoryConfig(capacity=cap, dim=d,
+                                             search=search)).calibrate(
+            torch.from_numpy(x).to(dev))
+        stores.append(st.write(torch.from_numpy(x[:n_w]).to(dev),
+                               torch.from_numpy(lab[:n_w]).to(dev)))
+        centres.append(cen)
+        written.append(n_w // shots)
+    tstore = TenantStore.stack(stores)
+    t.sync()
+    program_s = time.perf_counter() - t0
+    if tstore.n_pad != TENANT_NPAD:
+        fail(f"[tenants] n_pad {tstore.n_pad}")
+    mb = sum(getattr(tstore, f).numel() * getattr(tstore, f).element_size()
+             for f in ("values", "proj", "proj_packed", "s_grid",
+                       "labels")) / 1e6
+    tids_np = rng.integers(0, TENANTS, nq)
+    qcls = np.array([rng.integers(0, written[i]) for i in tids_np])
+    q_np = np.stack([centres[i][c] for i, c in zip(tids_np, qcls)]) + \
+        0.3 * rng.standard_normal((nq, d), dtype=np.float32)
+    queries = torch.from_numpy(q_np.astype(np.float32)).to(dev)
+    tids = torch.from_numpy(tids_np).to(dev)
+    t.log(f"[tenants] {TENANTS} tenants, capacities {int(caps.min())}.."
+          f"{int(caps.max())} ({int(caps.sum())} rows, "
+          f"{int(sum(written)) * shots} written), n_pad {tstore.n_pad}, "
+          f"{mb:.1f} MB on the card, programmed in {program_s:.2f} s; "
+          f"B={nq}, {len(np.unique(tids_np))} tenants in the batch")
+    eng = RetrievalEngine(search)
+    paths = {
+        "two_phase": (SearchRequest(mode="two_phase", k=64),
+                      ("shortlist_blocks", "mcam_rescore")),
+        "ideal": (SearchRequest(mode="ideal", k=64), ("shortlist_blocks",)),
+        "full": (SearchRequest(mode="full"), ("mcam_rescore",)),
+        "two_phase_mxu": (SearchRequest(mode="two_phase", k=64,
+                                        backend="mxu",
+                                        fused_min_rows=TENANT_NPAD + 1),
+                          ("mcam_dist", "mcam_rescore")),
+    }
+    out, phases = {}, {}
+    for name, (req, needs) in paths.items():
+        _build.reset_launches()
+        res = eng.search_tenants(tstore, queries, tids, req)
+        t.sync()
+        counts = dict(_build.LAUNCHES)
+        for kname in needs:
+            if counts[kname] < 1:
+                fail(f"[tenants] {name} did not launch {kname}: {counts}")
+        _count(launches, counts, "_tenants")
+        if not torch.isfinite(res.dist).all():
+            fail(f"[tenants] {name}: non-finite dist")
+        for tn in np.unique(tids_np):
+            sel = torch.from_numpy(np.where(tids_np == tn)[0]).to(dev)
+            solo = eng.search(tstore.tenant(int(tn)), queries[sel], req)
+            w = solo.votes.shape[1]
+            for f in LEAVES:
+                if not torch.equal(getattr(res, f)[sel][:, :w],
+                                   getattr(solo, f)):
+                    fail(f"[tenants] {name}: tenant {tn} {f} differs from "
+                         f"its solo search")
+            if not (res.votes[sel][:, w:] == float("-inf")).all():
+                fail(f"[tenants] {name}: tenant {tn} pad columns unmasked")
+        ms = t.host_ms(lambda: eng.search_tenants(tstore, queries, tids,
+                                                  req))
+        acc = float((res.predict().cpu().numpy() == qcls).mean())
+        out[name] = {"ms": ms, "top1": acc,
+                     "launches": {k: v for k, v in counts.items() if v}}
+        phases[f"tenants_{name}"] = ms
+        t.log(f"[tenants {name}] {ms:.3f} ms, top-1 {acc:.4f}, launches "
+              f"{out[name]['launches']}; == solo search of every tenant")
+    server = TenantServer(eng, tstore, SearchRequest(mode="two_phase", k=64))
+    flush_ms, profiles = [], []
+    for i in range(TENANT_FLUSHES):
+        mix = rng.integers(0, TENANTS, nq)
+        t.sync()
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        for b in range(nq):
+            server.submit(int(mix[b]), queries[b])
+        got = server.flush()
+        t.sync()
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        profiles.append(tuple(sorted((k, v) for k, v in
+                                     _build.LAUNCHES.items() if v)))
+        if len(got) != nq:
+            fail(f"[tenants] flush {i} returned {len(got)} tickets")
+        if i % 4 == 3:
+            tn = int(mix[0])
+            x = rng.standard_normal((shots, d), dtype=np.float32)
+            server.write(tn, torch.from_numpy(x).to(dev),
+                         torch.full((shots,), 7, device=dev))
+    if len(set(profiles)) != 1 or server.cache_entries() != 1:
+        fail(f"[tenants] flush launches depend on the mix: "
+             f"{set(profiles)}")
+    med = statistics.median(flush_ms)
+    t.log(f"[tenants server] {TENANT_FLUSHES} flushes x {nq} submits, a "
+          f"write_at after every 4th: median {med:.2f} ms a flush "
+          f"({nq / med * 1e3:.0f} queries/s), each flush launched "
+          f"{dict(profiles[0])}")
+    out["server"] = {"flush_ms": flush_ms, "median_ms": med,
+                     "queries_per_s": nq / med * 1e3,
+                     "launches_per_flush": dict(profiles[0])}
+    phases["tenants_flush"] = med
+    return {**out, "store_mb": mb, "phases_ms": phases}
+
+
+def run_pager(t, args, launches) -> dict:
+    """[pager]: a store of PAGER_CLASSES x 16 rows (1,048,576; programmed
+    on the card in ring batches of PAGER_WRITE_ROWS), partitioned into
+    PAGER_SHARDS shards in pinned host memory, paged through PAGER_SLOTS
+    device slots by PAGER_BATCHES batches of PAGER_QUERIES queries at
+    nprobe PAGER_NPROBE. The classes come in groups written together
+    (PAGER_GROUP shards a group of related classes), and batch i draws
+    from groups i and i + 1, so consecutive batches share shards. Every
+    paged result must equal the routed search of the device-resident twin
+    bit for bit; a repeated batch (all shards resident) must copy no
+    block."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.core.avss import SearchConfig
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import (MemoryStore, RetrievalEngine,
+                                    SearchRequest, ShardPager)
+    from repro_torch.kernels import _build
+    shots, d = 16, 48
+    n = PAGER_CLASSES * shots
+    per_shard = PAGER_CLASSES // PAGER_SHARDS
+    rng = np.random.default_rng(args.seed + 41)
+    group = rng.standard_normal((PAGER_SHARDS // PAGER_GROUP, d),
+                                dtype=np.float32) * 3.0
+    shard_c = group[np.arange(PAGER_SHARDS) // PAGER_GROUP] + \
+        rng.standard_normal((PAGER_SHARDS, d), dtype=np.float32)
+    centres = shard_c[np.arange(PAGER_CLASSES) // per_shard] + \
+        rng.standard_normal((PAGER_CLASSES, d), dtype=np.float32)
+    search = SearchConfig("mtmc", cl=32, mode="avss")
+    cfg = MemoryConfig(capacity=n, dim=d, search=search)
+    t0 = time.perf_counter()
+    store = None
+    for r0 in range(0, n, PAGER_WRITE_ROWS):
+        lab = np.arange(r0, r0 + PAGER_WRITE_ROWS) // shots
+        x = torch.from_numpy(centres[lab] + 0.3 * rng.standard_normal(
+            (PAGER_WRITE_ROWS, d), dtype=np.float32)).to(dev)
+        if store is None:
+            store = MemoryStore.create(cfg).calibrate(x)
+        store = store.write(x, torch.from_numpy(lab.astype(np.int32)).to(
+            dev))
+    t.sync()
+    program_s = time.perf_counter() - t0
+    twin = store.shard(n_shards=PAGER_SHARDS)
+    t0 = time.perf_counter()
+    host = store.shard(n_shards=PAGER_SHARDS, residency="host")
+    host_s = time.perf_counter() - t0
+    del store
+    if not (host.residency == "host" and host.values.is_pinned()):
+        fail("[pager] the host store's leaves are not pinned host memory")
+    gb = sum(getattr(host, f).numel() * getattr(host, f).element_size()
+             for f in ("values", "proj", "proj_packed", "s_grid",
+                       "labels")) / 1e9
+    rows = n // PAGER_SHARDS
+    eng = RetrievalEngine(search)
+    pager = ShardPager(host, eng, slots=PAGER_SLOTS)
+    req = SearchRequest(mode="two_phase", k=64, nprobe=PAGER_NPROBE)
+    block_bytes = sum(v[0].numel() * v.element_size()
+                      for v in pager._host.values())
+    t.log(f"[pager] {n} rows ({PAGER_CLASSES} classes x {shots} shots) "
+          f"programmed in {program_s:.2f} s; {PAGER_SHARDS} shards of "
+          f"{rows} rows ({block_bytes / 1e6:.2f} MB a shard) moved to "
+          f"pinned host memory ({gb:.2f} GB) in {host_s:.2f} s; "
+          f"{PAGER_SLOTS} slots, nprobe {PAGER_NPROBE}")
+    batches = []
+    for i in range(PAGER_BATCHES):
+        shards = rng.integers(PAGER_GROUP * i, PAGER_GROUP * (i + 2),
+                              PAGER_QUERIES)
+        cls = shards * per_shard + rng.integers(0, per_shard, PAGER_QUERIES)
+        batches.append((torch.from_numpy((centres[cls] + 0.3 *
+                        rng.standard_normal((PAGER_QUERIES, d),
+                                            dtype=np.float32)).astype(
+                            np.float32)), cls))
+    per_batch, counts_all = [], []
+    for i, (q, cls) in enumerate(batches):
+        before = (pager.hits, pager.misses, pager.staged_hits,
+                  dict(pager.transfers))
+        _build.reset_launches()
+        t.sync()
+        t0 = time.perf_counter()
+        res = pager.search(q, req)
+        t.sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        for kname in ("shortlist_blocks", "mcam_rescore"):
+            if counts[kname] < 1:
+                fail(f"[pager] batch {i} did not launch {kname}: {counts}")
+        _count(launches, counts, "_pager")
+        counts_all.append({k: v for k, v in counts.items() if v})
+        want = eng.search(twin, q.to(dev), req)
+        if not _equal_results(torch, res, want):
+            fail(f"[pager] batch {i} differs from the device twin")
+        rec = {"ms": ms, "hits": pager.hits - before[0],
+               "misses": pager.misses - before[1],
+               "staged_used": pager.staged_hits - before[2],
+               **{f"{k}_bytes": pager.transfers[k] - before[3][k]
+                  for k in pager.transfers},
+               "top1": float((res.predict().cpu().numpy() == cls).mean())}
+        per_batch.append(rec)
+        t.log(f"[pager batch {i}] {ms:.2f} ms, {rec['hits']} hits, "
+              f"{rec['misses']} misses, {rec['staged_used']} from the "
+              f"prefetch, {rec['blocks_bytes'] / 1e6:.1f} MB paged at the "
+              f"miss, {rec['staged_bytes'] / 1e6:.1f} MB staged, top-1 "
+              f"{rec['top1']:.3f}; == device twin")
+    blocks = pager.transfers["blocks"]
+    q_last = batches[-1][0]
+    steady_ms = t.host_ms(lambda: pager.search(q_last, req))
+    if pager.transfers["blocks"] != blocks:
+        fail("[pager] a batch of resident shards paged a block")
+    twin_ms = t.host_ms(lambda: eng.search(twin, q_last.to(dev), req))
+    used = sum(r["staged_used"] for r in per_batch) * block_bytes
+    missed = sum(r["blocks_bytes"] for r in per_batch)
+    hidden = used / max(1, used + missed)
+    t.log(f"[pager] the prefetch supplied {used / 1e6:.1f} of "
+          f"{(used + missed) / 1e6:.1f} MB paged in ({hidden:.3f}); a batch "
+          f"of resident shards {steady_ms:.3f} ms (no block copied), the "
+          f"device twin's routed search {twin_ms:.3f} ms")
+    return {"batches": per_batch, "launches": counts_all,
+            "prefetch_share": hidden, "steady_ms": steady_ms,
+            "twin_ms": twin_ms, "host_gb": gb,
+            "phases_ms": {"pager_batch_median": statistics.median(
+                r["ms"] for r in per_batch), "pager_steady": steady_ms}}
 
 
 def _grad_agreement(torch, got, want) -> tuple[float, float, float]:
@@ -1277,12 +1801,11 @@ def _episode_kernels(t, phase, eng, q_emb, s_emb, arrays, n_way, hat_cfg,
                         "device_ms": t.device_ms(fwd, "search_dense")}}
 
 
-def _profile_step(t, step_fn, *step_args) -> dict:
-    """One more step under torch.profiler, after one it leaves out and a
-    pause (as device_ms does): its wall time, the device time of each
-    kernel, the device's busy share, and the episodic kernels' part."""
-    torch = t.torch
-    prof = torch.profiler
+def _profiled(t, fn) -> tuple[list, float]:
+    """One more call of fn under torch.profiler (CPU and CUDA), after one
+    it leaves out and a pause (as device_ms does) -> (the profiler's
+    averaged events but the step markers, the call's wall ms)."""
+    prof = t.torch.profiler
     t.sync()
     with prof.profile(activities=[prof.ProfilerActivity.CPU,
                                   prof.ProfilerActivity.CUDA],
@@ -1292,13 +1815,22 @@ def _profile_step(t, step_fn, *step_args) -> dict:
             if i == 1:
                 time.sleep(PROFILER_SETTLE_S)
             t0 = time.perf_counter()
-            step_fn(*step_args)
+            fn()
             t.sync()
             wall = (time.perf_counter() - t0) * 1e3
             pr.step()
-    on_device = [(e.key, e.device_time_total / 1e3) for e in pr.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and not e.key.startswith("ProfilerStep")]
+    return ([e for e in pr.key_averages()
+             if not e.key.startswith("ProfilerStep")], wall)
+
+
+def _profile_step(t, step_fn, *step_args) -> dict:
+    """One more step under torch.profiler (`_profiled`): its wall time,
+    the device time of each kernel, the device's busy share, and the
+    episodic kernels' part."""
+    torch = t.torch
+    events, wall = _profiled(t, lambda: step_fn(*step_args))
+    on_device = [(e.key, e.device_time_total / 1e3) for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ms for _, ms in on_device)
     backward = sum(ms for k, ms in on_device if "episode_grad" in k)
     forward = sum(ms for k, ms in on_device if "search_dense" in k)

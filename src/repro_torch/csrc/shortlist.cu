@@ -64,6 +64,34 @@
 // and the plan cuts 32 slices so that the 512 blocks are one wave and one
 // merge round. At k = 1,024 (P = 2,048) the plan drops to fewer warps.
 //
+// The block-table entry (shortlist_blocks_launch) computes the same thing
+// for every query over its own list of row blocks: the routed search's
+// top-p shards, the pager's device slots, a tenant stack's block. JAX gets
+// it from jax.vmap of lut_shortlist_pallas over each query's concatenated
+// blocks (src/repro/engine/engine.py:318, _routed_block_search). Inputs: a
+// table of M blocks of `rows` rows, key bases base (M,), and visit lists
+// ids (B, p); the key of row r of block m is (dist << 32) | (base[m] + r),
+// so with ids ascending in base the key order is JAX's (distance, position
+// in the concatenation) order. Inverted lists:
+//   group: one block of 1,024 threads counts the (query, visit) pairs of
+//     each table block, scans the counts, and lays out a tile table --
+//     (table block, first pair, up to QW x W pairs) -- and the pairs
+//     grouped by table block (the order inside a group is that of the
+//     atomics; each pair still writes its own lists, so the result does not
+//     depend on it). An id outside [0, M) goes to an empty virtual block:
+//     its lists hold only the all-ones key.
+//   select: the same pass as above, one select block per (tile, slice of
+//     the table block's rows); it stages the rows once for every query of
+//     its tile and writes one sorted list per (query, visit, slice) to the
+//     (B, p * slices, k) scratch. A slice shorter than k pads its list
+//     with the all-ones key, which the merge drops (k <= p * rows). The
+//     grid has a fixed number of tile slots (ceil(B p / qb) + min(M + 1,
+//     B p), at least the tiles any mix needs); blocks past the tiles in
+//     use return at once, so one launch serves every mix.
+//   merge: the same rounds, over each query's p * slices lists.
+// The work is B p rows d field sums, and the bytes read the union of the
+// visited blocks (each staged once per tile that visits it).
+//
 // Work left for the selection: with rows in random order about
 // k (1 + ln(R / k)) of a slice's R rows beat the running threshold (~285
 // of 2,048 per query on the main path), a few more since the threshold
@@ -90,6 +118,9 @@ constexpr int SMEM_MAX = 232448;     // dynamic shared memory of one block
 constexpr unsigned long long PAD_KEY = ~0ull;
 constexpr float MASK_PENALTY = 4194304.0f;  // 2**22
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int GROUP_THREADS = 1024;  // threads of the block-table grouping
+// static shared memory of a select block: each query slot's query and list
+constexpr int SELECT_STATIC_SMEM = MAX_WARPS * QW * (4 + 8);
 
 enum Kind { kPacked = 0, kBf16 = 1, kF32 = 2 };
 
@@ -267,14 +298,31 @@ __device__ __forceinline__ void dot_chunk(Acc<KIND>& acc, const uint4& v,
   dot_word<KIND, BITS>(acc, v.w, m.w);
 }
 
-template <int KIND, int BITS>
+// What the block-table entry's select blocks read besides the operand.
+struct BlockArgs {
+  const int4* tiles;      // (t_max) {table block, first pair, pairs, 0}
+  const int* pairs;       // (B p) pair ids b * p + j, grouped by block
+  const int* n_tiles;     // tiles in use
+  const long long* base;  // (M) key row of each table block's row 0
+  int M;                  // table blocks (M: the empty virtual block)
+  int p;                  // visits per query
+  int t_max;              // tile slots of the grid
+};
+
+// BLOCKS = false: one row table of N rows for every query; block x is
+// (query tile x % q_tiles, slice x / q_tiles). BLOCKS = true: a table of
+// blocks of N rows each, and block x is (tile x % t_max, slice x / t_max)
+// of the grouping pass's tile table.
+template <int KIND, int BITS, bool BLOCKS>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
 shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
                  int row_words, const uint8_t* __restrict__ valid,
                  int B, int N, int d, int k, int P, int slice_rows,
                  int window, int n_slices,
-                 unsigned long long* __restrict__ out) {
+                 unsigned long long* __restrict__ out, BlockArgs blk) {
   extern __shared__ unsigned long long smem[];
+  __shared__ int s_query[MAX_WARPS * QW];        // query of a slot, or -1
+  __shared__ long long s_list[MAX_WARPS * QW];   // its list's first key
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -284,12 +332,50 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
   unsigned long long* keys = smem + warp * QW * P;           // warps*QW*P
   uint32_t* masks = reinterpret_cast<uint32_t*>(smem + qb * P);
   uint32_t* stage = masks + qb * mstride;                    // 2*ROWS*stride
-  const int q_tiles = (B + qb - 1) / qb;
-  const int b0 = (blockIdx.x % q_tiles) * qb;  // query tiles fastest: a
-  const int slice = blockIdx.x / q_tiles;      // slice is re-read from L2
-  const int n_begin = slice * slice_rows;
-  const int n_end = min(N, n_begin + slice_rows);
-  const int qw0 = b0 + warp * QW;              // this warp's first query
+
+  // the block's rows [n_begin, n_end) of its table, their key rows
+  // key0 + n, and the query and output list of each query slot
+  int slice, n_begin, n_end;
+  const uint32_t* rows_op = op;
+  const uint8_t* rows_valid = valid;
+  unsigned key0 = 0u;
+  if (BLOCKS) {
+    const int t = blockIdx.x % blk.t_max;
+    slice = blockIdx.x / blk.t_max;
+    if (t >= *blk.n_tiles) return;   // an unused tile slot: the whole block
+    const int4 tile = blk.tiles[t];
+    const bool real = tile.x < blk.M;
+    n_begin = slice * slice_rows;
+    n_end = real ? min(N, n_begin + slice_rows) : n_begin;
+    if (real) {
+      rows_op = op + (size_t)tile.x * N * row_words;
+      if (valid != nullptr) rows_valid = valid + (size_t)tile.x * N;
+      key0 = static_cast<unsigned>(blk.base[tile.x]);
+    }
+    const int lists = blk.p * n_slices;
+    for (int qi = threadIdx.x; qi < qb; qi += blockDim.x) {
+      if (qi < tile.z) {
+        const int pair = blk.pairs[tile.y + qi];
+        const int b = pair / blk.p;
+        s_query[qi] = b;
+        s_list[qi] = ((long long)b * lists + (pair - b * blk.p) * n_slices +
+                      slice) * k;
+      } else {
+        s_query[qi] = -1;
+      }
+    }
+  } else {
+    const int q_tiles = (B + qb - 1) / qb;
+    const int b0 = (blockIdx.x % q_tiles) * qb;  // query tiles fastest: a
+    slice = blockIdx.x / q_tiles;                // slice is re-read from L2
+    n_begin = slice * slice_rows;
+    n_end = min(N, n_begin + slice_rows);
+    for (int qi = threadIdx.x; qi < qb; qi += blockDim.x) {
+      const int b = b0 + qi;
+      s_query[qi] = b < B ? b : -1;
+      s_list[qi] = ((long long)b * n_slices + slice) * k;
+    }
+  }
   const bool vec = row_words % 4 == 0 && window % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(op) & 15) == 0;
 
@@ -299,7 +385,7 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     stage[e] = 0u;
   }
   for (int e = lane; e < QW * P; e += 32) keys[e] = PAD_KEY;
-  __syncthreads();  // zeros before the first cp.async lands
+  __syncthreads();  // zeros and query slots before the first use
 
   // masks of words [w0, w0 + window) for the block's queries
   auto build_masks = [&](int w0) {
@@ -310,8 +396,8 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     for (int e = threadIdx.x; e < qb * d; e += blockDim.x) {
       const int qi = e / d;
       const int dim = e - qi * d;
-      const int b = b0 + qi;
-      if (b >= B) continue;
+      const int b = s_query[qi];
+      if (b < 0) continue;
       const int qv = min(max(qw[(size_t)b * d + dim], 0), 3);
       const int col = 4 * dim + qv;
       int word, field;
@@ -333,9 +419,9 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     __syncthreads();
   };
 
-  const int n_tiles = (n_end - n_begin + ROWS - 1) / ROWS;
+  const int n_row_tiles = (n_end - n_begin + ROWS - 1) / ROWS;
   const int n_win = (row_words + window - 1) / window;
-  const int n_stages = n_tiles * n_win;
+  const int n_stages = n_row_tiles * n_win;
 
   // stage s = (tile s / n_win, window s % n_win) into buffer s & 1: each
   // warp copies whole rows, its lanes along the row
@@ -345,7 +431,7 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     const int ww = min(window, row_words - w0);
     uint32_t* buf = stage + (s & 1) * ROWS * stride;
     for (int r = warp; r < ROWS && r0 + r < n_end; r += warps) {
-      const uint32_t* src = op + (size_t)(r0 + r) * row_words + w0;
+      const uint32_t* src = rows_op + (size_t)(r0 + r) * row_words + w0;
       if (vec) {
         for (int j = lane; j < ww / 4; j += 32) {
           cp_async16(buf + r * stride + 4 * j, src + 4 * j);
@@ -358,13 +444,15 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     cp_async_commit();
   };
 
-  const bool active = qw0 < B;
+  const bool active = s_query[warp * QW] >= 0;  // slots fill in order
+  bool q_on[QW];
   const int cap = P - k;  // candidate slots per query
   unsigned long long thr[QW];
   int count[QW];
   Acc<KIND> acc[RPL][QW];
 #pragma unroll
   for (int q = 0; q < QW; ++q) {
+    q_on[q] = s_query[warp * QW + q] >= 0;
     thr[q] = PAD_KEY;
     count[q] = 0;
   }
@@ -413,8 +501,9 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
         for (int j = 0; j < RPL; ++j) {
           const int n = n_begin + (s / n_win) * ROWS + j * 32 + lane;
           const float pen =
-              (valid != nullptr && n < n_end && valid[n] == 0) ? MASK_PENALTY
-                                                               : 0.f;
+              (rows_valid != nullptr && n < n_end && rows_valid[n] == 0)
+                  ? MASK_PENALTY
+                  : 0.f;
 #pragma unroll
           for (int q = 0; q < QW; ++q) {
             const float dist =
@@ -422,9 +511,9 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
                      ? static_cast<float>(static_cast<int>(acc[j][q]))
                      : static_cast<float>(acc[j][q])) + pen;
             const unsigned long long key =
-                n < n_end && qw0 + q < B
+                n < n_end && q_on[q]
                     ? (static_cast<unsigned long long>(__float2uint_rz(dist))
-                       << 32) | static_cast<unsigned int>(n)
+                       << 32) | (key0 + static_cast<unsigned int>(n))
                     : PAD_KEY;
             bool pass = key < thr[q];
             unsigned m = __ballot_sync(FULL, pass);
@@ -455,12 +544,93 @@ shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
     for (int q = 0; q < QW; ++q) {
       unsigned long long* kq = keys + q * P;
       if (count[q] > 0) refold(kq, k, P, count[q], lane);
-      if (qw0 + q < B) {
-        unsigned long long* dst =
-            out + ((size_t)(qw0 + q) * n_slices + slice) * k;
+      if (q_on[q]) {
+        unsigned long long* dst = out + s_list[warp * QW + q];
         for (int j = lane; j < k; j += 32) dst[j] = kq[j];
       }
     }
+  }
+}
+
+// The block-table entry's grouping pass, one block of GROUP_THREADS: the
+// (query, visit) pairs of ids (B p,) grouped by table block (an id
+// outside [0, M) by the virtual block M), and the tile table of at most
+// qb pairs a tile, with its length in *n_tiles. groups (M + 1) is scratch.
+__global__ void __launch_bounds__(GROUP_THREADS)
+shortlist_group(const int* __restrict__ ids, int pairs_n, int M, int qb,
+                int* __restrict__ groups, int4* __restrict__ tiles,
+                int* __restrict__ pairs, int* __restrict__ n_tiles) {
+  __shared__ int s_pairs[GROUP_THREADS / 32];
+  __shared__ int s_tiles[GROUP_THREADS / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int G = M + 1;
+  auto group_of = [&](int i) {
+    const int m = ids[i];
+    return (m < 0 || m >= M) ? M : m;
+  };
+  for (int g = tid; g < G; g += GROUP_THREADS) groups[g] = 0;
+  __syncthreads();
+  for (int i = tid; i < pairs_n; i += GROUP_THREADS) {
+    atomicAdd(&groups[group_of(i)], 1);
+  }
+  __syncthreads();
+  // thread tid owns groups [g0, g1): its pairs and tiles, then a block
+  // exclusive scan of both
+  const int per = (G + GROUP_THREADS - 1) / GROUP_THREADS;
+  const int g0 = min(G, tid * per);
+  const int g1 = min(G, g0 + per);
+  int np = 0, nt = 0;
+  for (int g = g0; g < g1; ++g) {
+    const int c = groups[g];
+    np += c;
+    nt += (c + qb - 1) / qb;
+  }
+  int ip = np, it = nt;  // inclusive scans within the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int a = __shfl_up_sync(FULL, ip, off);
+    const int b = __shfl_up_sync(FULL, it, off);
+    if (lane >= off) {
+      ip += a;
+      it += b;
+    }
+  }
+  if (lane == 31) {
+    s_pairs[warp] = ip;
+    s_tiles[warp] = it;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int wp = s_pairs[lane], wt = s_tiles[lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int a = __shfl_up_sync(FULL, wp, off);
+      const int b = __shfl_up_sync(FULL, wt, off);
+      if (lane >= off) {
+        wp += a;
+        wt += b;
+      }
+    }
+    s_pairs[lane] = wp - s_pairs[lane];  // exclusive, per warp
+    s_tiles[lane] = wt - s_tiles[lane];
+  }
+  __syncthreads();
+  int p0 = s_pairs[warp] + ip - np;
+  int t0 = s_tiles[warp] + it - nt;
+  if (tid == GROUP_THREADS - 1) *n_tiles = t0 + nt;
+  for (int g = g0; g < g1; ++g) {
+    const int c = groups[g];
+    for (int f = 0; f < c; f += qb) {
+      tiles[t0++] = make_int4(g, p0 + f, min(qb, c - f), 0);
+    }
+    groups[g] = p0;  // the group's first pair: its cursor below
+    p0 += c;
+  }
+  __syncthreads();
+  for (int i = tid; i < pairs_n; i += GROUP_THREADS) {
+    pairs[atomicAdd(&groups[group_of(i)], 1)] = i;
   }
 }
 
@@ -493,25 +663,79 @@ int select_smem(int warps, int P, int window) {
          2 * ROWS * stage_stride(window) * 4;
 }
 
-template <int KIND, int BITS>
+template <int KIND, int BITS, bool BLOCKS>
 int launch_select(const int* qw, const uint32_t* op, int row_words,
                   const uint8_t* valid, int B, int N, int d, int k, int warps,
                   int P, int slice_rows, int window, int n_slices,
-                  unsigned long long* out, cudaStream_t st) {
+                  long long grid_tiles, unsigned long long* out,
+                  const BlockArgs& blk, cudaStream_t st) {
   const int smem = select_smem(warps, P, window);
   cudaError_t err = cudaFuncSetAttribute(
-      shortlist_select<KIND, BITS>,
+      shortlist_select<KIND, BITS, BLOCKS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int qb = warps * QW;
-  const long long blocks =
-      static_cast<long long>((B + qb - 1) / qb) * n_slices;
+  const long long blocks = grid_tiles * n_slices;
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  shortlist_select<KIND, BITS>
+  shortlist_select<KIND, BITS, BLOCKS>
       <<<static_cast<unsigned>(blocks), warps * 32, smem, st>>>(
           qw, op, row_words, valid, B, N, d, k, P, slice_rows, window,
-          n_slices, out);
+          n_slices, out, blk);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BLOCKS>
+int select_any(int kind, int bits, const int* qw, const uint32_t* op,
+               int row_words, const uint8_t* valid, int B, int N, int d,
+               int k, int warps, int P, int slice_rows, int window,
+               int n_slices, long long grid_tiles, unsigned long long* out,
+               const BlockArgs& blk, cudaStream_t st) {
+#define SELECT(KIND, BITS)                                                  \
+  launch_select<KIND, BITS, BLOCKS>(qw, op, row_words, valid, B, N, d, k,  \
+                                    warps, P, slice_rows, window, n_slices, \
+                                    grid_tiles, out, blk, st)
+  if (kind == kBf16) return SELECT(kBf16, 16);
+  if (kind == kF32) return SELECT(kF32, 32);
+  if (kind == kPacked && bits == 4) return SELECT(kPacked, 4);
+  if (kind == kPacked && bits == 8) return SELECT(kPacked, 8);
+  if (kind == kPacked && bits == 16) return SELECT(kPacked, 16);
+  if (kind == kPacked && bits == 32) return SELECT(kPacked, 32);
+#undef SELECT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Merge rounds: each query's m sorted lists of k keys in `a` -> its k
+// smallest in out (B, k), ping-ponging between a and bscr.
+int merge_lists(unsigned long long* a, unsigned long long* bscr,
+                unsigned long long* out, int B, int m, int k,
+                cudaStream_t st) {
+  const int group = MERGE_KEYS / k;
+  unsigned long long* src = a;
+  while (m > 1) {
+    const int m_out = (m + group - 1) / group;
+    const int lists = group < m ? group : m;
+    int n = 1;
+    while (n < lists * k) n <<= 1;
+    unsigned long long* dst = m_out == 1 ? out : (src == a ? bscr : a);
+    shortlist_merge<<<dim3(m_out, B), MERGE_THREADS, 0, st>>>(
+        src, dst, m, m_out, k, group, n);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    m = m_out;
+    src = dst;
+  }
+  return 0;
+}
+
+// The select pass's plan, as both entries check it: a merge round folds
+// MERGE_KEYS / k >= 2 lists into one, so k <= MAX_K; the select pass needs
+// at least 32 candidate slots.
+bool plan_ok(int k, int rows, int warps, int slice_rows, int window,
+             int row_words, int P) {
+  return !(k < 1 || k > MAX_K || warps < 1 || warps > MAX_WARPS ||
+           slice_rows < ROWS || slice_rows % ROWS != 0 || window < 1 ||
+           window > row_words || rows < 1 || P < k + 32 ||
+           (P & (P - 1)) != 0 ||
+           select_smem(warps, P, window) + SELECT_STATIC_SMEM > SMEM_MAX);
 }
 
 }  // namespace
@@ -536,59 +760,73 @@ extern "C" int shortlist_launch(const void* qw, const void* op, int kind,
                                 int slice_rows, int window, int P,
                                 void* scratch_a, void* scratch_b,
                                 void* out_keys, void* stream) {
-  // a merge round folds MERGE_KEYS / k >= 2 lists into one, so k <= MAX_K;
-  // the select pass needs at least 32 candidate slots
-  if (k < 1 || k > MAX_K || k > N || warps < 1 || warps > MAX_WARPS ||
-      slice_rows < ROWS || slice_rows % ROWS != 0 || window < 1 ||
-      window > row_words || P < k + 32 || (P & (P - 1)) != 0 ||
-      select_smem(warps, P, window) > SMEM_MAX) {
+  if (!plan_ok(k, N, warps, slice_rows, window, row_words, P) || k > N) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_slices = (N + slice_rows - 1) / slice_rows;
   auto* a = static_cast<unsigned long long*>(scratch_a);
-  auto* bscr = static_cast<unsigned long long*>(scratch_b);
   auto* out = static_cast<unsigned long long*>(out_keys);
-  unsigned long long* first = n_slices == 1 ? out : a;
-  const int* q = static_cast<const int*>(qw);
-  const uint32_t* w = static_cast<const uint32_t*>(op);
-  const uint8_t* v = static_cast<const uint8_t*>(valid);
-  int err;
-#define SELECT(KIND, BITS)                                                  \
-  launch_select<KIND, BITS>(q, w, row_words, v, B, N, d, k, warps, P,       \
-                            slice_rows, window, n_slices, first, st)
-  if (kind == kBf16) {
-    err = SELECT(kBf16, 16);
-  } else if (kind == kF32) {
-    err = SELECT(kF32, 32);
-  } else if (kind == kPacked && bits == 4) {
-    err = SELECT(kPacked, 4);
-  } else if (kind == kPacked && bits == 8) {
-    err = SELECT(kPacked, 8);
-  } else if (kind == kPacked && bits == 16) {
-    err = SELECT(kPacked, 16);
-  } else if (kind == kPacked && bits == 32) {
-    err = SELECT(kPacked, 32);
-  } else {
-    err = static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef SELECT
+  const int qb = warps * QW;
+  const int err = select_any<false>(
+      kind, bits, static_cast<const int*>(qw),
+      static_cast<const uint32_t*>(op), row_words,
+      static_cast<const uint8_t*>(valid), B, N, d, k, warps, P, slice_rows,
+      window, n_slices, (B + qb - 1) / qb, n_slices == 1 ? out : a,
+      BlockArgs{}, st);
   if (err != 0) return err;
-  const int group = MERGE_KEYS / k;
-  int m = n_slices;
-  unsigned long long* src = a;
-  while (m > 1) {
-    const int m_out = (m + group - 1) / group;
-    const int lists = group < m ? group : m;
-    int n = 1;
-    while (n < lists * k) n <<= 1;
-    unsigned long long* dst = m_out == 1 ? out : (src == a ? bscr : a);
-    shortlist_merge<<<dim3(m_out, B), MERGE_THREADS, 0, st>>>(
-        src, dst, m, m_out, k, group, n);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    m = m_out;
-    src = dst;
+  return merge_lists(a, static_cast<unsigned long long*>(scratch_b), out, B,
+                     n_slices, k, st);
+}
+
+// The block-table entry. qw (B, d) int32 query words; op (M, rows,
+// row_words) 32-bit words (kinds as shortlist_launch); valid (M, rows)
+// uint8 or null; base (M,) int64 key rows of each block's row 0 (base + rows
+// <= 2**32); ids (B, p) int32 visited blocks of each query, ascending in
+// base. Plan (kernels/shortlist.py::shortlist_blocks_plan): warps,
+// slice_rows, window, P as shortlist_launch, t_max tile slots (at least
+// ceil(B p / qb) + min(M + 1, B p)). group_scratch: int32, 4 t_max + M + 1
+// + B p + 1 entries (16-byte aligned); scratch_a B * p * slices * k keys,
+// scratch_b B * ceil(p * slices / (MERGE_KEYS / k)) * k; out_keys (B, k).
+// Requires 1 <= k <= min(MAX_K, p * rows).
+extern "C" int shortlist_blocks_launch(
+    const void* qw, const void* op, int kind, int bits, int row_words,
+    const void* valid, const void* base, const void* ids, int B, int M,
+    int rows, int d, int p, int k, int warps, int slice_rows, int window,
+    int P, int t_max, void* group_scratch, void* scratch_a, void* scratch_b,
+    void* out_keys, void* stream) {
+  const int qb = warps * QW;
+  const long long pairs = (long long)B * p;
+  if (!plan_ok(k, rows, warps, slice_rows, window, row_words, P) || B < 1 ||
+      B > 65535 || p < 1 || M < 1 || (long long)p * rows < k ||
+      pairs > 0x3FFFFFFFLL ||
+      (long long)t_max < (pairs + qb - 1) / qb + (M + 1 < pairs ? M + 1
+                                                                 : pairs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* gs = static_cast<int*>(group_scratch);
+  int4* tiles = reinterpret_cast<int4*>(gs);
+  int* groups = gs + 4 * (size_t)t_max;
+  int* pair_ids = groups + M + 1;
+  int* n_tiles = pair_ids + pairs;
+  shortlist_group<<<1, GROUP_THREADS, 0, st>>>(
+      static_cast<const int*>(ids), static_cast<int>(pairs), M, qb, groups,
+      tiles, pair_ids, n_tiles);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int n_slices = (rows + slice_rows - 1) / slice_rows;
+  const int lists = p * n_slices;
+  auto* a = static_cast<unsigned long long*>(scratch_a);
+  auto* out = static_cast<unsigned long long*>(out_keys);
+  const BlockArgs blk{tiles, pair_ids, n_tiles,
+                      static_cast<const long long*>(base), M, p, t_max};
+  err = select_any<true>(
+      kind, bits, static_cast<const int*>(qw),
+      static_cast<const uint32_t*>(op), row_words,
+      static_cast<const uint8_t*>(valid), B, rows, d, k, warps, P,
+      slice_rows, window, n_slices, t_max, lists == 1 ? out : a, blk, st);
+  if (err != 0) return err;
+  return merge_lists(a, static_cast<unsigned long long*>(scratch_b), out, B,
+                     lists, k, st);
 }

@@ -18,9 +18,10 @@ class SearchRequest:
     mode: 'full' (exact noisy search of every row), 'two_phase' (ideal-
     distance shortlist + exact noisy rescore of the top-k) or 'ideal'
     (ideal-distance top-k only). k: candidate count of the shortlist
-    modes. backend: 'auto' defers to the engine. axes / nprobe: the
-    sharded and routed searches, not ported yet (ROADMAP Queue A6, A9).
-    fused_min_rows, noisy: per-request overrides of the engine's."""
+    modes. backend: 'auto' defers to the engine. nprobe: the shards a
+    routed search visits on a partitioned store (None: every shard).
+    axes: the multi-device sharded search, not ported yet (ROADMAP Queue
+    A9). fused_min_rows, noisy: per-request overrides of the engine's."""
 
     mode: str = "two_phase"
     k: int = 64

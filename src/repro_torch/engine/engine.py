@@ -1,5 +1,5 @@
 """The RetrievalEngine: `search(store, queries, SearchRequest) ->
-SearchResult` over an unsharded store (port of `repro.engine.engine`).
+SearchResult` (port of `repro.engine.engine`).
 
 Every backend gives the same results: phase-1 distances are integers
 below 2**24, selected by one exact (distance, row) key, and phase-2 noise
@@ -13,8 +13,19 @@ of `search(mode="full")`: the straight-through estimators wrapped around
 the same quantizer, encoder, layout and physics, so that the votes equal
 the served ones bit for bit for the same embeddings and range.
 
-Not ported yet (they raise NotImplementedError): the sharded and routed
-searches (`SearchRequest.axes` / `nprobe`) and `search_tenants`.
+Three searches rank rows of per-query lists of row blocks, through one
+core (`_routed_block_search`) and one kernel entry
+(`kernels/shortlist.lut_shortlist_blocks`):
+
+  search(nprobe=p)   a partitioned store's top-p shards by the router
+                     sketch (engine/router.py); key rows are global rows
+  ShardPager.search  the device slots holding those shards
+                     (engine/pager.py); key rows are global rows
+  search_tenants     each query's tenant in a stacked TenantStore
+                     (engine/tenant.py); key rows are rows of the tenant
+
+Not ported yet: the multi-device sharded search (`SearchRequest.axes`,
+ROADMAP Queue A9) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -31,8 +42,11 @@ from repro_torch.core import mcam as mcam_lib
 from repro_torch.core import quantization as quant_lib
 from repro_torch.core.avss import SearchConfig
 from repro_torch.engine.api import SearchRequest, SearchResult
+from repro_torch.engine import router as router_lib
+from repro_torch.engine import tenant as tenant_lib
 from repro_torch.engine.backends import resolve_backend
 from repro_torch.engine.store import MemoryStore, _not_ported
+from repro_torch.engine.tenant import TenantStore
 from repro_torch.kernels import mcam_dist
 from repro_torch.kernels import mcam_episode
 from repro_torch.kernels import ops as kernel_ops
@@ -63,20 +77,55 @@ def noise_stream(key) -> int | None:
     return int(s)
 
 
-def _local_shortlist(q: torch.Tensor, proj: torch.Tensor,
-                     valid: torch.Tensor, k: int, *, kernel: bool
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Dense shortlist of query words q (B, d) against the projection:
-    the (B, N) LUT distance matrix (through the `mcam_dist` kernel
-    wrapper when `kernel`, else its plain version), the mask penalty, then
-    the exact (distance, row) top-k."""
-    q1h = kernel_ops.query_onehot(q, proj.dtype).to(proj.device)
-    fn = mcam_dist.lut_dist_matmul if kernel \
-        else mcam_dist.lut_dist_matmul_plain
-    dist = fn(q1h.contiguous(), proj.contiguous())
-    dist += torch.where(valid, 0.0,
-                        kernel_ops.SHORTLIST_MASK_PENALTY)[None]
-    return shortlist_kernel.select_topk(dist, k)
+# Added on the dense block route to the rows of blocks a query does not
+# visit: above every visited row (real distances and the mask penalty stay
+# below 2**23), and every sum stays integer-exact in f32 (< 2**24).
+SHORTLIST_UNVISITED_PENALTY = 2.0 ** 23
+
+
+def _use_fused(backend: str, rows: int, fused_min_rows: int | None) -> bool:
+    """The fused-or-dense rule of every shortlist (port of
+    `repro.engine.sharded._use_fused`): the fused kernel on 'fused', and
+    on any kernel backend once the rows a query ranks reach
+    `fused_min_rows`; 'ref' keeps the dense plain route."""
+    if backend == "fused":
+        return True
+    return (backend != "ref" and fused_min_rows is not None
+            and rows >= fused_min_rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTable:
+    """M row blocks of `rows` rows that per-query visit lists select from:
+    a partitioned store's shards, a pager's device slots or a tenant
+    stack's tenants. proj (M, rows, 4d), proj_packed (M, rows, dp) or
+    None, s_grid (M, rows, seg, L, sl), labels (M, rows); pack_bits the
+    width `proj_packed` was packed with."""
+
+    proj: torch.Tensor
+    proj_packed: torch.Tensor | None
+    s_grid: torch.Tensor
+    labels: torch.Tensor
+    pack_bits: int
+
+    @property
+    def rows(self) -> int:
+        return self.proj.shape[1]
+
+    def flat(self, leaf: str) -> torch.Tensor:
+        """A leaf with its block and row axes merged: table rows."""
+        t = getattr(self, leaf)
+        return t.reshape((-1,) + tuple(t.shape[2:]))
+
+
+def _table_rows(key_rows: torch.Tensor, ids: torch.Tensor,
+                base: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B, k) key rows -> rows of the flattened table: each key row lies
+    in the visited block with the largest base at or below it (the visit
+    lists ascend in base)."""
+    vbase = base[ids]
+    j = torch.searchsorted(vbase, key_rows, right=True) - 1
+    return ids.gather(1, j) * rows + (key_rows - vbase.gather(1, j))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,16 +188,196 @@ class RetrievalEngine:
         queries: (B, dim) float embeddings (quantized with the store's
         calibrated range) or pre-quantized integer words."""
         req = request if request is not None else SearchRequest()
-        if req.nprobe is not None:
-            raise _not_ported("SearchRequest.nprobe (routed search)", "A6")
         if req.axes is not None:
             raise _not_ported("SearchRequest.axes (sharded search)", "A9")
+        if store.residency == "host":
+            raise ValueError(
+                "RetrievalEngine.search: this store's shards live in host "
+                "memory (shard(..., residency='host')); search it through "
+                "repro_torch.engine.pager.ShardPager, which pages the "
+                "visited shards onto the device, or re-shard with "
+                "residency='device'.")
         eng = self.with_backend(req.backend).with_noisy(req.noisy)
         q = store.quantize_queries(queries)
+        # routing engages iff the request visits fewer shards than the
+        # store has; nprobe=None and nprobe >= n_shards are the exhaustive
+        # search below, byte for byte
+        if (req.nprobe is not None and req.mode != "full"
+                and req.nprobe < store.n_shards):
+            return eng._search_routed(store, q, req)
         return eng._search_unsharded(store, q, req)
 
-    def search_tenants(self, *args, **kwargs) -> SearchResult:
-        raise _not_ported("RetrievalEngine.search_tenants", "A7")
+    # -- routed search -----------------------------------------------------
+
+    def _search_routed(self, store: MemoryStore, q: torch.Tensor,
+                       req: SearchRequest) -> SearchResult:
+        """nprobe-routed search of a partitioned store: the router sketch
+        picks each query's top-p shards (engine/router.py), and phase 1 /
+        2 rank only their rows, equal to the exhaustive search restricted
+        to the visited shards. `self` carries the request's overrides;
+        `q` is quantized."""
+        s = store.n_shards
+        rows = store.capacity // s
+        scores = router_lib.route_scores(q, store.sketch_sums,
+                                         store.sketch_counts, self.cfg.enc)
+        ids = router_lib.top_shards(scores, req.nprobe)
+
+        def blocks(t: torch.Tensor) -> torch.Tensor:
+            return t.reshape((s, rows) + tuple(t.shape[1:]))
+
+        table = BlockTable(proj=blocks(store.proj),
+                           proj_packed=blocks(store.proj_packed),
+                           s_grid=blocks(store.s_grid),
+                           labels=blocks(store.labels),
+                           pack_bits=store.pack_bits)
+        base = torch.arange(s, device=store.device) * rows
+        return self._routed_block_search(q, ids, base, table, req)
+
+    def _routed_block_search(self, q: torch.Tensor, ids: torch.Tensor,
+                             base: torch.Tensor, table: BlockTable,
+                             req: SearchRequest,
+                             noise_qidx: torch.Tensor | None = None
+                             ) -> SearchResult:
+        """The core of the routed, paged and tenant searches (port of
+        `repro.engine.engine._routed_block_search`). q (B, d) words; ids
+        (B, p) int64 the table blocks each query visits, ascending in
+        base; base (M,) int64 the key row of each block's row 0: the
+        global row of a shard (routed, paged), 0 for a tenant; both on the
+        table's device. Phase 1 ranks each query's
+        visited rows by (distance, key row); phase 2 rescores the
+        candidates with their key rows as noise rows and `noise_qidx`
+        (default arange(B)) as query coordinates, so routed votes equal
+        the full search's at the same (query, row). Returns indices = key
+        rows."""
+        if self.cfg.mode != "avss":
+            raise ValueError("routed searches shortlist the AVSS LUT "
+                             "(mode='avss')")
+        k = min(req.k, ids.shape[1] * table.rows)
+        dist, key_rows = self._block_shortlist(
+            q, table, ids, base, k, self._fused_threshold(req))
+        rows = _table_rows(key_rows, ids, base, table.rows)
+        labels = table.flat("labels")[rows]
+        if req.mode == "two_phase":
+            q_grid, s_grid, weights, thresholds = self._grids(
+                q, None, table.flat("s_grid"))
+            rescore = (kernel_ops.rescore_shortlist_plain
+                       if self.resolved_backend == "ref"
+                       else kernel_ops.rescore_shortlist)
+            votes = rescore(q_grid, s_grid, rows, weights, self.cfg,
+                            thresholds, noise_idx=key_rows,
+                            noise_qidx=noise_qidx)
+        else:
+            votes = -dist
+        votes = torch.where(labels >= 0, votes, float("-inf"))
+        return SearchResult(votes, dist, key_rows, labels,
+                            self._iterations(q.shape[-1]))
+
+    def _block_shortlist(self, q: torch.Tensor, table: BlockTable,
+                         ids: torch.Tensor, base: torch.Tensor, k: int,
+                         fused_min_rows: int | None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Each query's k best (distance, key row) over its visited blocks:
+        the block-table entry of the fused kernel (`_use_fused` on the p
+        rows-a-block a query ranks), else the dense route: the LUT product
+        of every table row once, the mask penalty, and
+        SHORTLIST_UNVISITED_PENALTY on the blocks a query does not visit
+        (k <= p rows keeps the selection inside the visited rows)."""
+        valid = table.labels >= 0
+        rows = table.rows
+        if _use_fused(self.resolved_backend, ids.shape[1] * rows,
+                      fused_min_rows):
+            if table.proj_packed is not None:
+                return shortlist_kernel.lut_shortlist_blocks(
+                    q, None, k, base=base, ids=ids, valid=valid,
+                    packed=table.proj_packed, pack_bits=table.pack_bits)
+            return shortlist_kernel.lut_shortlist_blocks(
+                q, table.proj, k, base=base, ids=ids, valid=valid)
+        m = table.proj.shape[0]
+        dist = self._lut_dist(q, table.flat("proj")).reshape(-1, m, rows)
+        visited = torch.zeros(dist.shape[:2], dtype=torch.bool,
+                              device=dist.device).scatter_(1, ids, True)
+        dist = (dist + torch.where(valid, 0.0,
+                                   kernel_ops.SHORTLIST_MASK_PENALTY)[None]
+                + torch.where(visited, 0.0,
+                              SHORTLIST_UNVISITED_PENALTY)[:, :, None])
+        every = torch.arange(m, device=dist.device).expand(dist.shape[0], m)
+        keys = shortlist_kernel.block_keys(dist.reshape(len(dist), -1), base,
+                                           every, rows)
+        top = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+        return shortlist_kernel.split_keys(top)
+
+    def _lut_dist(self, q: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
+        """(B, N) exact LUT distances of query words against projection
+        rows: the `mcam_dist` kernel, or its plain version on 'ref'."""
+        q1h = kernel_ops.query_onehot(q, proj.dtype).to(proj.device)
+        fn = (mcam_dist.lut_dist_matmul_plain
+              if self.resolved_backend == "ref"
+              else mcam_dist.lut_dist_matmul)
+        return fn(q1h.contiguous(), proj.contiguous())
+
+    # -- multi-tenant search -----------------------------------------------
+
+    def search_tenants(self, tstore: TenantStore, queries,
+                       tenant_ids, request: SearchRequest | None = None
+                       ) -> SearchResult:
+        """One search over a batch of queries from many tenants of a
+        stacked TenantStore (engine/tenant.py), equal per tenant, bit for
+        bit, to `search(tstore.tenant(t), its queries in batch order)`.
+
+        queries: (B, dim) float embeddings, each quantized against its own
+        tenant's range, or integer words. tenant_ids: (B,) each query's
+        tenant. Noise coordinates: a query's rank within its tenant group
+        (`tenant_query_rank`) and its candidates' rows within the tenant,
+        exactly the solo search's. Results span the stack's padded
+        capacity: a ragged tenant's pad rows behave as never-written slots.
+
+        Every mode launches the same kernels the same number of times for
+        any mix of tenants: two_phase / ideal through the block-table
+        shortlist (one block a query) and the gathered physics; full
+        through the gathered physics over every row of the query's tenant
+        (rows t n_pad + r, noise rows r), the entry that returns each
+        pair's dist too ('ref': the reference loop a query)."""
+        req = request if request is not None else SearchRequest()
+        eng = self.with_backend(req.backend).with_noisy(req.noisy)
+        tids = torch.as_tensor(tenant_ids).to(device=tstore.device,
+                                              dtype=torch.int64)
+        q = tstore.quantize_queries(queries, tids)
+        rank = tenant_lib.tenant_query_rank(tids)
+        if req.mode == "full":
+            return eng._tenants_full(tstore, q, tids, rank)
+        table = BlockTable(proj=tstore.proj, proj_packed=tstore.proj_packed,
+                           s_grid=tstore.s_grid, labels=tstore.labels,
+                           pack_bits=tstore.pack_bits)
+        base = torch.zeros(tstore.n_tenants, dtype=torch.int64,
+                           device=tstore.device)
+        return eng._routed_block_search(q, tids[:, None], base, table, req,
+                                        noise_qidx=rank)
+
+    def _tenants_full(self, tstore: TenantStore, q: torch.Tensor,
+                      tids: torch.Tensor, rank: torch.Tensor
+                      ) -> SearchResult:
+        """`full` of each query against every row of its tenant."""
+        n_pad = tstore.n_pad
+        dev = tstore.device
+        r = torch.arange(n_pad, device=dev)
+        s_flat = tstore.s_grid.reshape((-1,) + tuple(tstore.s_grid.shape[2:]))
+        q_grid, _, weights, thresholds = self._grids(q, None, s_flat)
+        if self.resolved_backend == "ref":
+            per_query = [avss_lib._search_one_query(
+                q_grid[b], tstore.s_grid[tids[b]], rank[b], weights,
+                self.cfg, thresholds) for b in range(q_grid.shape[0])]
+            votes = torch.stack([v for v, _ in per_query])
+            dist = torch.stack([d for _, d in per_query])
+        else:
+            rows = tids[:, None] * n_pad + r
+            votes, dist = kernel_ops.rescore_shortlist(
+                q_grid, s_flat, rows, weights, self.cfg, thresholds,
+                noise_idx=r.expand(rows.shape), noise_qidx=rank,
+                with_dist=True)
+        labels = tstore.labels[tids]
+        votes = torch.where(labels >= 0, votes, float("-inf"))
+        return SearchResult(votes, dist, r.expand(votes.shape), labels,
+                            self._iterations(q.shape[-1]))
 
     # -- differentiable episodic forward (hardware-aware training) ---------
 
@@ -262,19 +491,11 @@ class RetrievalEngine:
             votes = torch.where(labels >= 0, res["votes"], float("-inf"))
             return SearchResult(votes, res["dist"], res["indices"], labels,
                                 res["iterations"])
-        # ideal: top-k by the exact digital distance against the write-time
-        # projection, masked rows carrying the mask penalty
-        k = min(req.k, store.capacity)
-        backend = self.resolved_backend
-        if backend != "ref" and (store.capacity >= self._fused_threshold(req)
-                                 or backend == "fused"):
-            dist, idx = kernel_ops.lut_shortlist(
-                q, store.values, self.cfg.enc, k, valid=valid,
-                proj=store.proj, packed=store.proj_packed,
-                pack_bits=store.pack_bits)
-        else:
-            dist, idx = _local_shortlist(q, store.proj, valid, k,
-                                         kernel=backend != "ref")
+        # ideal: phase 1 alone, votes -dist
+        dist, idx = self.shortlist(q, store.values, req.k, valid=valid,
+                                   proj=store.proj, packed=store.proj_packed,
+                                   pack_bits=store.pack_bits,
+                                   fused_min_rows=self._fused_threshold(req))
         labels = store.labels[idx]
         votes = torch.where(labels >= 0, -dist, float("-inf"))
         return SearchResult(votes, dist, idx, labels, iters)
@@ -340,10 +561,10 @@ class RetrievalEngine:
         """Top-k supports by ideal digital AVSS distance -> (dist (B, k),
         rows (B, k)), ascending by (distance, row), ties included.
 
-        The fused kernel engages on 'fused', and on any kernel backend once
-        N reaches `fused_min_rows`; below it 'pallas' / 'mxu' take the LUT
-        product kernel and 'ref' the plain LUT gather, each followed by
-        the exact key selection."""
+        The fused kernel engages by `_use_fused` (on 'fused', and on any
+        kernel backend once N reaches `fused_min_rows`); below it 'pallas'
+        / 'mxu' take the LUT product kernel and 'ref' the plain LUT gather,
+        each followed by the exact key selection."""
         cfg = self.cfg
         if cfg.mode != "avss":
             raise ValueError("shortlists use the AVSS LUT (mode='avss')")
@@ -352,7 +573,7 @@ class RetrievalEngine:
         backend = self.resolved_backend
         if fused_min_rows is None:
             fused_min_rows = self.fused_min_rows
-        if backend == "fused" or (backend != "ref" and n >= fused_min_rows):
+        if _use_fused(backend, n, fused_min_rows):
             return kernel_ops.lut_shortlist(q_values, s_values, cfg.enc, k,
                                             valid=valid, proj=proj,
                                             packed=packed,

@@ -1,11 +1,21 @@
-"""Per-shard class-bucket sketch leaves of the store (port of
-`bucket_sums` / `build_sketch` from `repro.engine.router`). The store keeps
-its S=1 sketch bit-exact so the routed search can build on it; routing
-itself is not ported yet (ROADMAP Queue A6)."""
+"""Phase-0 coarse router (port of `repro.engine.router`): per-shard
+class-bucket sketches of a partitioned store, scored against the queries
+to pick the shards a routed search (`SearchRequest.nprobe`) visits.
+
+Every sketch is integer-exact: int32 sums and counts per (shard, bucket
+label % ROUTER_BUCKETS) of valid rows, round-half-up integer centroids in
+the store's level domain, projected through the store's own LUT, so the
+scores are integer-valued f32 below 2**24 and the same in both packages.
+Empty buckets carry SHORTLIST_MASK_PENALTY, the shortlist's mask.
+"""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.encodings import Encoding
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.shortlist import SHORTLIST_MASK_PENALTY
 
 #: class buckets per shard sketch (label % ROUTER_BUCKETS)
 ROUTER_BUCKETS = 8
@@ -42,3 +52,39 @@ def build_sketch(values: torch.Tensor, labels: torch.Tensor, n_shards: int,
              for i in range(n_shards)]
     return (torch.stack([p[0] for p in parts]),
             torch.stack([p[1] for p in parts]))
+
+
+def sketch_centroids(sums: torch.Tensor, counts: torch.Tensor,
+                     levels: int) -> torch.Tensor:
+    """Integer bucket centroids: exact round-half-up mean, clamped to the
+    level grid [0, levels). Empty buckets give level 0 (`route_scores`
+    masks them)."""
+    c = torch.clamp(counts, min=1).to(torch.int64)[..., None]
+    cent = torch.div(2 * sums.to(torch.int64) + c, 2 * c,
+                     rounding_mode="floor")
+    return torch.clamp(cent, 0, levels - 1).to(torch.int32)
+
+
+def route_scores(q_values: torch.Tensor, sketch_sums: torch.Tensor,
+                 sketch_counts: torch.Tensor, enc: Encoding) -> torch.Tensor:
+    """(B, S) router scores: per shard, the least exact LUT distance from
+    each query's words to the shard's non-empty bucket centroids. One
+    (B, 4d) x (4d, S R) f32 product of integers, exact below 2**24."""
+    s, r, d = sketch_sums.shape
+    cent = sketch_centroids(sketch_sums, sketch_counts, enc.levels)
+    # through the store's bf16 projection, as the reference rounds it
+    proj = kernel_ops.support_projection(cent.reshape(s * r, d),
+                                         enc).to(torch.float32)
+    q1h = kernel_ops.query_onehot(q_values, torch.float32).to(proj.device)
+    dist = q1h @ proj.T                                    # (B, S*R)
+    mask = torch.where(sketch_counts > 0, 0.0,
+                       SHORTLIST_MASK_PENALTY).reshape(s, r)
+    return (dist.reshape(-1, s, r) + mask[None]).amin(dim=-1)
+
+
+def top_shards(scores: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """(B, nprobe) int64 shard ids a query, ascending: the smallest scores,
+    ties to the lowest shard id (a stable sort on the score), then sorted
+    by id, so the visited blocks concatenate in global row order."""
+    order = torch.sort(scores, dim=1, stable=True).indices[:, :nprobe]
+    return torch.sort(order, dim=1).values

@@ -1,5 +1,5 @@
 """MemoryStore: the programmed MCAM memory (port of
-`repro.engine.store`, unsharded).
+`repro.engine.store`, on one device).
 
 `write` materialises everything a search needs, once:
 
@@ -10,16 +10,26 @@
   labels        (N,)             int32  class labels; -1 marks an empty slot
   size          ()               int32  total writes so far (ring position)
   lo, hi        ()               f32    calibrated quantization range
-  sketch_sums   (1, R, d)        int32  per-class-bucket sums / counts of
-  sketch_counts (1, R)           int32  valid rows (the router's leaves)
+  sketch_sums   (S, R, d)        int32  per (shard, class bucket) sums /
+  sketch_counts (S, R)           int32  counts of valid rows: the router's
+                                        leaves (engine/router.py); S = 1
+                                        on an unpartitioned store
 
 The store lives on one device, CUDA unless the caller passes
 `device="cpu"`. Updates are functional: `calibrate` and `write` return a
 new store and leave the old one as it was. `save` / `restore` use the JAX
 package's checkpoint format (`repro_torch.checkpoint.ckpt`), so a store
-crosses between the packages in both directions. Sharding, routing and
-host residency are not ported yet; they raise NotImplementedError naming
-their ROADMAP item.
+crosses between the packages in both directions.
+
+`shard(n_shards=S)` partitions the store logically: it keeps its arrays,
+padded with label -1 rows to a multiple of S (rows that rank as
+never-written slots), and the sketch records S contiguous row blocks,
+which `SearchRequest.nprobe` routes over. With `residency="host"` the
+leaves move to host memory (pinned where they came from the card), and
+`engine/pager.ShardPager` pages the visited blocks onto the device.
+Re-sharding starts from the logical `cfg.capacity` rows. `shard(mesh)`
+(multi-device sharding) is not ported yet and raises NotImplementedError
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -102,6 +112,7 @@ class MemoryStore:
     sketch_counts: torch.Tensor
     cfg: MemoryConfig
     calibrated: bool = False
+    residency: str = "device"
 
     # -- construction --------------------------------------------------------
 
@@ -236,8 +247,9 @@ class MemoryStore:
     def save(self, directory: str, step: int = 0) -> None:
         """Persist the store (values, labels, the write-time proj / s_grid,
         the calibrated range and the ring size) in the JAX package's
-        checkpoint format."""
-        ckpt.save(directory, step, self.to_state())
+        checkpoint format. A partitioned store saves its logical rows;
+        restore, then `shard` again."""
+        ckpt.save(directory, step, self._unpad().to_state())
 
     @classmethod
     def restore(cls, directory: str, cfg: MemoryConfig,
@@ -251,13 +263,91 @@ class MemoryStore:
         state = ckpt.restore(directory, target, step=step, device="cpu")
         return cls.from_state(state, cfg, device)
 
-    def shard(self, mesh=None, axes=("data",), *, n_shards=None,
+    def shard(self, mesh=None, axes=("data",), *, n_shards: int | None = None,
               residency: str = "device") -> "MemoryStore":
-        if residency == "host":
-            raise _not_ported("shard(residency='host') (host paging)", "A8")
+        """Partition the store into `n_shards` contiguous row blocks (see
+        the module docstring): ragged splits pad with label -1, value-0
+        rows, indistinguishable from never-written slots, so top-k results
+        equal the unpartitioned search's for k <= the logical rows. The
+        sketch is rebuilt at S blocks. residency="host" moves every leaf to
+        host memory (pinned when it came from the card); "device" moves a
+        host store's leaves back (to the card when they were pinned).
+        Idempotent: it starts from the logical `cfg.capacity` rows."""
+        if residency not in ("device", "host"):
+            raise ValueError(f"unknown residency {residency!r}: expected "
+                             f"'device' or 'host'")
         if mesh is not None:
             raise _not_ported("shard(mesh) (multi-device sharding)", "A9")
-        raise _not_ported("shard(n_shards=S) (router partitions)", "A6")
+        if n_shards is None or n_shards < 1:
+            raise ValueError("MemoryStore.shard: pass a mesh or "
+                             "n_shards >= 1")
+        base = self._unpad()
+        store = base._pad_rows((-base.capacity) % n_shards)
+        sk_sums, sk_counts = router_lib.build_sketch(
+            store.values, store.labels, n_shards,
+            self.sketch_sums.shape[1])
+        store = dataclasses.replace(store, sketch_sums=sk_sums,
+                                    sketch_counts=sk_counts)
+        if residency == "host":
+            return store._to_host(pin=self.device.type == "cuda"
+                                  or self.values.is_pinned())
+        if self.residency == "host":
+            home = "cuda" if self.values.is_pinned() else "cpu"
+            store = dataclasses.replace(store, **{
+                f: getattr(store, f).to(home) for f in DATA_FIELDS})
+        return store
+
+    def _to_host(self, pin: bool) -> "MemoryStore":
+        """Every leaf in host memory, pinned where `pin` (a store of the
+        card: the pager's copies then run asynchronously), marked
+        residency="host"."""
+        def host(t: torch.Tensor) -> torch.Tensor:
+            t = t.to("cpu")
+            return t.pin_memory() if pin and not t.is_pinned() else t
+        return dataclasses.replace(
+            self, residency="host",
+            **{f: host(getattr(self, f)) for f in DATA_FIELDS})
+
+    def _unpad(self) -> "MemoryStore":
+        """Back to the logical view: pad rows dropped, the sketch reset
+        to one block and residency "device", so re-sharding always starts
+        from the same store. Moves no array between memories (`shard`
+        places them)."""
+        n = self.cfg.capacity
+        base = self
+        if self.capacity != n:
+            base = dataclasses.replace(
+                self, values=self.values[:n], proj=self.proj[:n],
+                proj_packed=self.proj_packed[:n], s_grid=self.s_grid[:n],
+                labels=self.labels[:n])
+        if base.n_shards != 1 or base.residency != "device":
+            sk_sums, sk_counts = router_lib.build_sketch(
+                base.values, base.labels, 1, base.sketch_sums.shape[1])
+            base = dataclasses.replace(base, sketch_sums=sk_sums,
+                                       sketch_counts=sk_counts,
+                                       residency="device")
+        return base
+
+    def _pad_rows(self, pad: int) -> "MemoryStore":
+        """`pad` label -1 rows holding what a write of value 0 programs."""
+        if pad == 0:
+            return self
+        enc = self.cfg.search.enc
+        zeros = torch.zeros(pad, self.dim, dtype=torch.int32,
+                            device=self.device)
+        proj_pad = kernel_ops.support_projection(zeros, enc)
+
+        def cat(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+            return torch.cat([a, b.to(a.dtype)])
+
+        return dataclasses.replace(
+            self, values=cat(self.values, zeros),
+            proj=cat(self.proj, proj_pad),
+            proj_packed=cat(self.proj_packed,
+                            kernel_ops.pack_projection(proj_pad, enc)),
+            s_grid=cat(self.s_grid, _layout(zeros, self.cfg)),
+            labels=cat(self.labels, torch.full((pad,), -1, dtype=torch.int32,
+                                               device=self.device)))
 
     # -- derived properties --------------------------------------------------
 
@@ -275,8 +365,9 @@ class MemoryStore:
 
     @property
     def n_shards(self) -> int:
-        """Always 1: this port's store is unsharded."""
-        return 1
+        """Row blocks of the partition: the sketch's leading axis (1 for
+        an unpartitioned store)."""
+        return int(self.sketch_sums.shape[0])
 
     @property
     def pack_bits(self) -> int:
@@ -341,28 +432,34 @@ class MemoryStore:
         the batch is no larger than the ring)."""
         enc = self.cfg.search.enc
         proj = kernel_ops.support_projection(v, enc)
-        r = self.sketch_sums.shape[1]
-        # the batch lands on distinct slots, so adding (new - old) bucket
-        # stats is exact integer arithmetic, equal to a full rebuild
-        ds_new, dc_new = router_lib.bucket_sums(v, lab, r)
-        ds_old, dc_old = router_lib.bucket_sums(self.values[idx],
-                                                self.labels[idx], r)
+        s, r = self.sketch_sums.shape[:2]
 
         def put(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
             return old.index_put((idx,), new.to(old.dtype))
 
-        return dataclasses.replace(
-            self,
-            values=put(self.values, v),
-            proj=put(self.proj, proj),
+        values, labels = put(self.values, v), put(self.labels, lab)
+        if s == 1:
+            # the batch lands on distinct slots, so adding (new - old)
+            # bucket stats is exact integer arithmetic, equal to a rebuild
+            ds_new, dc_new = router_lib.bucket_sums(v, lab, r)
+            ds_old, dc_old = router_lib.bucket_sums(self.values[idx],
+                                                    self.labels[idx], r)
+            sk_sums = self.sketch_sums + (ds_new - ds_old)[None]
+            sk_counts = self.sketch_counts + (dc_new - dc_old)[None]
+        else:
+            # a partitioned store: the batch may cross blocks; rebuild
+            sk_sums, sk_counts = router_lib.build_sketch(values, labels, s, r)
+        store = dataclasses.replace(
+            self, values=values, proj=put(self.proj, proj),
             proj_packed=put(self.proj_packed,
                             kernel_ops.pack_projection(proj, enc)),
-            s_grid=put(self.s_grid, _layout(v, self.cfg)),
-            labels=put(self.labels, lab),
-            sketch_sums=self.sketch_sums + (ds_new - ds_old)[None],
-            sketch_counts=self.sketch_counts + (dc_new - dc_old)[None],
-            size=self.size + idx.shape[0],
-        )
+            s_grid=put(self.s_grid, _layout(v, self.cfg)), labels=labels,
+            sketch_sums=sk_sums, sketch_counts=sk_counts,
+            size=self.size + idx.shape[0])
+        if self.residency == "host" and self.values.is_pinned():
+            store = dataclasses.replace(store, **{
+                f: getattr(store, f).pin_memory() for f in DATA_FIELDS})
+        return store
 
     def quantize_queries(self, queries) -> torch.Tensor:
         """Float embeddings -> quantized query words ([0, 4) for AVSS,

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: wrapper launches per kernel name; chip_smoke.py zeroes and reads these
-LAUNCHES: dict[str, int] = {"shortlist": 0, "mcam_dist": 0,
+LAUNCHES: dict[str, int] = {"shortlist": 0, "shortlist_blocks": 0,
+                            "mcam_dist": 0,
                             "mcam_search": 0, "mcam_rescore": 0,
                             "mcam_episode": 0}
 

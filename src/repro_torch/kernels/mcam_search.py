@@ -51,8 +51,8 @@ STREAM_ARGS = [_I, ctypes.c_uint]
 _SIGNATURES = {
     "mcam_search_dense": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                           *_PHYSICS, *STREAM_ARGS, _P],
-    "mcam_search_gathered": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                             _I, _I, _I, *_PHYSICS, _P],
+    "mcam_search_gathered": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, *_PHYSICS, _P],
     "mcam_search_prove_forms": [_P, _P],
 }
 
@@ -143,17 +143,30 @@ def mcam_search_plain(q_strings, s_strings, weights, thresholds,
 
 def mcam_rescore_plain(q_strings, s_strings, rows, weights, thresholds,
                        cfg: MCAMConfig, *, noisy: bool = True,
-                       noise_rows=None, qidx=None) -> torch.Tensor:
-    """Plain version of `mcam_rescore`."""
+                       noise_rows=None, qidx=None, with_dist: bool = False):
+    """Plain version of `mcam_rescore`, in query blocks of bounded size."""
     B = q_strings.shape[0]
     if noise_rows is None:
         noise_rows = rows
     if qidx is None:
         qidx = torch.arange(B, device=s_strings.device)
-    votes, _ = _pairs_plain(q_strings[:, None], s_strings[rows],
-                            qidx[:, None], noise_rows, weights, thresholds,
-                            cfg, noisy)
-    return votes
+    S, sl = s_strings.shape[1:]
+    step = max(1, PLAIN_CELLS // max(1, rows.shape[1] * S * sl))
+    votes, dist = [], []
+    for b0 in range(0, B, step):
+        sel = slice(b0, b0 + step)
+        v, d = _pairs_plain(q_strings[sel, None], s_strings[rows[sel]],
+                            qidx[sel, None], noise_rows[sel], weights,
+                            thresholds, cfg, noisy)
+        votes.append(v)
+        dist.append(d)
+    if not votes:
+        empty = torch.zeros(0, rows.shape[1], dtype=torch.float32,
+                            device=s_strings.device)
+        votes, dist = [empty], [empty.clone()]
+    if with_dist:
+        return torch.cat(votes), torch.cat(dist)
+    return torch.cat(votes)
 
 
 def physics_args(cfg: MCAMConfig, noisy: bool) -> list:
@@ -236,11 +249,12 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
                  rows: torch.Tensor, weights: torch.Tensor,
                  thresholds: torch.Tensor, cfg: MCAMConfig, *,
                  noisy: bool = True, noise_rows: torch.Tensor | None = None,
-                 qidx: torch.Tensor | None = None) -> torch.Tensor:
+                 qidx: torch.Tensor | None = None, with_dist: bool = False):
     """Votes of per-query candidate rows: q (B, S, sl) int8, s (N, S, sl)
     int8, rows (B, k) rows of s; noise_rows (B, k) the global rows feeding
     the noise counters (default rows); qidx (B,) query coordinates
-    (default arange(B)) -> votes (B, k) float32.
+    (default arange(B)) -> votes (B, k) float32, and with `with_dist` also
+    dist (B, k), the dense entry's dist of each pair (a tenant's `full`).
 
     A CPU tensor runs the plain version; a CUDA tensor launches the
     gathered kernel (or raises)."""
@@ -248,7 +262,8 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
     if s_strings.device.type == "cpu" and q_strings.device.type == "cpu":
         return mcam_rescore_plain(q_strings, s_strings, rows, weights,
                                   thresholds, cfg, noisy=noisy,
-                                  noise_rows=noise_rows, qidx=qidx)
+                                  noise_rows=noise_rows, qidx=qidx,
+                                  with_dist=with_dist)
     if s_strings.device.type != "cuda":
         raise ValueError(f"mcam_rescore: unsupported device "
                          f"{s_strings.device}")
@@ -269,18 +284,20 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
     _build.require_cuda("mcam_rescore", q_strings, s_strings, r, nr,
                         weights, thresholds, qi)
     votes = torch.empty(B, K, dtype=torch.float32, device=s_strings.device)
+    dist = torch.empty_like(votes) if with_dist else None
     lib = _build.load("mcam_search", _SIGNATURES)
     err = lib.mcam_search_gathered(
         _build.ptr(q_strings), _build.ptr(s_strings), _build.ptr(r),
         _build.ptr(nr), _build.ptr(weights), _build.ptr(thresholds),
         ctypes.c_int(thresholds.shape[0]), _build.ptr(qi), _build.ptr(votes),
+        _build.ptr(dist) if with_dist else ctypes.c_void_p(0),
         ctypes.c_int(B), ctypes.c_int(K), ctypes.c_int(N), ctypes.c_int(S),
         ctypes.c_int(sl), ctypes.c_int(search_instance(sl, q_strings,
                                                        s_strings)),
         *physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_gathered")
     _build.count_launch("mcam_rescore")
-    return votes
+    return (votes, dist) if with_dist else votes
 
 
 def prove_forms(device) -> dict[str, int]:

@@ -142,17 +142,19 @@ def rescore_shortlist(q_grid: torch.Tensor, s_grid: torch.Tensor,
                       short_idx: torch.Tensor, weights: torch.Tensor,
                       cfg, thresholds: torch.Tensor, *,
                       noise_idx: torch.Tensor | None = None,
-                      noise_qidx: torch.Tensor | None = None
-                      ) -> torch.Tensor:
+                      noise_qidx: torch.Tensor | None = None,
+                      with_dist: bool = False):
     """Exact noisy votes for per-query shortlists: q_grid (B, seg, Lq, sl),
     s_grid (N, seg, L, sl), short_idx (B, K) rows of s_grid -> votes
     (B, K). noise_idx (B, K): the global row of each candidate for the
     noise counters (default short_idx); noise_qidx (B,): each query's
     noise coordinate (default arange(B)). Votes equal `mcam_search`'s for
-    the same (query, global row)."""
+    the same (query, global row); with `with_dist`, (votes, dist), dist
+    as `mcam_search` gives it (a tenant's `full`)."""
     return mcam_search_kernel.mcam_rescore(
         *_rescore_args(q_grid, s_grid, short_idx, weights, thresholds),
-        cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx, qidx=noise_qidx)
+        cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx, qidx=noise_qidx,
+        with_dist=with_dist)
 
 
 def rescore_shortlist_plain(q_grid: torch.Tensor, s_grid: torch.Tensor,

@@ -258,6 +258,7 @@ def test_store_round_trip_in_the_port(tmp_path):
     ts.save(str(tmp_path))
     back = MemoryStore.restore(str(tmp_path), tcfg, device="cpu")
     for f in MemoryStore.__dataclass_fields__:
-        if f not in ("cfg", "calibrated"):
+        if f not in ("cfg", "calibrated", "residency"):
             assert torch.equal(getattr(back, f), getattr(ts, f)), f
+    assert back.residency == ts.residency == "device"
     _same_results(_port_results(back, tcfg, q), _port_results(ts, tcfg, q))

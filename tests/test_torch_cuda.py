@@ -160,6 +160,147 @@ def test_shortlist_kernel_on_adversarial_orders(dev, order, b, n, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _block_table(rng, m, rows, d, operand, order=None):
+    """A table of m blocks of `rows` rows: (s_proj or None, kwargs) of the
+    operand form; `order` as ORDERS gives every row a fixed distance for
+    query word 0 (rows in descending distance or all tied)."""
+    bits, dtype, vmax = OPERANDS[operand]
+    if order is None:
+        proj = rng.integers(0, min(vmax + 1, 1 << 20), size=(m * rows, 4 * d))
+    else:
+        per_row = ORDERS[order](m * rows)
+        proj = np.zeros((m * rows, 4 * d), np.int64)
+        proj[:, 0::4] = per_row[:, None] // d
+        proj[:, 0] += per_row % d
+        proj[:, 1::4] = 9
+    if bits is not None:
+        words = torch.as_tensor(pack_words(proj, bits))
+        return None, {"packed": words.reshape(m, rows, -1),
+                      "pack_bits": bits}
+    return torch.as_tensor(proj).to(dtype).reshape(m, rows, -1), {}
+
+
+def _visits(rng, b, p, m, base):
+    """(B, p) distinct blocks a query, ascending in base."""
+    ids = np.stack([rng.choice(m, size=p, replace=False) for _ in range(b)])
+    order = np.argsort(base[ids], axis=1, kind="stable")
+    return torch.as_tensor(np.take_along_axis(ids, order, 1).astype(np.int32))
+
+
+# (b, p, m, rows, d, k, operand, order, valid_share)
+BLOCK_CASES = {
+    "k_above_rows": (40, 3, 8, 96, 12, 200, "packed8", None, 0.8),
+    "k_is_p_rows": (33, 2, 6, 100, 12, 200, "packed8", None, 0.8),
+    "rows_not_64": (70, 4, 9, 37, 16, 20, "packed4", None, 0.7),
+    "visited_all_masked": (20, 2, 5, 130, 12, 64, "packed8", None, 0.0),
+    "all_rows_tied": (50, 3, 7, 300, 8, 64, "packed16", "ties", 1.0),
+    "descending": (50, 3, 7, 300, 8, 64, "packed16", "descending", 1.0),
+    "p_is_m": (30, 6, 6, 128, 12, 64, "bf16", None, 0.9),
+    "many_queries_one_block": (600, 1, 2, 1024, 48, 64, "packed8", None, 0.9),
+    "tenants_p1": (256, 1, 64, 300, 48, 64, "packed8", None, 0.6),
+    "f32": (40, 3, 8, 200, 12, 64, "f32", None, 0.8),
+    "packed32": (40, 3, 8, 200, 12, 32, "packed32", None, 0.8),
+    "large_k": (16, 4, 8, 512, 12, 1024, "packed8", None, 0.9),
+}
+
+
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_block_entry_matches_plain(dev, case):
+    """The block-table entry against its plain version, bit for bit, on
+    each of its edges: lists shorter than k, k up to p * rows, ragged
+    tiles, masked and tied and descending rows, every block visited, one
+    block visited by every query, p = 1 (a tenant stack), k = MAX_K, and
+    the operand forms. Key bases are a permutation of the blocks' row
+    offsets (a pager's slot -> shard map), so key rows differ from table
+    rows."""
+    b, p, m, rows, d, k, operand, order, share = BLOCK_CASES[case]
+    rng = np.random.default_rng(len(case) + b)
+    sp, kw = _block_table(rng, m, rows, d, operand, order)
+    base_np = rng.permutation(m).astype(np.int64) * rows
+    if case == "tenants_p1":                 # a tenant stack's key rows
+        base_np[:] = 0
+    ids = _visits(rng, b, p, m, base_np)
+    base = torch.as_tensor(base_np)
+    valid = torch.as_tensor(rng.random((m, rows)) < share)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32))
+    if order is not None:
+        q.zero_()
+    on = {a: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for a, v in kw.items()}
+    args = dict(base=base.to(dev), ids=ids.to(dev), valid=valid.to(dev),
+                **on)
+    spd = None if sp is None else sp.to(dev)
+    _build.reset_launches()
+    got = shortlist.lut_shortlist_blocks(q.to(dev), spd, k, **args)
+    assert _build.LAUNCHES["shortlist_blocks"] == 1
+    want = shortlist.lut_shortlist_blocks_plain(q.to(dev), spd, k, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cpu = shortlist.lut_shortlist_blocks(q, sp, k, base=base, ids=ids,
+                                         valid=valid, **kw)
+    assert torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(),
+                                                             cpu[1])
+
+
+@pytest.mark.parametrize("operand", ["packed8", "packed4", "bf16"])
+def test_block_entry_at_the_cub_width(dev, operand):
+    """d = 480: 480-word rows (8-bit fields) staged in windows, 240-word
+    rows (4-bit) whole, 960 bf16 words; 256 queries visiting 8 of 64
+    blocks of 256 rows."""
+    b, p, m, rows, d = 256, 8, 64, 256, 480
+    rng = np.random.default_rng(480)
+    bits, dtype, _ = OPERANDS[operand]
+    vmax = 12 if bits == 4 else 75
+    proj = rng.integers(0, vmax + 1, size=(m * rows, 4 * d))
+    if bits is not None:
+        sp, kw = None, {"packed": torch.as_tensor(pack_words(proj, bits))
+                        .reshape(m, rows, -1).to(dev), "pack_bits": bits}
+    else:
+        sp, kw = torch.as_tensor(proj).to(dtype).reshape(m, rows, -1).to(
+            dev), {}
+    base_np = np.arange(m, dtype=np.int64) * rows
+    args = dict(base=torch.as_tensor(base_np).to(dev),
+                ids=_visits(rng, b, p, m, base_np).to(dev),
+                valid=torch.as_tensor(rng.random((m, rows)) > 0.1).to(dev),
+                **kw)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32)
+                        ).to(dev)
+    for k in (64, 1024):
+        got = shortlist.lut_shortlist_blocks(q, sp, k, **args)
+        want = shortlist.lut_shortlist_blocks_plain(q, sp, k, **args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_block_entry_launch_shape_does_not_depend_on_the_mix(dev):
+    """One grouping, one select and the same merge launches whatever the
+    visit lists: every query on one block, or spread over all of them;
+    and a visit id outside the table reads nothing."""
+    rng = np.random.default_rng(7)
+    m, rows, d, b = 16, 256, 12, 64
+    sp, kw = _block_table(rng, m, rows, d, "packed8")
+    kw = {a: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for a, v in kw.items()}
+    base = (torch.arange(m, dtype=torch.int64) * rows).to(dev)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32)
+                        ).to(dev)
+    for ids in (torch.zeros(b, 1, dtype=torch.int32),
+                torch.arange(b, dtype=torch.int32)[:, None] % m):
+        _build.reset_launches()
+        got = shortlist.lut_shortlist_blocks(q, sp, 64, base=base,
+                                             ids=ids.to(dev), **kw)
+        assert _build.LAUNCHES["shortlist_blocks"] == 1
+        want = shortlist.lut_shortlist_blocks_plain(q, sp, 64, base=base,
+                                                    ids=ids.to(dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    outside = torch.full((b, 1), m, dtype=torch.int32, device=dev)
+    got = shortlist.lut_shortlist_blocks(q, sp, 64, base=base, ids=outside,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert (got[1] == 0xFFFFFFFF).all()
+
+
 @pytest.mark.parametrize("b,n,k,dtype,vmax", [
     (37, 1001, 190, torch.bfloat16, 96),     # ragged route: K % 8 != 0
     (16, 1001, 188, torch.bfloat16, 255),    # ragged route, B < 64
@@ -304,6 +445,23 @@ def test_gathered_physics_kernel_equals_plain_bit_for_bit(dev, b, n, S, sl,
     assert torch.equal(got[inside], want[inside])
 
 
+def test_gathered_entry_returns_the_dense_entrys_dist(dev):
+    """with_dist: each candidate's dist equals the dense entry's at that
+    (query, row), and its votes too, given the same noise coordinates."""
+    q, s, w, qidx = _physics_case(dev, 9, 200, 64, 24, 4, 31)
+    cfg = MCAMConfig(seed=5)
+    th = torch.as_tensor(cfg.thresholds(), device=dev)
+    rows = torch.arange(200, device=dev).expand(9, 200)
+    votes, dist = mcam_search.mcam_rescore(q, s, rows, w, th, cfg,
+                                           qidx=qidx, with_dist=True)
+    dv, dd = mcam_search.mcam_search(q, s, w, th, cfg, qidx=qidx)
+    pv, pd = mcam_search.mcam_rescore_plain(q, s, rows, w, th, cfg,
+                                            qidx=qidx, with_dist=True)
+    torch.cuda.synchronize()
+    assert torch.equal(votes, dv) and torch.equal(dist, dd)
+    assert torch.equal(votes, pv) and torch.equal(dist, pd)
+
+
 def test_shifted_grid_takes_the_generic_instance_with_the_same_result(dev):
     """A 24-cell grid off an 8-byte boundary runs the generic cell loop and
     gives the same bits as the aligned copy through the unrolled one."""
@@ -341,9 +499,9 @@ def test_wrappers_count_one_launch_per_call_and_check_inputs(dev):
     shortlist.lut_shortlist(q, proj, 5)
     mcam_dist.lut_dist_matmul(ops.query_onehot(q), proj)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES == {"shortlist": 1, "mcam_dist": 1,
-                               "mcam_search": 1, "mcam_rescore": 1,
-                               "mcam_episode": 0}
+    assert _build.LAUNCHES == {"shortlist": 1, "shortlist_blocks": 0,
+                               "mcam_dist": 1, "mcam_search": 1,
+                               "mcam_rescore": 1, "mcam_episode": 0}
     with pytest.raises(ValueError, match="contiguous"):
         mcam_dist.lut_dist_matmul(ops.query_onehot(q), proj.T.contiguous().T)
     with pytest.raises(TypeError):
@@ -720,3 +878,143 @@ def test_scalar_divisors_round_once_on_the_card(dev):
         torch.cuda.synchronize()
         assert torch.equal(grads[0][0], grads[1][0])
         assert torch.equal(grads[0][1], grads[1][1]), enc.name
+
+
+# -- the routed, tenant and paged searches ---------------------------------------
+
+
+def _routed_pair(dev, n=4096, shards=16, d=48, cl=32, seed=41):
+    """One partitioned store programmed on the CPU and carried to the card,
+    and float queries near its rows."""
+    rng = np.random.default_rng(seed)
+    cfg = MemoryConfig(capacity=n, dim=d,
+                       search=avss_lib.SearchConfig("mtmc", cl=cl))
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    cpu = MemoryStore.create(cfg, device="cpu").calibrate(x).write(
+        x, rng.integers(0, 64, n))
+    gpu = MemoryStore.from_numpy(cpu.to_numpy(), cfg)
+    q = (x[rng.choice(n, 40)] + 0.3 * rng.standard_normal((40, d))).astype(
+        np.float32)
+    return cpu.shard(n_shards=shards), gpu.shard(n_shards=shards), q
+
+
+def _same_ranks(a, b, ctx):
+    for f in ("dist", "indices", "labels"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), (ctx, f)
+    agree = float((a.votes.cpu() == b.votes).float().mean())
+    assert agree >= PHYSICS_MIN_AGREEMENT, (ctx, agree)
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "ideal"])
+@pytest.mark.parametrize("backend,fmr", [("auto", None), ("mxu", 1 << 20)])
+def test_routed_search_on_the_card_matches_the_cpu(dev, mode, backend, fmr):
+    """Every nprobe, the fused block route (256-row shards a query: 1,024+
+    rows from nprobe 4) and the dense route: ranks equal the CPU's, votes
+    on >= 99.9%; routed two_phase votes equal the full search's at the
+    same global rows on the card."""
+    cpu, gpu, q = _routed_pair(dev)
+    eng = RetrievalEngine(gpu.cfg.search)
+    for p in (1, 4, 15, 16, None):
+        req = SearchRequest(mode=mode, k=64, nprobe=p, backend=backend,
+                            fused_min_rows=fmr)
+        _same_ranks(eng.search(gpu, q, req), eng.search(cpu, q, req),
+                    (mode, backend, p))
+    if mode == "two_phase":
+        full = eng.search(gpu, q[:8], SearchRequest(mode="full"))
+        tp = eng.search(gpu, q[:8], SearchRequest(mode="two_phase", k=64,
+                                                  nprobe=2))
+        torch.cuda.synchronize()
+        assert torch.equal(torch.take_along_dim(full.votes, tp.indices, 1),
+                           tp.votes)
+
+
+def _tenant_pair(dev, caps=(300, 1024, 77, 512), d=48, seed=43):
+    from repro_torch.engine import TenantStore
+    rng = np.random.default_rng(seed)
+    stores = []
+    for i, c in enumerate(caps):
+        cfg = MemoryConfig(capacity=c, dim=d,
+                           search=avss_lib.SearchConfig("mtmc", cl=32))
+        x = rng.standard_normal((c, d)).astype(np.float32)
+        st = MemoryStore.create(cfg, device="cpu").calibrate(x)
+        n = c if i % 2 == 0 else c // 2            # some slots unwritten
+        stores.append(st.write(x[:n], rng.integers(0, 9, n)))
+    cpu = TenantStore.stack(stores)
+    gpu = TenantStore.stack([MemoryStore.from_numpy(s.to_numpy(), s.cfg)
+                             for s in stores])
+    q = rng.standard_normal((50, d)).astype(np.float32)
+    tids = rng.integers(0, len(caps), 50)
+    return cpu, gpu, stores, q, tids
+
+
+@pytest.mark.parametrize("mode,backend", [("two_phase", "auto"),
+                                          ("two_phase", "mxu"),
+                                          ("ideal", "fused"),
+                                          ("full", "auto")])
+def test_tenant_search_on_the_card_matches_the_cpu(dev, mode, backend):
+    """The coalesced search of 4 ragged tenants on the card: ranks equal
+    the CPU's, votes on >= 99.9%; and each tenant's rows equal its solo
+    search on the card bit for bit."""
+    cpu, gpu, stores, q, tids = _tenant_pair(dev)
+    eng = RetrievalEngine(stores[0].cfg.search, backend=backend)
+    req = SearchRequest(mode=mode, k=64)
+    got = eng.search_tenants(gpu, q, tids, req)
+    _same_ranks(got, eng.search_tenants(cpu, q, tids, req), (mode, backend))
+    for t in range(gpu.n_tenants):
+        sel = np.where(tids == t)[0]
+        solo = eng.search(gpu.tenant(t), q[sel], req)
+        w = solo.votes.shape[1]
+        for f in ("votes", "dist", "indices", "labels"):
+            assert torch.equal(getattr(got, f)[sel][:, :w],
+                               getattr(solo, f)), (t, f)
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "full"])
+def test_tenant_flush_launches_do_not_depend_on_the_mix(dev, mode):
+    """TenantServer on the card: every flush of 64 queries launches the
+    same kernels the same number of times, whatever its tenants, one
+    tenant or all of them, with writes between flushes."""
+    from repro_torch.launch.serve import TenantServer
+    _, gpu, stores, q, _ = _tenant_pair(dev)
+    server = TenantServer(RetrievalEngine(stores[0].cfg.search), gpu,
+                          SearchRequest(mode=mode, k=64))
+    rng = np.random.default_rng(3)
+    mixes = [np.zeros(64, int), np.arange(64) % 4, rng.integers(0, 4, 64),
+             np.full(64, 3)]
+    for i, mix in enumerate(mixes):
+        for b, t in enumerate(mix):
+            server.submit(int(t), torch.as_tensor(q[b % len(q)]))
+        server.flush()
+        server.write(0, rng.standard_normal((5, 48)).astype(np.float32),
+                     [1, 2, 3, 4, 5])
+    torch.cuda.synchronize()
+    assert server.cache_entries() == 1
+    assert server.flushes == len(mixes)
+
+
+def test_paged_search_on_the_card_matches_the_device_twin(dev):
+    """A store of the card in host memory (pinned), paged through 6 slots
+    by batches whose shards overlap: every result equals the routed
+    search of the device twin bit for bit and the CPU pager's ranks (votes
+    on >= 99.9%), a warm batch copies no block, and the prefetch stages
+    shards."""
+    from repro_torch.engine import ShardPager
+    cpu, gpu, q = _routed_pair(dev)
+    host = gpu.shard(n_shards=16, residency="host")
+    assert host.values.device.type == "cpu" and host.values.is_pinned()
+    eng = RetrievalEngine(gpu.cfg.search)
+    pager = ShardPager(host, eng, slots=6)
+    cpu_pager = ShardPager(cpu.shard(n_shards=16, residency="host"), eng,
+                           slots=6, device="cpu")
+    req = SearchRequest(mode="two_phase", k=64, nprobe=2)
+    for b0 in range(0, 40, 5):
+        got = pager.search(q[b0:b0 + 2], req)
+        want = eng.search(gpu, q[b0:b0 + 2], req)
+        torch.cuda.synchronize()
+        for f in ("votes", "dist", "indices", "labels"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), (b0, f)
+        _same_ranks(got, cpu_pager.search(q[b0:b0 + 2], req), b0)
+    blocks = pager.transfers["blocks"]
+    pager.search(q[35:37], req)
+    assert pager.transfers["blocks"] == blocks
+    assert pager.transfers["staged"] > 0
