@@ -21,7 +21,13 @@ store of 65,536 supports (4,096 classes x 16 shots):
   5. full       16 queries against every row: dense physics kernel
 
 Then the searches over per-query lists of row blocks, each through the
-block-table entry of csrc/shortlist.cu (row `shortlist_blocks`):
+block-table entry of csrc/shortlist.cu (rows `shortlist_blocks` at
+nprobe 8, `shortlist_blocks_p1` at nprobe 1, `shortlist_blocks_tenants`
+on the tenant stack, `shortlist_blocks_cub` at d = 480; each on the
+inputs its path gives the entry, bit for bit against the plain version,
+with the device time of each pass -- group, select, merge -- and the
+descending / masked tables at k = 1, 64, 1,024, of 16-bit fields at both
+widths and of 8-bit fields at d = 480):
 
   [routed]     the same store in 64 logical shards (1,024 rows, 64
                classes x 16 shots a shard), two_phase and ideal at nprobe
@@ -243,6 +249,8 @@ REPS = 5                        # timed runs per measurement (median)
 # pause between a profiler session's start of recording and the first
 # call it keeps (see device_ms)
 PROFILER_SETTLE_S = 0.05
+# the block-table entry's passes, by a part of their kernels' names
+BLOCK_PASSES = ("group", "select", "merge")
 
 
 def fail(msg: str) -> None:
@@ -315,26 +323,11 @@ def main() -> int:
         return 1
 
 
-def run(args, torch) -> int:
-    import numpy as np
-
-    from repro_torch.core import avss as avss_lib
-    from repro_torch.core.avss import SearchConfig
-    from repro_torch.core.memory import MemoryConfig
-    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
-    from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
-    from repro_torch.kernels import shortlist
-    from repro_torch.launch import train as train_lib
-
-    # the trainer's cuBLAS setting (make_deterministic, which [episode] and
-    # [hat] run under) is read at the first cuBLAS handle: set it before
-    # any CUDA work; the serving phases run as a server runs them
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
-                          train_lib.CUBLAS_WORKSPACE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def timers(torch) -> argparse.Namespace:
+    """The card's clocks: CUDA-event, synchronised host-clock and
+    torch.profiler device times of a call (medians of REPS runs after a
+    warm-up), with the device and a log line."""
     dev = torch.device("cuda")
-    card = gpu_line()
 
     def log(msg: str) -> None:
         print(msg, flush=True)
@@ -380,7 +373,7 @@ def run(args, torch) -> int:
         b.synchronize()
         return out, a.elapsed_time(b)
 
-    def device_ms(fn, part, reps=REPS, sessions=3):
+    def device_ms(fn, part, reps=REPS, sessions=3, passes=None):
         """Device time per call of the kernels whose name holds `part`
         (torch.profiler's CUDA activity). Unlike event_ms it leaves out the
         host's time between launches. A profiler session can miss the
@@ -389,7 +382,9 @@ def run(args, torch) -> int:
         a pause (PROFILER_SETTLE_S), and one that saw a kernel a number of
         times that is not a multiple of `reps` is dropped and taken again,
         up to `sessions` times; None where no session saw every call (or
-        none saw such a kernel), rather than a low time."""
+        none saw such a kernel), rather than a low time. With `passes`
+        (parts of kernel names): a dict of the time of each pass (a kernel
+        counts under the first pass its name holds) and their "total"."""
         fn()
         sync()
         prof = torch.profiler
@@ -406,10 +401,49 @@ def run(args, torch) -> int:
                     p.step()
             seen = [e for e in p.key_averages() if part in e.key]
             if seen and not any(e.count % reps for e in seen):
-                return sum(e.device_time_total for e in seen) / reps / 1e3
+                if passes is None:
+                    return sum(e.device_time_total for e in seen) / reps / 1e3
+                split = {ps: 0.0 for ps in passes}
+                for e in seen:
+                    ps = next((x for x in passes if x in e.key), None)
+                    if ps is None:
+                        fail(f"[device_ms] {e.key[:60]} is in no pass of "
+                             f"{passes}")
+                    split[ps] += e.device_time_total / reps / 1e3
+                return {**split, "total": sum(split.values())}
             log(f"[device_ms] {part}: the profiler saw "
                 f"{[(e.key[:60], e.count) for e in seen]} in {reps} calls")
         return None
+
+    return argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
+                              host_ms=host_ms, event_ms=event_ms,
+                              timed=timed, device_ms=device_ms)
+
+
+def run(args, torch) -> int:
+    import numpy as np
+
+    from repro_torch.core import avss as avss_lib
+    from repro_torch.core.avss import SearchConfig
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build, mcam_dist, mcam_search, ops
+    from repro_torch.kernels import shortlist
+    from repro_torch.launch import train as train_lib
+
+    # the trainer's cuBLAS setting (make_deterministic, which [episode] and
+    # [hat] run under) is read at the first cuBLAS handle: set it before
+    # any CUDA work; the serving phases run as a server runs them
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                          train_lib.CUBLAS_WORKSPACE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+
+    timing = timers(torch)
+    dev, log, sync = timing.dev, timing.log, timing.sync
+    host_ms, event_ms = timing.host_ms, timing.event_ms
+    timed, device_ms = timing.timed, timing.device_ms
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -422,12 +456,36 @@ def run(args, torch) -> int:
             log(f"[ptxas {name}] {line}")
     hgmma = sass_count(_build.library_path("mcam_dist"), "HGMMA")
     log(f"[sass] mcam_dist: {hgmma} HGMMA instructions")
+    imma = sass_count(_build.library_path("shortlist"), "IMMA")
+    log(f"[sass] shortlist: {imma} IMMA instructions")
     resources = {}
     for src in ("mcam_search", "mcam_episode"):
         found = kernel_resources(logs.get(src, ""))
         resources.update(found)
         for entry, res in found.items():
             log(f"[resources {src}] {entry}: {res}")
+
+    kernels = []
+    launches = {k: 0 for k in _build.LAUNCHES}
+
+    def row(name, source, replaces, err, ms, plain_ms, bytes_, ops_,
+            ops_rate, library_ms, **extra):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_ / ops_rate * 1e3
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, **extra})
+        log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+            f"library {library_ms}, bound {max(t_bytes, t_ops):.4f} ms), "
+            f"max_abs_err {err}")
+
+    timing.row = row
 
     # -- the physics kernel's cheaper forms, on every hash word --------------
     t0 = time.perf_counter()
@@ -443,14 +501,8 @@ def run(args, torch) -> int:
     shots, d, cl = 16, 48, 32
     n = args.capacity
     classes = n // shots
-    rng = np.random.default_rng(args.seed)
-    centres = rng.standard_normal((classes, d), dtype=np.float32) * 2.0
-    labels_np = np.repeat(np.arange(classes, dtype=np.int32), shots)
-    support_np = centres[labels_np] + 0.3 * rng.standard_normal(
-        (n, d), dtype=np.float32)
-    qcls = rng.choice(classes, size=256, replace=classes < 256)
-    queries_np = centres[qcls] + 0.3 * rng.standard_normal(
-        (256, d), dtype=np.float32)
+    rng, labels_np, support_np, qcls, queries_np = clustered(
+        args.seed, n, d, 256)
     support = torch.from_numpy(support_np).to(dev)
     labels = torch.from_numpy(labels_np).to(dev)
     queries = torch.from_numpy(queries_np).to(dev)
@@ -478,7 +530,6 @@ def run(args, torch) -> int:
     log(f"[program] {program_ms:.2f} ms, store {mb:.1f} MB on the card")
 
     # -- 2-5. the main path, with launch counts ----------------------------
-    launches = {k: 0 for k in _build.LAUNCHES}
     q16 = queries[:16]
     paths = {
         "two_phase": (queries, SearchRequest(mode="two_phase", k=64),
@@ -537,25 +588,6 @@ def run(args, torch) -> int:
         fail(f"two_phase votes differ from full votes on {bad} rows")
     log("[contract] two_phase votes == full votes on all 16 x 64 "
         "shortlisted rows")
-
-    kernels = []
-
-    def row(name, source, replaces, err, ms, plain_ms, bytes_, ops_,
-            ops_rate, library_ms, **extra):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops_ / ops_rate * 1e3
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **extra})
-        log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"library {library_ms}, bound {max(t_bytes, t_ops):.4f} ms), "
-            f"max_abs_err {err}")
 
     # -- shortlist kernel vs plain -------------------------------------------
     qw = store.quantize_queries(queries)
@@ -749,9 +781,6 @@ def run(args, torch) -> int:
         shape=f"B=256 k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
 
     # -- routed search over the main store's logical shards ----------------
-    timing = argparse.Namespace(torch=torch, dev=dev, log=log, sync=sync,
-                                host_ms=host_ms, event_ms=event_ms,
-                                device_ms=device_ms, timed=timed, row=row)
     routed = run_routed(timing, store, queries, qcls_t,
                         {"two_phase": tp, "ideal": ideal}, launches,
                         full16=(q16, full))
@@ -833,6 +862,23 @@ def run(args, torch) -> int:
     return 0
 
 
+def clustered(seed: int, n: int, d: int, nq: int, shots: int = 16):
+    """A serving store's data: n // shots classes of `shots` supports
+    around random centres (scale 2, spread 0.3) and nq queries of random
+    classes -> (the generator, labels, supports, query classes, queries)."""
+    import numpy as np
+    classes = n // shots
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((classes, d), dtype=np.float32) * 2.0
+    labels = np.repeat(np.arange(classes, dtype=np.int32), shots)
+    support = centres[labels] + 0.3 * rng.standard_normal(
+        (n, d), dtype=np.float32)
+    qcls = rng.choice(classes, size=nq, replace=classes < nq)
+    queries = centres[qcls] + 0.3 * rng.standard_normal(
+        (nq, d), dtype=np.float32)
+    return rng, labels, support, qcls, queries
+
+
 def _count(launches: dict, counts: dict, suffix: str = "") -> None:
     for kname, c in counts.items():
         launches[kname + suffix] = launches.get(kname + suffix, 0) + c
@@ -862,20 +908,13 @@ def run_cub_serve(t, args, launches: dict) -> dict:
     shots, d, cl = 16, fsl.embed_dim, fsl.cl
     n = args.capacity
     classes = n // shots
-    rng = np.random.default_rng(args.seed + 17)
-    centres = rng.standard_normal((classes, d), dtype=np.float32) * 2.0
-    labels_np = np.repeat(np.arange(classes, dtype=np.int32), shots)
-    support_np = centres[labels_np] + 0.3 * rng.standard_normal(
-        (n, d), dtype=np.float32)
-    qcls = rng.choice(classes, size=CUB_SERVE_QUERIES,
-                      replace=classes < CUB_SERVE_QUERIES)
-    queries_np = centres[qcls] + 0.3 * rng.standard_normal(
-        (CUB_SERVE_QUERIES, d), dtype=np.float32)
+    _, labels_np, support_np, qcls, queries_np = clustered(
+        args.seed + 17, n, d, CUB_SERVE_QUERIES)
     support = torch.from_numpy(support_np).to(dev)
     labels = torch.from_numpy(labels_np).to(dev)
     queries = torch.from_numpy(queries_np).to(dev)
     qcls_t = torch.from_numpy(qcls.astype(np.int64)).to(dev)
-    del support_np, centres
+    del support_np
     cfg = MemoryConfig(capacity=n, dim=d,
                        search=SearchConfig("mtmc", cl=cl, mode="avss"))
     cs = cfg.search
@@ -1075,8 +1114,9 @@ def run_routed(t, store, queries, qcls_t, exhaustive, launches,
     no kernel) on the card over the same visited shards; with `full16`
     (queries, full result) routed two_phase votes equal the full search's
     at the same global rows. Top-1 accuracy and recall@k against the
-    exhaustive search are printed, not gated. Adds the row
-    `shortlist_blocks<suffix>` at nprobe ROUTED_KERNEL_NPROBE."""
+    exhaustive search are printed, not gated. Adds the rows
+    `shortlist_blocks<suffix>` at nprobe ROUTED_KERNEL_NPROBE and, where
+    nprobe 1 runs, `shortlist_blocks_p1<suffix>`."""
     torch = t.torch
     from repro_torch.engine import RetrievalEngine, SearchRequest
     from repro_torch.kernels import _build
@@ -1109,6 +1149,9 @@ def run_routed(t, store, queries, qcls_t, exhaustive, launches,
                 fail(f"{tag} {mode} nprobe={p}: {counts['shortlist_blocks']} "
                      f"block-table launches, expected 1")
             _count(launches, counts, suffix)
+            if p == 1:
+                _count(launches, {"shortlist_blocks_p1":
+                                  counts["shortlist_blocks"]}, suffix)
             if not torch.isfinite(res.dist).all():
                 fail(f"{tag} {mode} nprobe={p}: non-finite dist")
             ref = plain.search(rstore, queries, req)
@@ -1147,7 +1190,15 @@ def run_routed(t, store, queries, qcls_t, exhaustive, launches,
             t, lambda: eng.search(rstore, queries, req))
         t.log(f"{tag} trace {name}: {trace[name]}")
     out["trace"] = trace
-    blocks_row(t, rstore, queries, suffix)
+    for p in (ROUTED_KERNEL_NPROBE, 1):
+        if p in nprobes:
+            req = SearchRequest(mode="ideal", k=64, nprobe=p)
+            blocks_row(t, f"shortlist_blocks{'_p1' if p == 1 else ''}"
+                          f"{suffix}",
+                       capture_blocks(lambda: eng.search(rstore, queries,
+                                                         req)),
+                       adversarial=(16, 8) if suffix else (16,),
+                       note=f", the store in {ROUTED_SHARDS} shards")
     return {**out, "phases_ms": phases}
 
 
@@ -1180,108 +1231,162 @@ def _profile_search(t, fn) -> dict:
             "top_kernels": [(k, round(ms, 4)) for k, ms in kernels]}
 
 
-def blocks_row(t, rstore, queries, suffix) -> None:
-    """The row `shortlist_blocks<suffix>`: the block-table entry at the
-    routed search's nprobe ROUTED_KERNEL_NPROBE inputs, held against its
-    plain version bit for bit (and on an adversarial table: every row of
-    query 0's visited shards masked, rows in descending distance)."""
+def capture_blocks(fn) -> tuple:
+    """The arguments of the one block-table call that `fn` (a search)
+    makes: the entry's inputs as the path gives them."""
+    from repro_torch.kernels import shortlist
+    seen, real = [], shortlist.lut_shortlist_blocks
+
+    def spy(*a, **kw):
+        seen.append((a, kw))
+        return real(*a, **kw)
+    shortlist.lut_shortlist_blocks = spy
+    try:
+        fn()
+    finally:
+        shortlist.lut_shortlist_blocks = real
+    if len(seen) != 1:
+        fail(f"expected one block-table call, saw {len(seen)}")
+    return seen[0]
+
+
+def pack_fields(torch, proj, bits: int):
+    """(N, C) integer LUT columns -> (N, ceil(C / wpi)) int32 words of
+    `bits`-bit fields, column w * dp + m in field w of word m
+    (`ops.pack_projection`'s layout)."""
+    wpi = 32 // bits
+    n, c = proj.shape
+    dp = -(-c // wpi)
+    p = torch.nn.functional.pad(proj.to(torch.int64), (0, dp * wpi - c))
+    shifts = torch.arange(wpi, device=p.device, dtype=torch.int64) * bits
+    words = (p.reshape(n, wpi, dp) << shifts[None, :, None]).sum(1)
+    words &= 0xFFFFFFFF
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def descending_table(torch, m, rows, d, bits, dev):
+    """An adversarial table (m, rows, words): every row a fixed distance
+    for every query (each LUT column of a dimension holds its share), in
+    descending order over the m rows rows, so each row beats the running
+    k-th key; fields of `bits` bits (the shares stay below 2**bits)."""
+    n = m * rows
+    per_row = torch.arange(n - 1, -1, -1, device=dev) * (3 if bits > 8
+                                                          else 1)
+    share = (per_row // d)[:, None] + (torch.arange(d, device=dev)[None]
+                                       < (per_row % d)[:, None])
+    if int(share.max()) >= 2**bits:
+        fail(f"descending table: shares reach {int(share.max())}")
+    return pack_fields(torch, share.repeat_interleave(4, dim=1), bits
+                       ).reshape(m, rows, -1)
+
+
+def blocks_units(shortlist, ids, m: int, rows: int, row_words: int, k: int,
+                 mma: bool) -> dict:
+    """The block-table plan at these visit lists: CTAs an SM, the units
+    the grouping pass lays out, the grid's unit slots and the cut."""
+    b, p = ids.shape
+    plan = shortlist.shortlist_blocks_plan(b, p, m, rows, row_words, k, mma)
+    ids = ids.reshape(-1).cpu()
+    counts = ids.clamp(-1, m).masked_fill(ids < 0, m).bincount(
+        minlength=m + 1).tolist()
+    return {"ctas_per_sm": plan.ctas_per_sm,
+            "units": plan.units_in_use(counts, rows),
+            "unit_slots": plan.units, "smem": plan.smem, "chunk": plan.chunk,
+            "stages": plan.stages, "work": plan.work, "split": plan.split}
+
+
+def blocks_row(t, name, call, adversarial=(), note="") -> None:
+    """The row `name`: the block-table entry on the inputs `call` (from
+    capture_blocks) held against its plain version bit for bit, with its
+    device time by pass (group, select, merge), its bound (the union of
+    the blocks the visit lists name, read once) and the library's matmul
+    + mask + sort over all table rows. `adversarial`: field widths of a
+    descending table (descending_table) whose every row of query 0's
+    visited blocks is masked, held bit for bit at k = 1, 64 and 1,024 and
+    timed at the call's k."""
     torch = t.torch
-    from repro_torch.engine import route_scores, top_shards
     from repro_torch.kernels import ops, shortlist
-    s = ROUTED_SHARDS
-    rows = rstore.capacity // s
-    d = rstore.dim
-    b = queries.shape[0]
-    p = ROUTED_KERNEL_NPROBE
-    qw = rstore.quantize_queries(queries)
-    ids = top_shards(route_scores(qw, rstore.sketch_sums,
-                                  rstore.sketch_counts,
-                                  rstore.cfg.search.enc), p)
-    base = torch.arange(s, device=t.dev) * rows
-    packed = rstore.proj_packed.reshape(s, rows, -1)
-    valid = rstore.valid.reshape(s, rows)
-    args = dict(base=base, ids=ids, valid=valid, packed=packed,
-                pack_bits=rstore.pack_bits)
+    (qw, sp, k), kw = call
+    ids, base, valid = kw["ids"], kw["base"], kw["valid"]
+    table = kw.get("packed") if sp is None else sp
+    m, rows = table.shape[:2]
+    b, p = ids.shape
+    d = qw.shape[1]
 
     def kernel():
-        return shortlist.lut_shortlist_blocks(qw, None, 64, **args)
+        return shortlist.lut_shortlist_blocks(qw, sp, k, **kw)
 
     def plain():
-        return shortlist.lut_shortlist_blocks_plain(qw, None, 64, **args)
+        return shortlist.lut_shortlist_blocks_plain(qw, sp, k, **kw)
     got = kernel()
     t.sync()
     want, plain_ms = t.timed(plain)
     err = max(float((got[0] - want[0]).abs().max()),
               float((got[1] - want[1]).abs().max()))
     if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        fail(f"shortlist_blocks{suffix} kernel differs from plain by {err}")
-    # adversarial: every row a fixed distance for every query, descending
-    # with the row (each row beats the running k-th key), 16-bit fields,
-    # and query 0's visited shards all masked
-    per_row = torch.arange(s * rows - 1, -1, -1, device=t.dev) * 3
-    per_dim = (per_row // d)[:, None].repeat(1, 4 * d)
-    per_dim[:, :4] += (per_row % d)[:, None]
-    words = per_dim[:, :2 * d] | (per_dim[:, 2 * d:] << 16)
-    words = torch.where(words >= 2**31, words - 2**32, words).to(
-        torch.int32).reshape(s, rows, -1)
-    vmask = valid.clone()
-    vmask[ids[0]] = False
-    for kk in (1, 64, 1024):
-        a = shortlist.lut_shortlist_blocks(qw, None, kk, base=base, ids=ids,
-                                           valid=vmask, packed=words,
-                                           pack_bits=16)
-        t.sync()
-        c = shortlist.lut_shortlist_blocks_plain(
-            qw, None, kk, base=base, ids=ids, valid=vmask, packed=words,
-            pack_bits=16)
-        t.sync()
-        if not (torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])):
-            fail(f"shortlist_blocks{suffix} != plain on the descending, "
-                 f"masked table (k={kk})")
-    adv_ms = t.event_ms(lambda: shortlist.lut_shortlist_blocks(
-        qw, None, 64, base=base, ids=ids, valid=vmask, packed=words,
-        pack_bits=16))
-    visited = int(torch.unique(ids).numel())
+        fail(f"{name} kernel differs from plain by {err}")
+    extra = {}
+    for bits in adversarial:
+        words = descending_table(torch, m, rows, d, bits, t.dev)
+        vmask = valid.clone()
+        vmask[ids[0]] = False
+        adv = dict(base=base, ids=ids, valid=vmask, packed=words,
+                   pack_bits=bits)
+        for kk in (1, 64, 1024):
+            a = shortlist.lut_shortlist_blocks(qw, None, kk, **adv)
+            t.sync()
+            c = shortlist.lut_shortlist_blocks_plain(qw, None, kk, **adv)
+            t.sync()
+            if not (torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])):
+                fail(f"{name} != plain on the descending, masked table of "
+                     f"{bits}-bit fields (k={kk})")
+
+        def adv_kernel():
+            return shortlist.lut_shortlist_blocks(qw, None, k, **adv)
+        extra[f"descending_masked_{bits}bit_ms"] = t.event_ms(adv_kernel)
+        extra[f"descending_masked_{bits}bit_device"] = t.device_ms(
+            adv_kernel, "shortlist_", passes=BLOCK_PASSES)
+        del words
+    visited = int(torch.unique(ids[(ids >= 0) & (ids < m)]).numel())
     q1h_f = ops.query_onehot(qw, torch.float32)
-    proj_f = rstore.proj.float()
-    pen = torch.where(rstore.valid, 0.0,
+    proj_f = (shortlist.unpack_projection(table.reshape(m * rows, -1),
+                                          kw["pack_bits"], 4 * d)
+              if sp is None else sp.reshape(m * rows, -1).float())
+    pen = torch.where(valid.reshape(-1), 0.0,
                       shortlist.SHORTLIST_MASK_PENALTY)[None]
     library_ms = t.event_ms(lambda: torch.sort(
-        torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0][:, :64])
-    del q1h_f, proj_f
-    t.row(f"shortlist_blocks{suffix}", "shortlist.cu",
-          "src/repro/kernels/shortlist.py:210", err, t.event_ms(kernel),
-          plain_ms,
-          visited * rows * (packed.shape[2] * 4 + 1) + qw.numel() * 4
-          + ids.numel() * 8 + s * 8 + b * 64 * 12,
+        torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0][:, :k])
+    del q1h_f, proj_f, pen
+    words = table.shape[2] if sp is None else (
+        table.shape[2] // (2 if sp.dtype == torch.bfloat16 else 1))
+    plan = blocks_units(shortlist, ids, m, rows, words, k,
+                        sp is None and kw["pack_bits"] == 8)
+    passes = t.device_ms(kernel, "shortlist_", passes=BLOCK_PASSES)
+    t.row(name, "shortlist.cu", "src/repro/kernels/shortlist.py:210", err,
+          t.event_ms(kernel), plain_ms,
+          visited * rows * (words * 4 + 1) + qw.numel() * 4
+          + ids.numel() * 8 + m * 8 + b * k * 12,
           b * p * rows * d, F32_OPS_PER_S, library_ms,
-          device_ms=t.device_ms(kernel, "shortlist_"),
-          descending_masked_ms=adv_ms, visited_shards=visited,
+          device_ms=passes and passes["total"], passes_ms=passes,
+          plan=plan, visited_blocks=visited,
           also_replaces="jax.vmap of it, src/repro/engine/engine.py:318",
-          shape=f"B={b} d={d} nprobe={p} of {s} shards x {rows} rows, "
-                f"packed {rstore.pack_bits}-bit ({packed.shape[2]} words a "
-                f"row) k=64; library: matmul + mask + sort over all "
-                f"{s * rows} rows")
+          shape=f"B={b} d={d} p={p} of {m} blocks x {rows} rows, "
+                f"{'packed ' + str(kw['pack_bits']) + '-bit' if sp is None else sp.dtype} "
+                f"({words} words a row) k={k}{note}; library: matmul + "
+                f"mask + sort over all {m * rows} rows", **extra)
 
 
-def run_tenants(t, args, launches) -> dict:
-    """[tenants]: TENANTS Omniglot stores (d = 48, MTMC CL = 32) of ragged
-    capacities in TENANT_MIN_CAPACITY..TENANT_NPAD, some slots never
-    written, stacked (n_pad TENANT_NPAD), and 256 queries of uniformly
-    mixed tenants. two_phase, ideal and full on the default backend and
-    two_phase on mxu below the fused threshold (the dense route) must each
-    equal every tenant's solo search on `tenant(t)` bit for bit, queries
-    grouped in batch order; then TenantServer runs TENANT_FLUSHES flushes
-    of 256 submits with a write_at after every 4th, and every flush must
-    launch the same kernels the same number of times."""
+def tenant_stack(t, args) -> tuple:
+    """[tenants]' stack: TENANTS Omniglot stores of ragged capacities,
+    some slots never written, stacked, and 256 queries of uniformly mixed
+    tenants -> (stack, queries, tenant ids, their numpy twin, query
+    classes, the generator, the search config, MB on the card, classes
+    written per tenant)."""
     import numpy as np
     torch, dev = t.torch, t.dev
     from repro_torch.core.avss import SearchConfig
     from repro_torch.core.memory import MemoryConfig
-    from repro_torch.engine import (MemoryStore, RetrievalEngine,
-                                    SearchRequest, TenantStore)
-    from repro_torch.kernels import _build
-    from repro_torch.launch.serve import TenantServer
+    from repro_torch.engine import MemoryStore, TenantStore
     shots, d, nq = 16, 48, 256
     rng = np.random.default_rng(args.seed + 29)
     caps = rng.integers(TENANT_MIN_CAPACITY // shots,
@@ -1323,6 +1428,28 @@ def run_tenants(t, args, launches) -> dict:
           f"{int(sum(written)) * shots} written), n_pad {tstore.n_pad}, "
           f"{mb:.1f} MB on the card, programmed in {program_s:.2f} s; "
           f"B={nq}, {len(np.unique(tids_np))} tenants in the batch")
+    return (tstore, queries, tids, tids_np, qcls, rng, search, mb,
+            written)
+
+
+def run_tenants(t, args, launches) -> dict:
+    """[tenants]: TENANTS Omniglot stores (d = 48, MTMC CL = 32) of ragged
+    capacities in TENANT_MIN_CAPACITY..TENANT_NPAD, some slots never
+    written, stacked (n_pad TENANT_NPAD), and 256 queries of uniformly
+    mixed tenants. two_phase, ideal and full on the default backend and
+    two_phase on mxu below the fused threshold (the dense route) must each
+    equal every tenant's solo search on `tenant(t)` bit for bit, queries
+    grouped in batch order; then TenantServer runs TENANT_FLUSHES flushes
+    of 256 submits with a write_at after every 4th, and every flush must
+    launch the same kernels the same number of times."""
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.engine import RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import TenantServer
+    shots, d, nq = 16, 48, 256
+    tstore, queries, tids, tids_np, qcls, rng, search, mb, _ = \
+        tenant_stack(t, args)
     eng = RetrievalEngine(search)
     paths = {
         "two_phase": (SearchRequest(mode="two_phase", k=64),
@@ -1365,6 +1492,10 @@ def run_tenants(t, args, launches) -> dict:
         phases[f"tenants_{name}"] = ms
         t.log(f"[tenants {name}] {ms:.3f} ms, top-1 {acc:.4f}, launches "
               f"{out[name]['launches']}; == solo search of every tenant")
+    blocks_row(t, "shortlist_blocks_tenants", capture_blocks(
+        lambda: eng.search_tenants(tstore, queries, tids,
+                                   SearchRequest(mode="ideal", k=64))),
+        note=f", {TENANTS} tenants stacked")
     server = TenantServer(eng, tstore, SearchRequest(mode="two_phase", k=64))
     flush_ms, profiles = [], []
     for i in range(TENANT_FLUSHES):

@@ -20,11 +20,16 @@ on one int64 key per candidate, uint64(dist) << 32 | row, which is exact
 because dist + penalty < 2**24, so the result never depends on how a sort
 orders equal values.
 
-`lut_shortlist_blocks` is the block-table entry of the same kernel: every
-query selects over its own list of row blocks of a table (M, rows, ...) --
-the routed search's shards, the pager's device slots, a tenant stack's
-blocks -- with key rows base[block] + row (`shortlist_blocks_plan` cuts
-it; `lut_shortlist_blocks_plain` is its plain version).
+`lut_shortlist_blocks` is the block-table entry of the same source, with
+kernels of its own: every query selects over its own list of row blocks
+of a table (M, rows, ...) -- the routed search's shards, the pager's
+device slots, a tenant stack's blocks -- with key rows base[block] + row.
+A grouping pass lays the (query, visit) pairs out by block in work units
+of up to 16 pairs and a row range; a unit builds its pairs' masks once,
+stages rows in K-chunks, sums 8-bit fields on the tensor cores (mma.sync)
+and selects under a bound each query shares through global memory
+(`shortlist_blocks_plan` cuts it; `lut_shortlist_blocks_plain` is its
+plain version).
 """
 
 from __future__ import annotations
@@ -39,9 +44,8 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"shortlist_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _P, _P, _P, _P],
-               "shortlist_blocks_launch": [_P, _P, _I, _I, _I, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I, _I, _I,
-                                           _I, _I, _I, _P, _P, _P, _P, _P],
+               "shortlist_blocks_launch": [_P, _P, _I, _I, _I, _P, _P, _P]
+                                          + [_I] * 14 + [_P] * 6,
                "shortlist_merge_keys": []}
 
 # Added to the phase-1 distance of masked-out rows (never-written slots).
@@ -137,44 +141,159 @@ def shortlist_plan(b: int, n: int, row_words: int, k: int) -> ShortlistPlan:
                          keys=keys, smem=smem)
 
 
+# the block-table entry (csrc/shortlist.cu): pairs a unit at most (the
+# MMA's M), words a pair of the distance tile, bound slots a query, words
+# of a staged K-chunk at most, and its select pass's static shared memory
+_BQ = 4 * _QW
+_DSTRIDE = 72
+_SLOTS = 32
+_CHUNK_MAX = 64
+_BLOCKS_SMEM_MAX = 232448 - _BQ * (4 + 8 + 4 + 4)
+# the units a mix is spread over, in waves of the SMs at the plan's
+# occupancy: whole rows half a wave, so a query has fewer, longer lists
+# and every unit runs at once; rows staged in K-chunks (wider than
+# _CHUNK_MAX words) one and a half, whose staging then overlaps across
+# units (launch/time_blocks.py --variants times each constant's values)
+_BLOCKS_WAVES = 0.5
+_BLOCKS_WAVES_CHUNKED = 1.5
+# the ring's depth for K-chunked rows (whole rows take two stages)
+_BLOCKS_STAGES_CHUNKED = 3
+
+
+def _blocks_stride(words: int) -> int:
+    """Words a mask or staged row takes (csrc/shortlist.cu blocks_stride):
+    the width rounded up to 8 words, plus 4, so 8 rows' 16-byte segments
+    lie in 8 different bank groups."""
+    return 8 * _cdiv(words, 8) + 4
+
+
+def _blocks_smem(warps: int, keys: int, row_words: int, chunk: int,
+                 stages: int, mma: bool) -> int:
+    """Dynamic shared memory of one block-table select block
+    (csrc/shortlist.cu blocks_smem): per pair slot its keys, the masks of
+    the whole row (16 rows for the MMA), the ring of staged K-chunks, and
+    the MMA's distance tile."""
+    return (warps * _QW * keys * 8
+            + (_BQ if mma else warps * _QW) * _blocks_stride(row_words) * 4
+            + stages * _ROWS * _blocks_stride(chunk) * 4
+            + (_BQ * _DSTRIDE * 4 if mma else 0))
+
+
+def _unit_rows(rows: int, s: int) -> int:
+    """Rows of each range of a tile cut in s (whole 64-row tiles)."""
+    return _ROWS * _cdiv(_cdiv(rows, s), _ROWS)
+
+
+def _row_cost(row_words: int) -> int:
+    """A staged row's cost in pair-rows of selection (csrc/shortlist.cu
+    row_cost): the rows dominate a unit at every width measured."""
+    return _cdiv(row_words, 4)
+
+
 @dataclass(frozen=True)
 class BlocksPlan:
-    """How csrc/shortlist.cu cuts one block-table call: a select block per
-    (tile of up to 4 `warps` x 4 (query, visit) pairs of one table block,
-    slice of `slice_rows` of its rows), `tiles` tile slots in the grid (at
-    least what any mix of the B p pairs over M blocks needs), `lists` =
-    p x slices sorted lists a query for the merge; window, keys, smem as
-    ShortlistPlan."""
+    """How csrc/shortlist.cu cuts one block-table call: select blocks of
+    `warps` warps (4 pairs each), each on one unit -- up to 4 x `warps`
+    (query, visit) pairs of one table block and a range of its rows --
+    with `keys` = 2 x the kept keys of a list, rows staged in K-chunks of
+    `chunk` words through a ring of `stages`, `smem` bytes of dynamic
+    shared memory; each tile of a block that c pairs visit cut into
+    `ranges(c, rows)` row ranges (about `work` cost a unit, at most
+    `split`); `tiles` tile slots and `units` unit slots in the grid (at
+    least what any mix of the B p pairs over M blocks needs); `lists` =
+    p x split list slots a query for the merge; `ctas_per_sm` select
+    blocks an SM at this shared memory. `mma`: 8-bit fields summed on the
+    tensor cores."""
     warps: int
-    slice_rows: int
-    slices: int
-    tiles: int
-    lists: int
-    window: int
     keys: int
+    chunk: int
+    stages: int
+    row_words: int
+    work: int
+    split: int
+    tiles: int
+    units: int
+    lists: int
     smem: int
+    ctas_per_sm: int
+    mma: bool
+
+    def ranges(self, c: int, rows: int) -> int:
+        """Row ranges of each tile of a block that c pairs visit
+        (csrc/shortlist.cu ranges_of): rows x (row cost + its first
+        tile's pairs) over `work`."""
+        cc = min(c, 4 * self.warps)
+        s = min(self.split, max(1, _cdiv(
+            rows * (_row_cost(self.row_words) + cc), self.work)))
+        return _cdiv(rows, _unit_rows(rows, s))
+
+    def units_in_use(self, counts, rows: int) -> int:
+        """Units the grouping pass lays out for `counts` (M + 1,): the
+        pairs that visit each block, the last entry the virtual block's
+        (ids outside [0, M), one range a tile)."""
+        qb = _QW * self.warps
+        return sum(_cdiv(c, qb) * (1 if g == len(counts) - 1
+                                   else self.ranges(c, rows))
+                   for g, c in enumerate(int(c) for c in counts) if c)
+
+    def range_rows(self, rows: int, ranges: int) -> int:
+        """Rows of each range of a tile cut in `ranges`."""
+        return _unit_rows(rows, ranges)
 
     def scratch(self, b: int, k: int) -> tuple[int, int]:
-        """Keys of the two merge scratch buffers (ping and pong)."""
-        return (b * self.lists * k,
-                b * max(1, _cdiv(self.lists, _MERGE_KEYS // k)) * k)
+        """Keys of the two merge scratch buffers (ping and pong): a merge
+        block takes MERGE_KEYS / pow2(k) lists."""
+        group = _MERGE_KEYS // (1 << (k - 1).bit_length())
+        return (b * self.lists * k, b * max(1, _cdiv(self.lists, group)) * k)
+
+    def group_words(self, b: int, p: int, m: int) -> int:
+        """int32 words of the grouping pass's scratch: the unit table (4 a
+        unit), each block's count and cursor, the grouped pairs, each
+        query's list count, the units in use."""
+        return 4 * self.units + 2 * (m + 1) + b * p + b + 1
 
 
 def shortlist_blocks_plan(b: int, p: int, m: int, rows: int, row_words: int,
-                          k: int) -> BlocksPlan:
+                          k: int, mma: bool) -> BlocksPlan:
     """The block-table entry's cut for B queries visiting p of M blocks of
-    `rows` rows each. A table block's pairs fill ceil(pairs / qb) tiles,
-    so every mix needs at most ceil(B p / qb) + min(M + 1, B p) tiles (the
-    + 1: the virtual block of ids outside [0, M)); the slices fill the SMs
-    for that many tiles."""
+    `rows` rows of `row_words` 32-bit words. Up to 4 warps while shared
+    memory fits one block; the K-chunk is the row (two stages) when it
+    fits CHUNK_MAX words, else CHUNK_MAX words in three. A block's pairs
+    fill ceil(pairs / qb) tiles, so every mix needs at most ceil(B p / qb)
+    + min(M + 1, B p) tiles (the + 1: the virtual block of ids outside
+    [0, M)). A unit costs its rows x (row cost + pairs); `work` spreads a
+    mix's typical cost (half the blocks' tiles partial) over
+    _BLOCKS_WAVES (_BLOCKS_WAVES_CHUNKED) waves of units, and the units of
+    any mix stay below
+    floor(rows (row cost x tiles + 2 B p) / work) + tiles."""
     pairs = b * p
-    warps, window, keys, smem = _select_block(pairs, row_words, k)
-    tiles = _cdiv(pairs, _QW * warps) + min(m + 1, pairs)
-    slice_rows = _slices(rows, k, warps, smem, tiles)
-    slices = _cdiv(rows, slice_rows)
-    return BlocksPlan(warps=warps, slice_rows=slice_rows, slices=slices,
-                      tiles=tiles, lists=p * slices, window=window,
-                      keys=keys, smem=smem)
+    keys = max(128, 2 * (1 << (k - 1).bit_length()))
+    chunk = min(8 * _cdiv(row_words, 8), _CHUNK_MAX)
+    stages = 2 if chunk >= row_words else _BLOCKS_STAGES_CHUNKED
+    most = 4 if pairs > 2 * _QW else (2 if pairs > _QW else 1)
+    for warps in (4, 2, 1):
+        smem = _blocks_smem(warps, keys, row_words, chunk, stages, mma)
+        if warps <= most and smem <= _BLOCKS_SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"lut_shortlist_blocks: k={k} with {row_words}-word "
+                         f"rows leaves no shared memory for one pair tile")
+    qb = warps * _QW
+    alpha = _row_cost(row_words)
+    per_sm = min(2048 // (32 * warps), _SM_SMEM // (smem + 1024))
+    waves = _BLOCKS_WAVES if stages == 2 else _BLOCKS_WAVES_CHUNKED
+    target = max(1, int(per_sm * _SMS * waves))
+    typical = _cdiv(pairs, qb) + min(m + 1, pairs) // 2
+    work = max(1, _cdiv(rows * (alpha * typical + pairs), target))
+    s = min(_cdiv(rows, _ROWS), _cdiv(rows * (alpha + qb), work))
+    split = _cdiv(rows, _unit_rows(rows, s))
+    tiles = _cdiv(pairs, qb) + min(m + 1, pairs)
+    units = min(tiles * split,
+                rows * (alpha * tiles + 2 * pairs) // work + tiles)
+    return BlocksPlan(warps=warps, keys=keys, chunk=chunk, stages=stages,
+                      row_words=row_words, work=work, split=split,
+                      tiles=tiles, units=units, lists=p * split, smem=smem,
+                      ctas_per_sm=per_sm, mma=mma)
 
 
 def unpack_projection(packed: torch.Tensor, pack_bits: int,
@@ -466,27 +585,32 @@ def lut_shortlist_blocks(q_words: torch.Tensor, s_proj: torch.Tensor | None,
     kind, bits, words = _operand_words(s_proj, packed, pack_bits)
     words = words.contiguous()
     row_words = words.shape[2]
+    # ids are read as int64 and a bool mask as bytes: no conversion where
+    # they come so
     tensors = [q, words, base.to(device=dev, dtype=torch.int64).contiguous(),
-               ids.to(device=dev, dtype=torch.int32).contiguous()]
+               ids.to(device=dev, dtype=torch.int64).contiguous()]
     if valid is not None:
-        tensors.append(valid.to(torch.uint8).contiguous())
+        tensors.append(valid.contiguous().view(torch.uint8)
+                       if valid.dtype == torch.bool
+                       else valid.to(torch.uint8).contiguous())
     _build.require_cuda("lut_shortlist_blocks", *tensors)
-    plan = shortlist_blocks_plan(B, p, m, rows, row_words, k)
-    group = torch.empty(4 * plan.tiles + m + 1 + B * p + 1,
-                        dtype=torch.int32, device=dev)
+    plan = shortlist_blocks_plan(B, p, m, rows, row_words, k,
+                                 kind == _KIND_PACKED and bits == 8)
+    group = torch.empty(plan.group_words(B, p, m), dtype=torch.int32,
+                        device=dev)
+    bounds = torch.empty(B * (1 + _SLOTS), dtype=torch.int64, device=dev)
     scratch_a, scratch_b, keys = _scratch_keys(dev, plan.scratch(B, k), B, k)
     lib = _load()
+    ints = (B, m, rows, d, p, k, plan.warps, plan.keys, plan.chunk,
+            plan.stages, plan.work, plan.split, plan.tiles, plan.units)
     err = lib.shortlist_blocks_launch(
         _build.ptr(q), _build.ptr(words), ctypes.c_int(kind),
         ctypes.c_int(bits), ctypes.c_int(row_words),
         _build.ptr(tensors[4]) if valid is not None else ctypes.c_void_p(0),
-        _build.ptr(tensors[2]), _build.ptr(tensors[3]), ctypes.c_int(B),
-        ctypes.c_int(m), ctypes.c_int(rows), ctypes.c_int(d),
-        ctypes.c_int(p), ctypes.c_int(k), ctypes.c_int(plan.warps),
-        ctypes.c_int(plan.slice_rows), ctypes.c_int(plan.window),
-        ctypes.c_int(plan.keys), ctypes.c_int(plan.tiles),
-        _build.ptr(group), _build.ptr(scratch_a), _build.ptr(scratch_b),
-        _build.ptr(keys), _build.stream_ptr(dev))
+        _build.ptr(tensors[2]), _build.ptr(tensors[3]),
+        *(ctypes.c_int(v) for v in ints),
+        _build.ptr(group), _build.ptr(bounds), _build.ptr(scratch_a),
+        _build.ptr(scratch_b), _build.ptr(keys), _build.stream_ptr(dev))
     _build.check(lib, err, "shortlist_blocks_launch")
     _build.count_launch("shortlist_blocks")
     return split_keys(keys)

@@ -201,6 +201,18 @@ BLOCK_CASES = {
     "f32": (40, 3, 8, 200, 12, 64, "f32", None, 0.8),
     "packed32": (40, 3, 8, 200, 12, 32, "packed32", None, 0.8),
     "large_k": (16, 4, 8, 512, 12, 1024, "packed8", None, 0.9),
+    # the redesigned entry's edges: one pair over a 4,096-row block (its
+    # rows split over units), blocks of 80 visitors (5 tiles) over
+    # 700 rows, 480-word rows on the MMA without windows, 4- and 16-bit
+    # fields at d = 480 on the CUDA cores, and descending rows under a
+    # shared bound (8 visits x 8 ranges: 64 lists a query)
+    "one_pair_4096_rows": (1, 1, 4, 4096, 48, 64, "packed8", None, 0.9),
+    "blocks_of_80_pairs": (80, 2, 2, 700, 48, 64, "packed8", None, 0.9),
+    "cub_rows_mma": (64, 4, 16, 256, 480, 64, "packed8", None, 0.9),
+    "cub_packed4": (40, 3, 8, 200, 480, 64, "packed4", None, 0.9),
+    "cub_packed16": (40, 3, 8, 200, 480, 64, "packed16", None, 0.9),
+    "descending_shared_bound": (50, 8, 16, 512, 8, 64, "packed16",
+                                "descending", 1.0),
 }
 
 
@@ -274,8 +286,9 @@ def test_block_entry_at_the_cub_width(dev, operand):
 
 def test_block_entry_launch_shape_does_not_depend_on_the_mix(dev):
     """One grouping, one select and the same merge launches whatever the
-    visit lists: every query on one block, or spread over all of them;
-    and a visit id outside the table reads nothing."""
+    visit lists: every query on one block, spread over all of them, or a
+    tenant stack's one block a query; and a visit id outside the table
+    reads nothing."""
     rng = np.random.default_rng(7)
     m, rows, d, b = 16, 256, 12, 64
     sp, kw = _block_table(rng, m, rows, d, "packed8")
@@ -299,6 +312,98 @@ def test_block_entry_launch_shape_does_not_depend_on_the_mix(dev):
                                          **kw)
     torch.cuda.synchronize()
     assert (got[1] == 0xFFFFFFFF).all()
+    # a tenant stack's mix: one block a query, a few queries a block, key
+    # rows within the block
+    tenants = torch.as_tensor(rng.integers(0, m, size=(b, 1)))
+    zero = torch.zeros(m, dtype=torch.int64, device=dev)
+    _build.reset_launches()
+    got = shortlist.lut_shortlist_blocks(q, sp, 64, base=zero,
+                                         ids=tenants.to(dev), **kw)
+    assert _build.LAUNCHES["shortlist_blocks"] == 1
+    want = shortlist.lut_shortlist_blocks_plain(q, sp, 64, base=zero,
+                                                ids=tenants.to(dev), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_block_entry_reads_nothing_for_ids_outside_the_table(dev):
+    """Visits outside [0, M) (-1 or M) among real ones: each query's result
+    is the plain version's over its real visits alone (k <= its real
+    visits x rows), and the outside ids' lists hold only the all-ones
+    key, which the merge drops."""
+    rng = np.random.default_rng(11)
+    m, rows, d, b, p, k = 12, 300, 48, 40, 4, 64
+    sp, kw = _block_table(rng, m, rows, d, "packed8")
+    kw = {a: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for a, v in kw.items()}
+    base_np = np.arange(m, dtype=np.int64) * rows
+    ids = _visits(rng, b, p, m, base_np).to(torch.int64)
+    ids[::3, 0] = -1
+    ids[1::3, p - 1] = m
+    valid = torch.as_tensor(rng.random((m, rows)) < 0.9).to(dev)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32))
+    base = torch.as_tensor(base_np).to(dev)
+    got = shortlist.lut_shortlist_blocks(q.to(dev), sp, k, base=base,
+                                         ids=ids.to(dev), valid=valid, **kw)
+    torch.cuda.synchronize()
+    for i in range(b):
+        real = ids[i][(ids[i] >= 0) & (ids[i] < m)][None]
+        want = shortlist.lut_shortlist_blocks_plain(
+            q[i:i + 1].to(dev), sp, k, base=base, ids=real.to(dev),
+            valid=valid, **kw)
+        assert torch.equal(got[0][i:i + 1], want[0])
+        assert torch.equal(got[1][i:i + 1], want[1])
+
+
+@pytest.mark.parametrize("operand", ["packed8", "packed16"])
+def test_block_entry_virtual_units_repeat_bit_for_bit(dev, operand):
+    """Five of each query's eight visits outside [0, M): the virtual block
+    then has units whose every warp holds pairs (no rows, no staging).
+    Fifty calls in a row each equal the plain version over the real
+    visits: every warp writes its pairs' all-ones lists where the grouping
+    pass numbered them, never over another query's list."""
+    rng = np.random.default_rng(23)
+    m, rows, d, b, k = 16, 256, 48, 64, 64
+    sp, kw = _block_table(rng, m, rows, d, operand)
+    kw = {a: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for a, v in kw.items()}
+    base_np = np.arange(m, dtype=np.int64) * rows
+    real = _visits(rng, b, 3, m, base_np).to(torch.int64)
+    outside = torch.where(torch.arange(5) % 2 == 0, -1, m).expand(b, 5)
+    ids = torch.cat([real, outside], 1).to(dev)
+    valid = torch.as_tensor(rng.random((m, rows)) < 0.9).to(dev)
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32)
+                        ).to(dev)
+    base = torch.as_tensor(base_np).to(dev)
+    want = shortlist.lut_shortlist_blocks_plain(
+        q, sp, k, base=base, ids=real.to(dev), valid=valid, **kw)
+    for _ in range(50):
+        got = shortlist.lut_shortlist_blocks(q, sp, k, base=base, ids=ids,
+                                             valid=valid, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [64, 1024])
+def test_block_entry_keeps_both_copies_of_a_block_visited_twice(dev, k):
+    """Each query visits each of 4 blocks of descending rows 4 times (16
+    visits: the shared bound is on). The plain version holds 4 copies of
+    each best key, so the key equal to a query's bound may be in the
+    result more than once, and the entry keeps every copy."""
+    rng = np.random.default_rng(k)
+    m, rows, d, b, p = 4, 512, 8, 50, 16
+    sp, kw = _block_table(rng, m, rows, d, "packed16", "descending")
+    kw = {a: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+          for a, v in kw.items()}
+    args = dict(base=(torch.arange(m, dtype=torch.int64) * rows).to(dev),
+                ids=torch.arange(p, device=dev).repeat(b, 1) // 4,
+                valid=torch.ones(m, rows, dtype=torch.bool, device=dev),
+                **kw)
+    q = torch.zeros(b, d, dtype=torch.int32, device=dev)
+    got = shortlist.lut_shortlist_blocks(q, sp, k, **args)
+    want = shortlist.lut_shortlist_blocks_plain(q, sp, k, **args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("b,n,k,dtype,vmax", [

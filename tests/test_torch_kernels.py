@@ -185,6 +185,78 @@ def test_shortlist_plan_refuses_what_no_block_can_hold():
         shortlist.shortlist_plan(1, 4096, 4, 4096)
 
 
+def _blocks_mixes(rng, b, p, m):
+    """Visit lists (B, p) that stress the block entry's unit grid: spread
+    at random, every query on the same p blocks, each block's count just
+    above a tile (most partial tiles), and a quarter of the ids outside
+    [0, M) (the virtual block)."""
+    spread = np.stack([rng.choice(m, size=min(p, m), replace=False)
+                       for _ in range(b)])
+    same = np.tile(np.arange(p) % m, (b, 1))
+    ragged = (np.arange(b * p) // 17 % m).reshape(b, p)
+    outside = spread.copy()
+    outside[rng.random(outside.shape) < 0.25] = m
+    return {"spread": spread, "same": same, "ragged": ragged,
+            "outside": outside}
+
+
+@pytest.mark.parametrize("b,p,m,rows,row_words,k", [
+    (256, 8, 64, 1024, 48, 64), (256, 1, 64, 1024, 48, 64),
+    (256, 1, 64, 4096, 48, 64), (256, 8, 64, 1024, 480, 64),
+    (256, 8, 64, 1024, 48, 1024)],
+    ids=["omniglot_nprobe8", "nprobe1", "tenant_stack", "cub_nprobe8",
+         "k_max"])
+def test_block_plan_fits_a_block_and_covers_every_row(b, p, m, rows,
+                                                      row_words, k):
+    """The block-table entry's cut (host side of csrc/shortlist.cu): the
+    select block's shared memory within one block's 227 KB, 8-bit fields
+    on the MMA with its 16 mask rows; the units of any mix cover every row
+    of every visited block exactly once, once per tile of up to 4 x warps
+    pairs, and fit the grid's unit slots; each query's lists fit the
+    merge scratch."""
+    plan = shortlist.shortlist_blocks_plan(b, p, m, rows, row_words, k,
+                                           mma=True)
+    static = 16 * (4 + 8 + 4 + 4)
+    stride = 8 * -(-row_words // 8) + 4
+    chunk_stride = 8 * -(-plan.chunk // 8) + 4
+    assert plan.smem == (plan.warps * 4 * plan.keys * 8 + 16 * stride * 4
+                         + plan.stages * 64 * chunk_stride * 4
+                         + 16 * 72 * 4) <= 232448 - static
+    assert plan.warps in (1, 2, 4) and plan.keys // 2 >= k
+    assert plan.ctas_per_sm == min(2048 // (32 * plan.warps),
+                                   233472 // (plan.smem + 1024)) >= 1
+    assert plan.chunk % 8 == 0 and plan.chunk <= 64
+    assert plan.stages == (2 if plan.chunk >= row_words else 3)
+    qb = 4 * plan.warps
+    assert plan.tiles == -(-b * p // qb) + min(m + 1, b * p)
+    group = 2048 // (1 << (k - 1).bit_length())
+    assert plan.scratch(b, k) == (b * plan.lists * k,
+                                  b * max(1, -(-plan.lists // group)) * k)
+    rng = np.random.default_rng(b + p + rows + k)
+    for name, ids in _blocks_mixes(rng, b, p, m).items():
+        counts = np.bincount(ids.reshape(-1), minlength=m + 1)
+        units = 0
+        for g, c in enumerate(counts):
+            if c == 0:
+                continue
+            ranges = 1 if g == m else plan.ranges(int(c), rows)
+            units += -(-c // qb) * ranges
+            if g == m:
+                continue
+            assert 1 <= ranges <= plan.split
+            ur = plan.range_rows(rows, ranges)
+            assert ur % 64 == 0
+            covered = np.zeros(rows, np.int64)
+            for r in range(ranges):
+                covered[r * ur:min(rows, (r + 1) * ur)] += 1
+            assert (covered == 1).all(), (name, g)
+        assert units == plan.units_in_use(counts, rows), name
+        assert units <= plan.units, name
+        lists = [sum(1 if g == m else plan.ranges(int(counts[g]), rows)
+                     for g in row) for row in ids]
+        assert max(lists) <= plan.lists, name
+
+
 # -- the LUT product -----------------------------------------------------------
 
 
