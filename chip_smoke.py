@@ -49,6 +49,25 @@ widths and of 8-bit fields at d = 480):
                shards; a batch draws from two groups, the next batch
                shares one): each equal to the device twin's routed search
 
+Then the LM serving entry point at full width (random weights drawn on
+the card from the seed):
+
+  [lm-serve]   `launch/serve.serve(arch, smoke=False, ...)`: starcoder2-3b
+               (30 layers, d = 3,072, bf16) decodes 4 requests (8 prompt
+               + 16 steps) with the kNN-LM head over the 1,024-row demo
+               store in each mode (two_phase, ideal, dense, routed at
+               nprobe 2 of 8 shards, two_phase on mxu) and without it,
+               then with the head over a 65,536-row token store at d = 48;
+               deepseek-moe-16b (28 layers, 64 routed + 2 shared experts,
+               top-6) with two_phase and without. Every search of the
+               head equals, in labels, votes and rows, the same store
+               searched on the host by the plain route with the same
+               hidden rows; decode over a prompt equals forward over it
+               within LM_DECODE_ATOL (starcoder2-3b); the decode step's
+               time with and without the head, a profiled step of each
+               (idle share, launches, device time by kind), the peak
+               memory and the weight-bytes bound are printed
+
 Then the same path at the paper's CUB geometry:
 
   [cub-serve]  d = 480, MTMC CL = 25 (500 strings of 24 cells a support,
@@ -243,6 +262,35 @@ PAGER_CLASSES, PAGER_WRITE_ROWS = 65536, 65536
 PAGER_SHARDS, PAGER_GROUP = 256, 4
 PAGER_SLOTS, PAGER_NPROBE, PAGER_BATCHES, PAGER_QUERIES = 16, 4, 8, 64
 LEAVES = ("votes", "dist", "indices", "labels")
+# [lm-serve]: the LM serving entry point at full width. The archs (run in
+# turn, the first freed before the second), whether they are cut to their
+# smoke configs (a CPU rehearsal), each serve run's batch, decoded steps
+# and prompt, the kNN-LM head's k, the token store's rows, the routed
+# run's shards and nprobe, and the timed decode steps
+LM_ARCHS = ("starcoder2-3b", "deepseek-moe-16b")
+LM_SMOKE = False
+LM_BATCH, LM_STEPS, LM_PROMPT, LM_K = 4, 16, 8, 32
+LM_STORE_ROWS = 65536
+LM_SHARDS, LM_NPROBE = 8, 2
+LM_REPS = 10
+# decode_step over the prompt against forward over it, bf16 logits at full
+# width (the dense arch): other GEMM shapes round other bits, which 30
+# layers carry (the measured gap is in PERF.md §5); a wrong cache slot or
+# mask moves a logit by O(1)
+LM_DECODE_ATOL = 0.25
+# a profiled decode step's device time by kind of kernel, by the parts of
+# their names (the first kind that matches)
+LM_KERNEL_KINDS = {
+    "mcam": ("shortlist", "search_gathered", "lut_dist"),
+    "gemm": ("gemm", "gemv", "nvjet", "cutlass", "xmma", "splitK",
+             "dot_kernel", "cublas"),
+    "softmax": ("softmax", "Softmax"),
+    "elementwise_and_reduction": ("elementwise", "reduce", "Reduce",
+                                  "vectorized", "CatArray", "index",
+                                  "scatter", "gather", "fill", "copy"),
+}
+# the profiler range around layers.dot_attention in a profiled step
+LM_ATTENTION_RANGE = "lm.dot_attention"
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -820,6 +868,11 @@ def run(args, torch) -> int:
     path_ms.update(pager.pop("phases_ms"))
     torch.cuda.empty_cache()
 
+    # -- the LM serving entry point at full width ----------------------------
+    lm_serve = run_lm_serve(timing, args, launches, card)
+    path_ms.update(lm_serve.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
     # -- hardware-aware training ---------------------------------------------
     train_lib.make_deterministic()
     episode = run_episode(timing, args.seed)
@@ -851,7 +904,8 @@ def run(args, torch) -> int:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"phases_ms": {"program": program_ms, **path_ms},
                     "accuracy_two_phase": acc, "routed": routed,
-                    "tenants": tenants, "pager": pager, "hat": hat,
+                    "tenants": tenants, "pager": pager,
+                    "lm_serve": lm_serve, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
                     "optim": optim, "card": card}))
     print(card)
@@ -1202,16 +1256,22 @@ def run_routed(t, store, queries, qcls_t, exhaustive, launches,
     return {**out, "phases_ms": phases}
 
 
-def _profile_search(t, fn) -> dict:
+def _profile_search(t, fn, kinds: dict | None = None,
+                    ranges: tuple = ()) -> dict:
     """One search under torch.profiler (`_profiled`): its wall time, the
     kernels' device time and the device's idle share, the kernel launches
     and the calls that wait for the device (stream / device
     synchronisations, blocking copies, scalar reads), the host operations
     that took the most time of their own, and the kernels that took the
-    most device time."""
+    most device time. With `kinds` ({kind: parts of kernel names}), the
+    device time by kind (the first that matches, else "other"); `ranges`
+    names record_function ranges of fn, left out of the kernels' sums and
+    reported with the device time under each."""
     torch = t.torch
     events, wall = _profiled(t, fn)
     cuda = torch.autograd.DeviceType.CUDA
+    in_range = [e for e in events if e.key in ranges]
+    events = [e for e in events if e.key not in ranges]
     busy = sum(e.device_time_total for e in events
                if e.device_type == cuda) / 1e3
     host = [e for e in events if e.device_type != cuda]
@@ -1224,11 +1284,27 @@ def _profile_search(t, fn) -> dict:
     kernels = sorted(((e.key[:50], e.device_time_total / 1e3)
                       for e in events if e.device_type == cuda),
                      key=lambda r: -r[1])[:8]
-    return {"wall_ms": wall, "device_ms": busy,
-            "idle_share": 1 - busy / wall if wall else None,
-            "kernel_launches": launches, "waits": waits,
-            "top_host_ops": [(k, round(ms, 4), n) for k, ms, n in top],
-            "top_kernels": [(k, round(ms, 4)) for k, ms in kernels]}
+    out = {"wall_ms": wall, "device_ms": busy,
+           "idle_share": 1 - busy / wall if wall else None,
+           "kernel_launches": launches, "waits": waits,
+           "top_host_ops": [(k, round(ms, 4), n) for k, ms, n in top],
+           "top_kernels": [(k, round(ms, 4)) for k, ms in kernels]}
+    if kinds is not None:
+        by_kind = {kind: 0.0 for kind in (*kinds, "other")}
+        for e in events:
+            if e.device_type == cuda:
+                kind = next((kd for kd, parts in kinds.items()
+                             if any(part in e.key for part in parts)),
+                            "other")
+                by_kind[kind] += e.device_time_total / 1e3
+        out["device_ms_by_kind"] = by_kind
+    if ranges:
+        # the host-side range's device time sums the kernels launched
+        # inside it (its device-side twin spans idle time too)
+        out["ranges_device_ms"] = {e.key: e.device_time_total / 1e3
+                                   for e in in_range
+                                   if e.device_type != cuda}
+    return out
 
 
 def capture_blocks(fn) -> tuple:
@@ -1653,6 +1729,298 @@ def run_pager(t, args, launches) -> dict:
             "twin_ms": twin_ms, "host_gb": gb,
             "phases_ms": {"pager_batch_median": statistics.median(
                 r["ms"] for r in per_batch), "pager_steady": steady_ms}}
+
+
+def _cpu_twin(store):
+    """The same store's leaves on the host."""
+    import dataclasses
+
+    from repro_torch.engine.store import DATA_FIELDS
+    return dataclasses.replace(store, **{f: getattr(store, f).cpu()
+                                         for f in DATA_FIELDS})
+
+
+class _SearchSpy:
+    """Records every `RetrievalEngine.search` while `on`: (store, queries,
+    request, result). `check()` searches each recorded store's host twin
+    with backend "ref" on the same queries, and fails where the labels,
+    votes or rows differ in any bit."""
+
+    def __init__(self, engine_cls):
+        self.cls, self.search = engine_cls, engine_cls.search
+        self.calls, self.on, self._twins = [], False, {}
+        spy = self
+
+        def search(eng, store, queries, request=None):
+            res = spy.search(eng, store, queries, request)
+            if spy.on:
+                spy.calls.append((store, queries.detach().clone(), request,
+                                  res))
+            return res
+        engine_cls.search = search
+
+    def close(self) -> None:
+        self.cls.search = self.search
+
+    def check(self, torch, what: str) -> int:
+        for i, (store, q, req, res) in enumerate(self.calls):
+            twin = self._twins.get(id(store))
+            if twin is None:
+                twin = self._twins[id(store)] = (store, _cpu_twin(store))
+            want = self.search(self.cls(store.cfg.search, backend="ref"),
+                               twin[1], q.cpu(), req)
+            for f in ("labels", "votes", "indices"):
+                if not torch.equal(getattr(res, f).cpu(), getattr(want, f)):
+                    fail(f"[lm-serve] {what}: search {i} ({req}): the head's "
+                         f"{f} differ from the host's plain route")
+        n = len(self.calls)
+        self.calls = []
+        return n
+
+
+def run_lm_serve(t, args, launches: dict, card: str) -> dict:
+    """[lm-serve]: the LM serving entry point (`launch/serve.serve`, the
+    kNN-LM head of `launch/steps.make_serve_step_with_mcam`) at full width
+    on the card, random weights drawn on the card from the seed, each
+    arch of LM_ARCHS in turn (the previous one freed): for starcoder2-3b
+    the head's modes through `serve` (two_phase: the fused shortlist and
+    the gathered physics over the 1,024-row demo store; ideal; dense;
+    routed, LM_SHARDS shards at nprobe LM_NPROBE with the fused threshold
+    at the rows a query visits: the block-table entry; two_phase on mxu
+    below the fused threshold: the LUT product) and the plain decode,
+    then the head over a token store of LM_STORE_ROWS rows; for
+    deepseek-moe-16b two_phase and the plain decode. Each run with the
+    launch counts zeroed just before it and read just after; every search
+    of the head is held, bit for bit in labels, votes and rows, against
+    the same store searched on the host by the plain route with the same
+    hidden rows. Then, per arch: decode over a prompt against forward over
+    it (LM_DECODE_ATOL, the dense arch; the MoE arch's is reported: a
+    last-bit difference can move a token's experts), the decode step's
+    time with and without the head (host-clock medians of LM_REPS), one
+    profiled step of each (idle share, launches, device time by kind, the
+    attention range), the peak memory and the step's weight-bytes bound
+    (parameter bytes over HBM_BYTES_PER_S)."""
+    import gc
+
+    import numpy as np
+    torch, dev, log = t.torch, t.dev, t.log
+    from repro_torch.configs import load_config
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import MemoryStore, RetrievalEngine
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import layers as layers_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch import tree as tree_lib
+
+    B, P, S = LM_BATCH, LM_PROMPT, LM_STEPS
+    routed_rows = 1024 // LM_SHARDS * LM_NPROBE
+    runs = {
+        "starcoder2-3b": {
+            "two_phase": ({}, ("shortlist", "mcam_rescore")),
+            "ideal": ({"retrieval_mode": "ideal"}, ("shortlist",)),
+            "dense": ({"retrieval_mode": "dense"}, ()),
+            "routed": ({"retrieval_shards": LM_SHARDS,
+                        "retrieval_nprobe": LM_NPROBE,
+                        "retrieval_fused_min_rows": routed_rows},
+                       ("shortlist_blocks", "mcam_rescore")),
+            "mxu": ({"retrieval_backend": "mxu",
+                     "retrieval_fused_min_rows": 2048},
+                    ("mcam_dist", "mcam_rescore")),
+            "plain": (None, ())},
+        "deepseek-moe-16b": {
+            "two_phase": ({}, ("shortlist", "mcam_rescore")),
+            "plain": (None, ())},
+    }
+    spy = _SearchSpy(RetrievalEngine)
+    out, phases_ms = {}, {}
+    try:
+        for arch in LM_ARCHS:
+            cfg = load_config(arch, smoke=LM_SMOKE)
+            res = out[arch] = {"layers": cfg.n_layers,
+                               "d_model": cfg.d_model, "runs": {}}
+            # -- the entry point, every mode ------------------------------
+            for name, (kw, needs) in runs[arch].items():
+                _build.reset_launches()
+                spy.on = True
+                t0 = time.perf_counter()
+                torch.cuda.reset_peak_memory_stats()
+                toks = serve_lib.serve(
+                    arch, LM_SMOKE, B, S, P, retrieval=kw is not None,
+                    retrieval_k=LM_K, seed=args.seed, device=dev,
+                    **(kw or {}))
+                t.sync()
+                wall = (time.perf_counter() - t0) * 1e3
+                spy.on = False
+                peak = torch.cuda.max_memory_allocated()
+                counts = dict(_build.LAUNCHES)
+                if any(counts[k] < 1 for k in needs):
+                    fail(f"[lm-serve] {arch} {name}: launched {counts}, "
+                         f"needs {needs}")
+                _count(launches, counts)
+                if toks.shape != (B, S):
+                    fail(f"[lm-serve] {arch} {name}: tokens {toks.shape}")
+                checked = spy.check(torch, f"{arch} {name}")
+                if kw is not None and kw.get("retrieval_mode") != "dense" \
+                        and checked != P + S:
+                    fail(f"[lm-serve] {arch} {name}: {checked} searches, "
+                         f"expected one a step ({P + S})")
+                res["runs"][name] = {
+                    "wall_ms": wall, "searches_checked": checked,
+                    "peak_memory_bytes": peak,
+                    "launches_a_step": {k: v / (P + S)
+                                        for k, v in counts.items() if v}}
+                phases_ms[f"lm_{arch}_{name}"] = wall
+                log(f"[lm-serve] {arch} {name}: serve {wall:.0f} ms "
+                    f"(init, {P} + {S} steps), peak memory "
+                    f"{peak / 1e9:.2f} GB, {checked} head searches "
+                    f"equal to the host's plain route bit for bit, "
+                    f"kernel launches a step "
+                    f"{res['runs'][name]['launches_a_step']} ({card})")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # -- one model: decode vs forward, step times, a profile ------
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator(device=dev).manual_seed(args.seed)
+            params = tfm.init(gen, cfg)
+            leaves = tree_lib.leaves(params)
+            n_params = sum(a.numel() for a in leaves)
+            p_bytes = sum(a.numel() * a.element_size() for a in leaves)
+            mem_cfg, store = serve_lib.demo_store(cfg, args.seed, dev)
+            eng = RetrievalEngine(mem_cfg.search)
+            plain = steps_lib.make_serve_step(cfg)
+            head = steps_lib.make_serve_step_with_mcam(cfg, mem_cfg,
+                                                       engine=eng, k=LM_K)
+            rng = np.random.default_rng(args.seed + 3)
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, P))).to(dev)
+            caches = tfm.init_cache(cfg, B, P + S, dev)
+            dec = []
+            for pos in range(P):
+                logits, caches = plain(params, caches,
+                                       {"tokens": prompt[:, pos:pos + 1]},
+                                       pos)
+                dec.append(logits[:, 0])
+            fwd = tfm.forward(params, cfg, {"tokens": prompt})[0]
+            diff = (torch.stack(dec, 1).float() - fwd.float()).abs()
+            gap, scale = float(diff.max()), float(fwd.float().abs().max())
+            within = float((diff.amax(-1) <= LM_DECODE_ATOL).float().mean())
+            finite = bool(torch.isfinite(fwd).all()) and all(
+                bool(torch.isfinite(x).all()) for x in dec)
+            if not finite:
+                fail(f"[lm-serve] {arch}: non-finite logits")
+            if cfg.moe is None and gap > LM_DECODE_ATOL:
+                fail(f"[lm-serve] {arch}: decode over the prompt differs "
+                     f"from forward by {gap} > {LM_DECODE_ATOL}")
+            tok = torch.argmax(logits[:, 0], -1)[:, None]
+            del dec, fwd, diff
+
+            def plain_step():
+                return plain(params, caches, {"tokens": tok}, P)
+
+            def head_step(st=store):
+                return head(params, caches, {"tokens": tok}, P, st)
+            step_ms = t.host_ms(plain_step, reps=LM_REPS)
+            head_ms = t.host_ms(head_step, reps=LM_REPS)
+            attention = layers_lib.dot_attention
+
+            def annotated(*a, **k):
+                with torch.profiler.record_function(LM_ATTENTION_RANGE):
+                    return attention(*a, **k)
+            layers_lib.dot_attention = annotated
+            try:
+                prof = {name: _profile_search(t, fn, LM_KERNEL_KINDS,
+                                              (LM_ATTENTION_RANGE,))
+                        for name, fn in (("plain", plain_step),
+                                         ("head", head_step))}
+            finally:
+                layers_lib.dot_attention = attention
+            _build.reset_launches()
+            head_step()
+            t.sync()
+            mcam_a_step = {k: v for k, v in _build.LAUNCHES.items() if v}
+            bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
+            res.update({
+                "params": n_params, "param_bytes": p_bytes,
+                "decode_vs_forward_max_abs": gap, "logit_max_abs": scale,
+                "decode_vs_forward_within_atol": within,
+                "step_ms": step_ms, "head_step_ms": head_ms,
+                "tokens_per_s": B / step_ms * 1e3,
+                "head_tokens_per_s": B / head_ms * 1e3,
+                "weight_bytes_bound_ms": bound_ms,
+                "mcam_launches_a_step": mcam_a_step, "profile": prof})
+            log(f"[lm-serve] {arch}: {cfg.n_layers} layers, d "
+                f"{cfg.d_model}, {n_params} parameters ({p_bytes / 1e9:.2f}"
+                f" GB); decode over the prompt vs forward: max |diff| "
+                f"{gap:.4f} of logits up to {scale:.2f} (atol "
+                f"{LM_DECODE_ATOL}: {within:.3f} of positions within); "
+                f"decode step {step_ms:.3f} ms "
+                f"({B / step_ms * 1e3:.1f} tok/s), with the head "
+                f"{head_ms:.3f} ms ({B / head_ms * 1e3:.1f} tok/s); "
+                f"weight-bytes bound {bound_ms:.3f} ms ({card})")
+            for name, pr in prof.items():
+                log(f"[lm-serve] {arch} profiled {name} step: wall "
+                    f"{pr['wall_ms']:.3f} ms, device {pr['device_ms']:.3f} "
+                    f"ms, idle share {pr['idle_share']:.3f}, "
+                    f"{pr['kernel_launches']} kernel launches, by kind "
+                    f"{ {k: round(v, 4) for k, v in pr['device_ms_by_kind'].items()} }"
+                    f", attention {pr.get('ranges_device_ms')}, top "
+                    f"{pr['top_kernels'][:4]} ({card})")
+
+            # -- the head over a token store of LM_STORE_ROWS rows --------
+            if arch == LM_ARCHS[0]:
+                big_cfg = MemoryConfig(capacity=LM_STORE_ROWS,
+                                       dim=mem_cfg.dim,
+                                       search=mem_cfg.search)
+                vecs = rng.standard_normal((LM_STORE_ROWS, mem_cfg.dim),
+                                           dtype=np.float32)
+                ids = rng.integers(0, cfg.vocab_size, LM_STORE_ROWS)
+                big = MemoryStore.create(big_cfg, device=dev).calibrate(
+                    vecs).write(vecs, ids)
+                cache2 = tfm.init_cache(cfg, B, P + S, dev)
+                _build.reset_launches()
+                spy.on = True
+                nxt = prompt[:, :1]
+                for pos in range(P + S):
+                    mixed, cache2 = head(params, cache2, {"tokens": nxt},
+                                         pos, big)
+                    nxt = (prompt[:, pos + 1:pos + 2] if pos + 1 < P
+                           else torch.argmax(mixed[:, 0], -1)[:, None])
+                t.sync()
+                spy.on = False
+                counts = dict(_build.LAUNCHES)
+                if any(counts[k] < 1 for k in ("shortlist",
+                                               "mcam_rescore")):
+                    fail(f"[lm-serve] {arch} token store: launched "
+                         f"{counts}")
+                _count(launches, counts)
+                if not torch.isfinite(mixed).all():
+                    fail(f"[lm-serve] {arch} token store: non-finite")
+                checked = spy.check(torch, f"{arch} token store")
+                big_ms = t.host_ms(lambda: head_step(big), reps=LM_REPS)
+                res["token_store"] = {
+                    "rows": LM_STORE_ROWS, "dim": mem_cfg.dim,
+                    "searches_checked": checked, "head_step_ms": big_ms,
+                    "launches_a_step": {k: v / (P + S)
+                                        for k, v in counts.items() if v}}
+                log(f"[lm-serve] {arch} token store of {LM_STORE_ROWS} "
+                    f"rows at d = {mem_cfg.dim}: {checked} head searches "
+                    f"equal to the host's plain route bit for bit; decode "
+                    f"step with the head {big_ms:.3f} ms "
+                    f"({B / big_ms * 1e3:.1f} tok/s) ({card})")
+                del big, cache2
+            res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            log(f"[lm-serve] {arch}: peak memory "
+                f"{res['peak_memory_bytes'] / 1e9:.2f} GB ({card})")
+            del params, leaves, store, caches, logits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        spy.close()
+    out["phases_ms"] = phases_ms
+    return out
 
 
 def _grad_agreement(torch, got, want) -> tuple[float, float, float]:

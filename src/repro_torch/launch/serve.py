@@ -1,16 +1,19 @@
-"""Multi-tenant retrieval serving (port of `TenantServer`, `serve_tenants`
-and the `--tenants` path of `repro.launch.serve`).
+"""Serving launcher (port of `repro.launch.serve`): a batched-request LM
+decode loop with the optional kNN-LM head over an MCAM store, and
+multi-tenant retrieval serving. On the card unless `--device cpu`:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-3b \
+        --batch 4 --steps 16 [--retrieval [--retrieval-mode ideal] ...]
+
+`--smoke` is on by default, as in the reference (a `store_true` flag with
+default True): the command line runs an arch's smoke config, and
+`serve(arch, smoke=False, ...)` its full width.
 
 `TenantServer` coalesces concurrent per-tenant queries into one batch,
 searched once over a stacked `TenantStore` by
-`RetrievalEngine.search_tenants`, and hands each ticket its row. The
-standalone demo, on the card unless `--device cpu`:
+`RetrievalEngine.search_tenants`, and hands each ticket its row:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tenants 8 --steps 16
-
-The LM decode loop of the reference's `serve` (with its `--retrieval`
-head) is not ported yet (ROADMAP Queue A10); without `--tenants` this
-entry point raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,9 +24,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import load_config
 from repro_torch.engine.api import SearchRequest, SearchResult
-from repro_torch.engine.store import _not_ported
+from repro_torch.engine.store import resolve_device
 from repro_torch.kernels import _build
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import transformer as tfm
 
 
 class TenantServer:
@@ -159,26 +165,137 @@ def serve_tenants(n_tenants: int, steps: int, batch: int, dim: int = 16,
     return preds
 
 
+def demo_store(cfg, seed: int = 0,
+               device: torch.device | str | None = None):
+    """The serve loop's token store: 1,024 slots at d = min(48, d_model),
+    MTMC CL = 8 AVSS, calibrated on and written with 256 random vectors
+    labelled with random token ids, drawn with numpy from `seed`. Returns
+    (mem_cfg, store). The reference draws them from jax.random and pins
+    use_kernel="ref"; here it is "auto", so on the card the head's
+    searches run the kernels (the same results)."""
+    from repro_torch.core.avss import SearchConfig
+    from repro_torch.core.memory import MemoryConfig
+    from repro_torch.engine import MemoryStore
+    mem_cfg = MemoryConfig(capacity=1024, dim=min(48, cfg.d_model),
+                           search=SearchConfig("mtmc", cl=8, mode="avss"))
+    rng = np.random.default_rng(seed + 7)
+    vecs = rng.standard_normal((256, mem_cfg.dim), dtype=np.float32)
+    toks = rng.integers(0, cfg.vocab_size, 256)
+    # programmed once at write time (values, proj, s_grid)
+    store = MemoryStore.create(mem_cfg, device=device).calibrate(vecs) \
+        .write(vecs, toks)
+    return mem_cfg, store
+
+
+def serve(arch: str, smoke: bool, batch: int, steps: int, prompt_len: int,
+          retrieval: bool = False, retrieval_mode: str = "two-phase",
+          retrieval_backend: str = "auto", retrieval_k: int = 32,
+          retrieval_fused_min_rows: int | None = None,
+          retrieval_shards: int | None = None,
+          retrieval_nprobe: int | None = None, *, seed: int = 0,
+          device: torch.device | str | None = None) -> np.ndarray:
+    """Decode `steps` tokens for `batch` random requests after a random
+    prompt of `prompt_len` tokens fed through the decode step, with random
+    weights drawn on the device from `seed` (the reference draws from
+    jax.random). With `retrieval`, every step mixes the kNN-LM head over
+    `demo_store` ("dense", "two-phase" or "ideal"; `retrieval_shards`
+    partitions the store, `retrieval_nprobe` routes it). Prints the
+    throughput, asserts the last logits finite, and returns the decoded
+    tokens (batch, steps)."""
+    dev = resolve_device(device)
+    cfg = load_config(arch, smoke=smoke)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init(gen, cfg)
+    caches = tfm.init_cache(cfg, batch, prompt_len + steps, dev)
+    step_fn = steps_lib.make_serve_step(cfg)
+
+    store = None
+    if retrieval:
+        from repro_torch.engine import RetrievalEngine
+        mem_cfg, store = demo_store(cfg, seed, dev)
+        if retrieval_shards:
+            # logical row partition; with nprobe < shards each step routes
+            # through the per-shard sketch (engine/router.py)
+            store = store.shard(n_shards=retrieval_shards)
+        eng_kw = {} if retrieval_fused_min_rows is None else \
+            {"fused_min_rows": retrieval_fused_min_rows}
+        engine = (RetrievalEngine(mem_cfg.search, backend=retrieval_backend,
+                                  **eng_kw)
+                  if retrieval_mode in ("two-phase", "ideal") else None)
+        mode = "ideal" if retrieval_mode == "ideal" else "two_phase"
+        step_fn = steps_lib.make_serve_step_with_mcam(
+            cfg, mem_cfg, engine=engine, k=retrieval_k, mode=mode,
+            nprobe=retrieval_nprobe)
+
+    def step(tok, caches, pos):
+        args = (params, caches, {"tokens": tok}, pos)
+        return step_fn(*args, store) if retrieval else step_fn(*args)
+
+    rng = np.random.default_rng(seed + 1)
+
+    def random_tokens():
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (batch, 1))).to(dev)
+    tok = random_tokens()
+    for t in range(prompt_len):  # warm the cache with a random prompt
+        logits, caches = step(tok, caches, t)
+        tok = random_tokens()
+    t0 = time.perf_counter()
+    toks = []
+    for i in range(steps):
+        logits, caches = step(tok, caches, prompt_len + i)
+        tok = torch.argmax(logits[:, 0], -1)[:, None]
+        toks.append(tok.cpu().numpy())
+    dt = time.perf_counter() - t0
+    if not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"serve {arch}: non-finite logits")
+    print(f"{arch}: {steps} steps x {batch} reqs in {dt:.2f}s "
+          f"({steps * batch / dt:.1f} tok/s) on {dev}")
+    return np.concatenate(toks, 1)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--tenants", type=int, default=None,
-                    help="run the multi-tenant retrieval demo with this "
-                         "many tenant stores")
-    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--retrieval", action="store_true")
+    ap.add_argument("--retrieval-mode", default="two-phase",
+                    choices=["dense", "two-phase", "ideal"],
+                    help="dense: softmax over the whole store; two-phase: "
+                         "engine shortlist + exact noisy rescore; ideal: "
+                         "engine top-k by exact digital distance only")
     ap.add_argument("--retrieval-backend", default="auto",
                     choices=["auto", "ref", "pallas", "mxu", "fused"])
     ap.add_argument("--retrieval-k", type=int, default=32)
+    ap.add_argument("--retrieval-fused-min-rows", type=int, default=None,
+                    help="override the fused-shortlist row threshold "
+                         "(results are the same either way)")
+    ap.add_argument("--retrieval-shards", type=int, default=None,
+                    help="partition the serve store into this many logical "
+                         "row shards; prerequisite for --retrieval-nprobe")
+    ap.add_argument("--retrieval-nprobe", type=int, default=None,
+                    help="shards visited per query on a partitioned store "
+                         "(default: every shard)")
+    ap.add_argument("--tenants", type=int, default=None,
+                    help="run the multi-tenant retrieval demo with this "
+                         "many tenant stores instead of the decode loop")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    if args.tenants is None:
-        raise _not_ported("the LM decode loop of serve (--arch, "
-                          "--retrieval)", "A10")
-    serve_tenants(args.tenants, args.steps, args.batch,
-                  backend=args.retrieval_backend, k=args.retrieval_k,
-                  seed=args.seed, device=args.device)
+    if args.tenants is not None:
+        serve_tenants(args.tenants, args.steps, args.batch,
+                      backend=args.retrieval_backend, k=args.retrieval_k,
+                      seed=args.seed, device=args.device)
+        return
+    serve(args.arch, args.smoke, args.batch, args.steps, args.prompt_len,
+          args.retrieval, args.retrieval_mode, args.retrieval_backend,
+          args.retrieval_k, args.retrieval_fused_min_rows,
+          args.retrieval_shards, args.retrieval_nprobe, seed=args.seed,
+          device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Hardware-aware training of the few-shot controller, closed by serving
 (port of `repro.launch.train --hat`; the LM trainer waits for ROADMAP
-Queue A10):
+Queue A10c):
 
     python -m repro_torch.launch.train --hat [--device cpu] \
         [--hat-pretrain-steps 40] [--hat-meta-steps 40] [--ckpt-dir DIR]
@@ -224,7 +224,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not args.hat:
         ap.error("only --hat is ported; the LM trainer waits for ROADMAP "
-                 "Queue A10")
+                 "Queue A10c")
     out = train_hat(args.hat_pretrain_steps, args.hat_meta_steps,
                     args.hat_n_way, args.hat_k_shot,
                     eval_episodes=args.hat_eval_episodes,

@@ -1,1 +1,3 @@
-"""Feature-extraction controllers (port of `repro.models`)."""
+"""Models (port of `repro.models`): the few-shot feature-extraction
+controllers and the decoder-only language model (layers, MoE,
+transformer)."""

@@ -31,20 +31,25 @@ def flatten_with_names(tree, is_leaf: Callable[[Any], bool] | None = None
     """(names, leaves) in visiting order; `is_leaf(node)` true stops the
     walk at a container, which is then one leaf (as jax.tree_util's)."""
     names, leaves = [], []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = None if is_leaf is not None and is_leaf(node) \
-            else _children(node)
-        if kids is None:
-            names.append(SEP.join(path))
-            leaves.append(node)
-            return
-        for k, c in kids:
-            walk(c, path + [k])
-    walk(tree, [])
+    _walk(tree, [], is_leaf, names, leaves)
     return names, leaves
+
+
+def _walk(node, path: list[str], is_leaf, names: list, leaves: list) -> None:
+    """Append the leaves under `node` and their names. A module-level
+    function, not a closure: a recursive closure is a reference cycle
+    that holds every leaf it saw until the cycle collector runs (a model's
+    weights on the card, for one)."""
+    if node is None:
+        return
+    kids = None if is_leaf is not None and is_leaf(node) \
+        else _children(node)
+    if kids is None:
+        names.append(SEP.join(path))
+        leaves.append(node)
+        return
+    for k, c in kids:
+        _walk(c, path + [k], is_leaf, names, leaves)
 
 
 def leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list[Any]:
@@ -55,19 +60,22 @@ def unflatten(tree, new_leaves: list[Any]):
     """A container of `tree`'s structure holding `new_leaves` in visiting
     order."""
     it = iter(new_leaves)
-
-    def build(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(c) for c in node)
-        return next(it)
-    out = build(tree)
+    out = _build(tree, it)
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the structure holds")
     return out
+
+
+def _build(node, it):
+    """`node`'s structure with leaves taken from `it` (module-level for the
+    reason `_walk` is)."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(c, it) for c in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest):

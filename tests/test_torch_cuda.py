@@ -1123,3 +1123,98 @@ def test_paged_search_on_the_card_matches_the_device_twin(dev):
     pager.search(q[35:37], req)
     assert pager.transfers["blocks"] == blocks
     assert pager.transfers["staged"] > 0
+
+
+# -- the LM serving path (launch/serve, the kNN-LM head) ------------------------
+
+# card vs CPU logits of a bf16 dense smoke model: cuBLAS and the CPU round
+# the same products in another order (the parity tests' BF16_LOGIT_ATOL);
+# the MoE model runs in float32 (TF32 off), where a last-bit difference
+# cannot move a token's experts, within LM_F32_TOL
+LM_BF16_ATOL = 0.0625
+LM_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch,dtype", [("starcoder2-3b", "bfloat16"),
+                                        ("deepseek-moe-16b", "float32")])
+def test_lm_decode_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """A smoke model's forward and a prefill + 6-step decode on the card
+    against the same weights on the CPU; on the card, decoding the prompt
+    gives the forward's logits."""
+    import dataclasses
+
+    from repro_torch.configs import load_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch import tree as tree_lib
+    cfg = dataclasses.replace(load_config(arch, True), dtype=dtype,
+                              param_dtype=dtype)
+    cpu = tfm.init(torch.Generator().manual_seed(0), cfg)
+    gpu = tree_lib.tree_map(lambda a: a.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (3, 10)))
+    atol = LM_BF16_ATOL if dtype == "bfloat16" else LM_F32_TOL
+    rtol = 0 if dtype == "bfloat16" else LM_F32_TOL
+
+    def close(a, b):
+        np.testing.assert_allclose(a.float().cpu().numpy(),
+                                   b.float().cpu().numpy(), rtol=rtol,
+                                   atol=atol)
+    fwd = tfm.forward(gpu, cfg, {"tokens": toks[:, :4].to(dev)})[0]
+    close(fwd, tfm.forward(cpu, cfg, {"tokens": toks[:, :4]})[0])
+    cc = tfm.init_cache(cfg, 3, 10, "cpu")
+    gc = tfm.init_cache(cfg, 3, 10, dev)
+    for pos in range(10):
+        t = toks[:, pos:pos + 1]
+        gl, gc = tfm.decode_step(gpu, cfg, {"tokens": t.to(dev)}, gc, pos)
+        cl, cc = tfm.decode_step(cpu, cfg, {"tokens": t}, cc, pos)
+        assert gl.device.type == dev.type
+        close(gl, cl)
+        if pos < 4:
+            close(gl[:, 0], fwd[:, pos])
+
+
+@pytest.mark.parametrize("mode,shards,fmr", [("two_phase", None, None),
+                                             ("ideal", None, None),
+                                             ("two_phase", 8, 256)])
+def test_knn_head_on_the_card_equals_the_cpu(dev, mode, shards, fmr):
+    """The kNN-LM head of 5 decode steps on the card: its searches launch
+    the kernels, and their labels and votes equal those of the same store
+    searched on the CPU (backend "ref") with the same hidden rows, bit for
+    bit; the mixed log-probabilities are finite."""
+    from repro_torch.configs import load_config
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    cfg = load_config("starcoder2-3b", True)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    mem_cfg, gpu = serve_lib.demo_store(cfg, 0, dev)
+    cpu = MemoryStore.from_numpy(gpu.to_numpy(), mem_cfg, device="cpu")
+    nprobe = None
+    if shards:
+        gpu, cpu, nprobe = (gpu.shard(n_shards=shards),
+                            cpu.shard(n_shards=shards), 2)
+    eng = RetrievalEngine(mem_cfg.search,
+                          **({} if fmr is None else {"fused_min_rows": fmr}))
+    ref = RetrievalEngine(mem_cfg.search, backend="ref")
+    req = SearchRequest(mode=mode, k=32, nprobe=nprobe)
+    caches = tfm.init_cache(cfg, 4, 5, dev)
+    tok = torch.zeros((4, 1), dtype=torch.int64, device=dev)
+    _build.reset_launches()
+    for pos in range(5):
+        logits, caches, hidden = tfm.decode_step(
+            params, cfg, {"tokens": tok}, caches, pos, return_hidden=True)
+        q = hidden[:, 0][:, :mem_cfg.dim]
+        got = eng.search(gpu, q, req)
+        want = ref.search(cpu, q.cpu(), req)
+        for f in ("labels", "votes", "indices"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), \
+                (pos, f)
+        mixed = steps_lib.knn_lm_head(logits, hidden, gpu, mem_cfg.dim,
+                                      cfg.vocab_size, 0.3, eng, req)
+        assert torch.isfinite(mixed).all()
+        tok = torch.argmax(mixed[:, 0], -1)[:, None]
+    torch.cuda.synchronize()
+    needs = {"ideal": ("shortlist",)}.get(
+        mode, ("shortlist_blocks" if shards else "shortlist",
+               "mcam_rescore"))
+    assert all(_build.LAUNCHES[k] > 0 for k in needs), dict(_build.LAUNCHES)

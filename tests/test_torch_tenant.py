@@ -470,7 +470,8 @@ def test_tenant_server_duplicate_tenant_ticket_ordering():
 def test_serve_tenants_demo_matches_reference(capsys):
     """The demo (`python -m repro_torch.launch.serve --tenants`): its
     stores carried to the JAX package and the same numpy traffic give the
-    same result rows on every flush; the demo prints one cache entry."""
+    same result rows on every flush; the demo prints one cache entry.
+    Without --tenants the entry point runs the LM decode loop."""
     n_t, steps, batch = 4, 8, 5
     stores, rng = serve_lib.demo_stores(n_t, DIM, 12, seed=2, device="cpu")
     jcfg = JSearchConfig("mtmc", cl=8, mode="avss", use_kernel="ref")
@@ -495,8 +496,10 @@ def test_serve_tenants_demo_matches_reference(capsys):
     assert preds.tolist() == torch.cat(
         [out[i].predict() for i in sorted(out)]).tolist()
     assert "cache entries=1" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A10"):
-        serve_lib.main([])
+    # without --tenants the entry point runs the LM decode loop
+    serve_lib.main(["--steps", "1", "--batch", "1", "--prompt-len", "1",
+                    "--device", "cpu"])
+    assert "starcoder2-3b: 1 steps x 1 reqs in" in capsys.readouterr().out
 
 
 def test_full_route_is_one_gathered_call(launch_counter, tenant_fixture):
