@@ -59,11 +59,17 @@ the card from the seed):
                nprobe 2 of 8 shards, two_phase on mxu) and without it,
                then with the head over a 65,536-row token store at d = 48;
                deepseek-moe-16b (28 layers, 64 routed + 2 shared experts,
-               top-6) with two_phase and without. Every search of the
-               head equals, in labels, votes and rows, the same store
-               searched on the host by the plain route with the same
-               hidden rows; decode over a prompt equals forward over it
-               within LM_DECODE_ATOL (starcoder2-3b); the decode step's
+               top-6), xlstm-350m (mLSTM / sLSTM), hymba-1.5b (attention
+               with Mamba) and deepseek-v3-671b (MLA; cut to 4 layers:
+               3 dense, 1 of 256 routed + 1 shared experts, top-8) with
+               two_phase and without; musicgen-medium and qwen2-vl-7b
+               (embedding inputs; M-RoPE), which `serve` cannot feed
+               (ROADMAP C.R4), through the step functions with an
+               embeddings batch. Every search of the head equals, in
+               labels, votes and rows, the same store searched on the
+               host by the plain route with the same hidden rows; decode
+               over a prompt equals forward over it within
+               LM_DECODE_ATOL (the archs without MoE); the decode step's
                time with and without the head, a profiled step of each
                (idle share, launches, device time by kind), the peak
                memory and the weight-bytes bound are printed
@@ -267,17 +273,27 @@ LEAVES = ("votes", "dist", "indices", "labels")
 # smoke configs (a CPU rehearsal), each serve run's batch, decoded steps
 # and prompt, the kNN-LM head's k, the token store's rows, the routed
 # run's shards and nprobe, and the timed decode steps
-LM_ARCHS = ("starcoder2-3b", "deepseek-moe-16b")
+LM_ARCHS = ("starcoder2-3b", "deepseek-moe-16b", "xlstm-350m", "hymba-1.5b",
+            "deepseek-v3-671b", "musicgen-medium", "qwen2-vl-7b")
+# archs cut in depth (layers kept): deepseek-v3's 3 dense MLA layers and
+# one MLA + MoE layer, 15.1 B parameters of its 671 B
+LM_DEPTH = {"deepseek-v3-671b": 4}
 LM_SMOKE = False
 LM_BATCH, LM_STEPS, LM_PROMPT, LM_K = 4, 16, 8, 32
 LM_STORE_ROWS = 65536
 LM_SHARDS, LM_NPROBE = 8, 2
 LM_REPS = 10
 # decode_step over the prompt against forward over it, bf16 logits at full
-# width (the dense arch): other GEMM shapes round other bits, which 30
-# layers carry (the measured gap is in PERF.md §5); a wrong cache slot or
-# mask moves a logit by O(1)
+# width (the archs without MoE): other GEMM shapes round other bits, which
+# the layers carry (the measured gaps are in PERF.md §5); a wrong cache
+# slot, mask or carried state moves a logit by O(1)
 LM_DECODE_ATOL = 0.25
+# archs whose bf16 decode over the prompt differs from forward by O(1) in
+# the reference too (ROADMAP C.R6: xLSTM's chunkwise mLSTM rounds its
+# numerator to bf16 over a float32 normaliser that can be small; the step
+# form keeps float32): their bf16 gap is reported, and the same check is
+# held at full width in float32, to this tolerance
+LM_DECODE_F32 = {"xlstm-350m": 0.05}
 # a profiled decode step's device time by kind of kernel, by the parts of
 # their names (the first kind that matches)
 LM_KERNEL_KINDS = {
@@ -1778,33 +1794,139 @@ class _SearchSpy:
         return n
 
 
+def _lm_config(arch: str):
+    """An arch's config as `[lm-serve]` runs it: full width (smoke in a
+    CPU rehearsal), the depth cut to LM_DEPTH where it names the arch."""
+    import dataclasses
+
+    from repro_torch.configs import load_config
+    cfg = load_config(arch, smoke=LM_SMOKE)
+    if arch in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                    LM_DEPTH[arch]))
+    return cfg
+
+
+def _lm_inputs(torch, cfg, rng, B: int, S: int, P: int, dev) -> dict:
+    """S positions of inputs for `cfg`, drawn with numpy: token ids, or
+    frame / patch embeddings (normal) with, for M-RoPE, the position
+    streams of a prompt of P patches in a grid 4 wide (temporal 0,
+    height, width) followed by text, whose three streams all continue
+    from the largest prompt position plus one (Qwen2-VL's rule)."""
+    import numpy as np
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (B, S))).to(dev)}
+    out = {"embeddings": torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model), dtype=np.float32)).to(dev)}
+    if cfg.rope_type == "mrope":
+        i = np.arange(S)
+        grid = np.stack([np.zeros(S), i // 4, i % 4], -1)
+        text = grid[:P].max() + 1 + (i - P)
+        pos3 = np.where((i < P)[:, None], grid, text[:, None])
+        out["positions3"] = torch.from_numpy(np.broadcast_to(
+            pos3.astype(np.int32), (B, S, 3)).copy()).to(dev)
+    return out
+
+
+def _embedding_serve(torch, cfg, B: int, S: int, P: int, retrieval: bool,
+                     k: int, seed: int, dev):
+    """`serve`'s decode loop for an arch of embedding inputs, which the
+    reference's `serve` cannot feed (ROADMAP C.R4): the same random
+    weights, caches and demo store, driven through `launch/steps`'
+    `make_serve_step` or `make_serve_step_with_mcam` (two_phase) with an
+    embeddings batch (and positions3) of P prompt and S more positions.
+    Returns the argmax ids of the S decoded steps, (B, S)."""
+    import numpy as np
+
+    from repro_torch.engine import RetrievalEngine
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = tfm.init(gen, cfg)
+    caches = tfm.init_cache(cfg, B, P + S, dev)
+    step_fn = steps_lib.make_serve_step(cfg)
+    store = None
+    if retrieval:
+        mem_cfg, store = serve_lib.demo_store(cfg, seed, dev)
+        step_fn = steps_lib.make_serve_step_with_mcam(
+            cfg, mem_cfg, engine=RetrievalEngine(mem_cfg.search), k=k)
+    inputs = _lm_inputs(torch, cfg, np.random.default_rng(seed + 1), B,
+                        P + S, P, dev)
+    toks = []
+    for pos in range(P + S):
+        batch = {n: v[:, pos:pos + 1] for n, v in inputs.items()}
+        args = (params, caches, batch, pos)
+        logits, caches = step_fn(*args, store) if retrieval \
+            else step_fn(*args)
+        if pos >= P:
+            toks.append(torch.argmax(logits[:, 0], -1)[:, None].cpu())
+    if not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"{cfg.name}: non-finite logits")
+    return torch.cat(toks, 1).numpy()
+
+
+def _decode_vs_forward(torch, cfg, params, inputs: dict, P: int,
+                       max_seq: int, dev) -> tuple:
+    """The first P positions of `inputs` fed through the plain serve step
+    from empty caches, against one forward over them -> (the last step's
+    logits, the caches, max |decode - forward|, max |forward|, the share
+    of positions within LM_DECODE_ATOL). Fails on a non-finite logit."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    plain = steps_lib.make_serve_step(cfg)
+    caches = tfm.init_cache(cfg, inputs[next(iter(inputs))].shape[0],
+                            max_seq, dev)
+    dec = []
+    for pos in range(P):
+        logits, caches = plain(params, caches, {n: v[:, pos:pos + 1]
+                                                for n, v in inputs.items()},
+                               pos)
+        dec.append(logits[:, 0])
+    fwd = tfm.forward(params, cfg, {n: v[:, :P]
+                                    for n, v in inputs.items()})[0]
+    if not (torch.isfinite(fwd).all() and all(
+            torch.isfinite(x).all() for x in dec)):
+        fail(f"[lm-serve] {cfg.name}: non-finite logits")
+    diff = (torch.stack(dec, 1).float() - fwd.float()).abs()
+    within = float((diff.amax(-1) <= LM_DECODE_ATOL).float().mean())
+    return (logits, caches, float(diff.max()),
+            float(fwd.float().abs().max()), within)
+
+
 def run_lm_serve(t, args, launches: dict, card: str) -> dict:
     """[lm-serve]: the LM serving entry point (`launch/serve.serve`, the
     kNN-LM head of `launch/steps.make_serve_step_with_mcam`) at full width
     on the card, random weights drawn on the card from the seed, each
-    arch of LM_ARCHS in turn (the previous one freed): for starcoder2-3b
+    arch of LM_ARCHS in turn (the previous one freed; deepseek-v3-671b cut
+    to LM_DEPTH layers, its widths the published ones): for starcoder2-3b
     the head's modes through `serve` (two_phase: the fused shortlist and
     the gathered physics over the 1,024-row demo store; ideal; dense;
     routed, LM_SHARDS shards at nprobe LM_NPROBE with the fused threshold
     at the rows a query visits: the block-table entry; two_phase on mxu
     below the fused threshold: the LUT product) and the plain decode,
-    then the head over a token store of LM_STORE_ROWS rows; for
-    deepseek-moe-16b two_phase and the plain decode. Each run with the
-    launch counts zeroed just before it and read just after; every search
-    of the head is held, bit for bit in labels, votes and rows, against
-    the same store searched on the host by the plain route with the same
-    hidden rows. Then, per arch: decode over a prompt against forward over
-    it (LM_DECODE_ATOL, the dense arch; the MoE arch's is reported: a
-    last-bit difference can move a token's experts), the decode step's
-    time with and without the head (host-clock medians of LM_REPS), one
-    profiled step of each (idle share, launches, device time by kind, the
-    attention range), the peak memory and the step's weight-bytes bound
-    (parameter bytes over HBM_BYTES_PER_S)."""
+    then the head over a token store of LM_STORE_ROWS rows; for the other
+    token archs two_phase and the plain decode through `serve`; for the
+    embedding archs (musicgen-medium, qwen2-vl-7b), whose inputs `serve`
+    cannot feed (ROADMAP C.R4), the same loop through the step functions
+    (`_embedding_serve`). Each run with the launch counts zeroed just
+    before it and read just after; every search of the head is held, bit
+    for bit in labels, votes and rows, against the same store searched on
+    the host by the plain route with the same hidden rows. Then, per arch:
+    decode over a prompt against forward over it (LM_DECODE_ATOL for the
+    archs without MoE; the MoE archs' is reported: a last-bit difference
+    can move a token's experts; LM_DECODE_F32's archs are held in float32),
+    the decode step's time with and without
+    the head (host-clock medians of LM_REPS), one profiled step of each
+    (idle share, launches, device time by kind, the attention range), the
+    peak memory and the step's weight-bytes bound (parameter bytes over
+    HBM_BYTES_PER_S)."""
+    import dataclasses
     import gc
 
     import numpy as np
     torch, dev, log = t.torch, t.dev, t.log
-    from repro_torch.configs import load_config
     from repro_torch.core.memory import MemoryConfig
     from repro_torch.engine import MemoryStore, RetrievalEngine
     from repro_torch.kernels import _build
@@ -1816,6 +1938,8 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
 
     B, P, S = LM_BATCH, LM_PROMPT, LM_STEPS
     routed_rows = 1024 // LM_SHARDS * LM_NPROBE
+    head_runs = {"two_phase": ({}, ("shortlist", "mcam_rescore")),
+                 "plain": (None, ())}
     runs = {
         "starcoder2-3b": {
             "two_phase": ({}, ("shortlist", "mcam_rescore")),
@@ -1829,27 +1953,33 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
                      "retrieval_fused_min_rows": 2048},
                     ("mcam_dist", "mcam_rescore")),
             "plain": (None, ())},
-        "deepseek-moe-16b": {
-            "two_phase": ({}, ("shortlist", "mcam_rescore")),
-            "plain": (None, ())},
     }
     spy = _SearchSpy(RetrievalEngine)
+    real_load_config = serve_lib.load_config
     out, phases_ms = {}, {}
     try:
         for arch in LM_ARCHS:
-            cfg = load_config(arch, smoke=LM_SMOKE)
+            cfg = _lm_config(arch)
+            # `serve` loads the arch's config by name: hand it the cut one
+            serve_lib.load_config = lambda a, smoke, c=cfg: c
             res = out[arch] = {"layers": cfg.n_layers,
-                               "d_model": cfg.d_model, "runs": {}}
+                               "d_model": cfg.d_model, "runs": {},
+                               "input_mode": cfg.input_mode}
             # -- the entry point, every mode ------------------------------
-            for name, (kw, needs) in runs[arch].items():
+            for name, (kw, needs) in runs.get(arch, head_runs).items():
                 _build.reset_launches()
                 spy.on = True
                 t0 = time.perf_counter()
                 torch.cuda.reset_peak_memory_stats()
-                toks = serve_lib.serve(
-                    arch, LM_SMOKE, B, S, P, retrieval=kw is not None,
-                    retrieval_k=LM_K, seed=args.seed, device=dev,
-                    **(kw or {}))
+                if cfg.input_mode == "tokens":
+                    toks = serve_lib.serve(
+                        arch, LM_SMOKE, B, S, P, retrieval=kw is not None,
+                        retrieval_k=LM_K, seed=args.seed, device=dev,
+                        **(kw or {}))
+                else:
+                    toks = _embedding_serve(torch, cfg, B, S, P,
+                                            kw is not None, LM_K,
+                                            args.seed, dev)
                 t.sync()
                 wall = (time.perf_counter() - t0) * 1e3
                 spy.on = False
@@ -1872,7 +2002,9 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
                     "launches_a_step": {k: v / (P + S)
                                         for k, v in counts.items() if v}}
                 phases_ms[f"lm_{arch}_{name}"] = wall
-                log(f"[lm-serve] {arch} {name}: serve {wall:.0f} ms "
+                entry = ("serve" if cfg.input_mode == "tokens"
+                         else "the step functions")
+                log(f"[lm-serve] {arch} {name}: {entry} {wall:.0f} ms "
                     f"(init, {P} + {S} steps), peak memory "
                     f"{peak / 1e9:.2f} GB, {checked} head searches "
                     f"equal to the host's plain route bit for bit, "
@@ -1882,9 +2014,27 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
             torch.cuda.empty_cache()
 
             # -- one model: decode vs forward, step times, a profile ------
+            rng = np.random.default_rng(args.seed + 3)
+            inputs = _lm_inputs(torch, cfg, rng, B, P + 1, P, dev)
+            prompt = {n: v[:, :P] for n, v in inputs.items()}
+            f32 = None
+            if arch in LM_DECODE_F32:
+                cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                            param_dtype="float32")
+                params32 = tfm.init(torch.Generator(device=dev).manual_seed(
+                    args.seed), cfg32)
+                f32 = _decode_vs_forward(torch, cfg32, params32, inputs, P,
+                                         P, dev)[2:]
+                del params32
+                if f32[0] > LM_DECODE_F32[arch]:
+                    fail(f"[lm-serve] {arch}: float32 decode over the "
+                         f"prompt differs from forward by {f32[0]} > "
+                         f"{LM_DECODE_F32[arch]}")
             torch.cuda.reset_peak_memory_stats()
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             params = tfm.init(gen, cfg)
+            res["init_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             leaves = tree_lib.leaves(params)
             n_params = sum(a.numel() for a in leaves)
             p_bytes = sum(a.numel() * a.element_size() for a in leaves)
@@ -1893,35 +2043,21 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
             plain = steps_lib.make_serve_step(cfg)
             head = steps_lib.make_serve_step_with_mcam(cfg, mem_cfg,
                                                        engine=eng, k=LM_K)
-            rng = np.random.default_rng(args.seed + 3)
-            prompt = torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, (B, P))).to(dev)
-            caches = tfm.init_cache(cfg, B, P + S, dev)
-            dec = []
-            for pos in range(P):
-                logits, caches = plain(params, caches,
-                                       {"tokens": prompt[:, pos:pos + 1]},
-                                       pos)
-                dec.append(logits[:, 0])
-            fwd = tfm.forward(params, cfg, {"tokens": prompt})[0]
-            diff = (torch.stack(dec, 1).float() - fwd.float()).abs()
-            gap, scale = float(diff.max()), float(fwd.float().abs().max())
-            within = float((diff.amax(-1) <= LM_DECODE_ATOL).float().mean())
-            finite = bool(torch.isfinite(fwd).all()) and all(
-                bool(torch.isfinite(x).all()) for x in dec)
-            if not finite:
-                fail(f"[lm-serve] {arch}: non-finite logits")
-            if cfg.moe is None and gap > LM_DECODE_ATOL:
+            logits, caches, gap, scale, within = _decode_vs_forward(
+                torch, cfg, params, inputs, P, P + S, dev)
+            held = cfg.moe is None and arch not in LM_DECODE_F32
+            if held and gap > LM_DECODE_ATOL:
                 fail(f"[lm-serve] {arch}: decode over the prompt differs "
                      f"from forward by {gap} > {LM_DECODE_ATOL}")
-            tok = torch.argmax(logits[:, 0], -1)[:, None]
-            del dec, fwd, diff
+            nxt = {n: v[:, P:P + 1] for n, v in inputs.items()}
+            if cfg.input_mode == "tokens":
+                nxt = {"tokens": torch.argmax(logits[:, 0], -1)[:, None]}
 
             def plain_step():
-                return plain(params, caches, {"tokens": tok}, P)
+                return plain(params, caches, nxt, P)
 
             def head_step(st=store):
-                return head(params, caches, {"tokens": tok}, P, st)
+                return head(params, caches, nxt, P, st)
             step_ms = t.host_ms(plain_step, reps=LM_REPS)
             head_ms = t.host_ms(head_step, reps=LM_REPS)
             attention = layers_lib.dot_attention
@@ -1938,14 +2074,19 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
             finally:
                 layers_lib.dot_attention = attention
             _build.reset_launches()
+            spy.on = True
             head_step()
             t.sync()
+            spy.on = False
+            spy.check(torch, f"{arch} timed step")
             mcam_a_step = {k: v for k, v in _build.LAUNCHES.items() if v}
             bound_ms = p_bytes / HBM_BYTES_PER_S * 1e3
             res.update({
                 "params": n_params, "param_bytes": p_bytes,
                 "decode_vs_forward_max_abs": gap, "logit_max_abs": scale,
+                "decode_vs_forward_held": held,
                 "decode_vs_forward_within_atol": within,
+                "decode_vs_forward_f32": f32,
                 "step_ms": step_ms, "head_step_ms": head_ms,
                 "tokens_per_s": B / step_ms * 1e3,
                 "head_tokens_per_s": B / head_ms * 1e3,
@@ -1954,8 +2095,12 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
             log(f"[lm-serve] {arch}: {cfg.n_layers} layers, d "
                 f"{cfg.d_model}, {n_params} parameters ({p_bytes / 1e9:.2f}"
                 f" GB); decode over the prompt vs forward: max |diff| "
-                f"{gap:.4f} of logits up to {scale:.2f} (atol "
-                f"{LM_DECODE_ATOL}: {within:.3f} of positions within); "
+                f"{gap:.4f} of logits up to {scale:.2f} ("
+                f"{'held to' if held else 'reported; atol'} "
+                f"{LM_DECODE_ATOL}: {within:.3f} of positions within"
+                + ("" if f32 is None else
+                   f"; float32 {f32[0]:.6f} of logits up to {f32[1]:.2f}, "
+                   f"held to {LM_DECODE_F32[arch]}") + "); "
                 f"decode step {step_ms:.3f} ms "
                 f"({B / step_ms * 1e3:.1f} tok/s), with the head "
                 f"{head_ms:.3f} ms ({B / head_ms * 1e3:.1f} tok/s); "
@@ -1982,11 +2127,12 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
                 cache2 = tfm.init_cache(cfg, B, P + S, dev)
                 _build.reset_launches()
                 spy.on = True
-                nxt = prompt[:, :1]
+                tok = prompt["tokens"][:, :1]
                 for pos in range(P + S):
-                    mixed, cache2 = head(params, cache2, {"tokens": nxt},
+                    mixed, cache2 = head(params, cache2, {"tokens": tok},
                                          pos, big)
-                    nxt = (prompt[:, pos + 1:pos + 2] if pos + 1 < P
+                    tok = (prompt["tokens"][:, pos + 1:pos + 2]
+                           if pos + 1 < P
                            else torch.argmax(mixed[:, 0], -1)[:, None])
                 t.sync()
                 spy.on = False
@@ -2013,12 +2159,15 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
                 del big, cache2
             res["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
             log(f"[lm-serve] {arch}: peak memory "
-                f"{res['peak_memory_bytes'] / 1e9:.2f} GB ({card})")
-            del params, leaves, store, caches, logits
+                f"{res['peak_memory_bytes'] / 1e9:.2f} GB serving, "
+                f"{res['init_peak_memory_bytes'] / 1e9:.2f} GB in init "
+                f"({card})")
+            del params, leaves, store, caches, logits, inputs, prompt, nxt
             gc.collect()
             torch.cuda.empty_cache()
     finally:
         spy.close()
+        serve_lib.load_config = real_load_config
     out["phases_ms"] = phases_ms
     return out
 

@@ -13,7 +13,7 @@ from repro_torch.engine.api import SearchRequest
 from repro_torch.engine.store import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import one_hot
+from repro_torch.models.layers import div, one_hot
 
 
 def make_hat_train_steps(apply_fn, hat_cfg, pre_optimizer,
@@ -70,13 +70,6 @@ def make_serve_step(cfg):
     return serve_step
 
 
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """x / d rounded once, as JAX divides: a 0-dim divisor on x's device
-    (a Python or CPU divisor makes CUDA multiply by its reciprocal,
-    ROADMAP C.P7)."""
-    return torch.div(x, torch.full((), d, dtype=x.dtype, device=x.device))
-
-
 def knn_lm_head(logits: torch.Tensor, hidden: torch.Tensor, store, dim: int,
                 vocab_size: int, lam: float = 0.3, engine=None,
                 request: SearchRequest | None = None) -> torch.Tensor:
@@ -93,13 +86,13 @@ def knn_lm_head(logits: torch.Tensor, hidden: torch.Tensor, store, dim: int,
         q1h = kernel_ops.query_onehot(store.quantize_queries(q),
                                       torch.float32)
         dist = q1h @ store.proj.float().T                      # (B, N)
-        w = torch.softmax(_div(-dist, 10.0), dim=-1)
+        w = torch.softmax(div(-dist, 10.0), dim=-1)
         onehot = one_hot(store.labels, vocab_size, w.dtype)
         p_mem = w @ onehot                                     # (B, V)
     else:
         res = engine.search(store, q, request)
         valid = res.labels >= 0                                # (B, k)
-        w = torch.softmax(torch.where(valid, _div(res.votes, 10.0), -1e30),
+        w = torch.softmax(torch.where(valid, div(res.votes, 10.0), -1e30),
                           dim=-1)
         w = w * valid
         labels = torch.where(valid, res.labels, 0)

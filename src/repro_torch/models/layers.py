@@ -1,14 +1,13 @@
 """Transformer building blocks (port of `repro.models.layers` on one
-device): initializers, norms, RoPE, grouped-query attention with its
-decode cache, and MLPs.
+device): initializers, norms, RoPE and Qwen2-VL's M-RoPE, grouped-query
+attention with its decode cache, DeepSeek-V3's multi-head latent
+attention (MLA) with its absorbed decode over cached latents, and MLPs.
 
 Parameters are nested dicts of tensors applied by pure functions, as in
 the JAX package. Its sharding hints (`aconstrain`, `PARAM_LOGICAL`,
 `param_specs`) place nothing on one device and are not ported, nor are
 the `REPRO_OPT` branches (TPU sharding tunings): this module has the
-`REPRO_OPT=0` semantics and reads no environment variable. Multi-head
-latent attention and M-RoPE (DeepSeek-V3, Qwen2-VL) raise
-NotImplementedError naming their ROADMAP item.
+`REPRO_OPT=0` semantics and reads no environment variable.
 
 Numerics follow the reference: norms take their statistics in float32
 (population variance, rsqrt(var + 1e-6)) and cast back to the compute
@@ -16,8 +15,11 @@ dtype; attention scores are the compute dtype's product cast to float32,
 masked with -1e30, and the softmax is cast back to the values' dtype
 before the value product; `gelu` is the tanh approximation
 (`jax.nn.gelu`'s default); RoPE's frequencies are the constant the
-jitted reference folds in float64. In bfloat16 the two packages round
-differently, in the last bit: XLA rounds after each elementwise op of a
+jitted reference folds in float64. A Python number that meets a tensor
+takes the tensor's dtype first, as JAX's weak typing does (`scalar`,
+`div`): a bf16 tensor is scaled by the number rounded to bf16, and a
+division rounds once on the card too (ROADMAP C.P8). In bfloat16 the
+two packages round differently, in the last bit: XLA rounds after each elementwise op of a
 composite (`jax.nn.gelu`, `jax.nn.silu`) and keeps some dot outputs in
 float32 for the residual add they fuse with, where PyTorch rounds a
 composite once and a product before the add. The parity tests state the
@@ -33,8 +35,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.engine.store import _not_ported
+from repro_torch.configs.base import MLAConfig, ModelConfig
 
 INT32_MAX = 2**31 - 1
 
@@ -49,6 +50,28 @@ def one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def scalar(x: torch.Tensor, c: float) -> float:
+    """c rounded to x's dtype, as JAX rounds a Python number that meets
+    a tensor (weak typing); PyTorch would keep it in float32 opmath, so a
+    bf16 tensor times 1 / sqrt(128) rounds otherwise. For a product:
+    the rounded number times x rounds once, as in JAX."""
+    return torch.tensor(c, dtype=x.dtype).item()
+
+
+def div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, as JAX divides: the divisor a 0-dim tensor of
+    x's dtype on x's device. A Python or CPU divisor makes CUDA multiply
+    by its reciprocal, which rounds twice (ROADMAP C.P7, C.P8), and keeps
+    it in float32 where JAX rounds it to x's dtype."""
+    return torch.div(x, torch.full((), d, dtype=x.dtype, device=x.device))
+
+
+def tanh_cap(s: torch.Tensor, cap: float) -> torch.Tensor:
+    """tanh(s / cap) * cap (the reference's softcap), the division
+    rounded once (`div`)."""
+    return torch.tanh(div(s, cap)) * scalar(s, cap)
+
+
 # --------------------------------------------------------------------------
 # Initializers.
 # --------------------------------------------------------------------------
@@ -61,7 +84,7 @@ def dense_init(gen: torch.Generator, shape: tuple, dtype: torch.dtype,
     draws are torch's, not jax.random's."""
     fan_in = shape[0] if scale_axis is None else scale_axis
     x = torch.randn(shape, generator=gen, device=gen.device)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    return x.div_(math.sqrt(fan_in)).to(dtype)    # one float32 copy
 
 
 # --------------------------------------------------------------------------
@@ -112,6 +135,32 @@ def rope_sincos(pos: torch.Tensor, dim: int, theta: float
     return torch.sin(ang), torch.cos(ang)
 
 
+def mrope_sincos(pos3: torch.Tensor, dim: int, theta: float,
+                 sections: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """pos3 (..., S, 3) -> sin / cos (..., S, dim/2), float32, the dim/2
+    frequency slots split across the (temporal, height, width) position
+    streams: slot f takes the stream its section names. The reference
+    picks with a one-hot product, whose sums of x * 1 and zeros are
+    exact; this picks the same entries by index."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"mrope_sincos: sections {sections} do not sum "
+                         f"to dim / 2 = {dim // 2}")
+    sin, cos = rope_sincos(pos3.movedim(-1, 0), dim, theta)  # (3,...,S,d/2)
+    idx, slot = _mrope_index(tuple(sections), pos3.device)
+    return sin[idx, ..., slot].movedim(0, -1), cos[idx, ..., slot].movedim(
+        0, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_index(sections: tuple, device) -> tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """(stream, slot) of each frequency slot, made once per (sections,
+    device) on the host."""
+    idx = np.repeat(np.arange(3), np.asarray(sections))
+    return (torch.from_numpy(idx).to(device),
+            torch.arange(len(idx)).to(device))
+
+
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,
                cos: torch.Tensor) -> torch.Tensor:
     """x (B, S, H, D); sin / cos (B, S, D/2) or (S, D/2)."""
@@ -144,19 +193,19 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Grouped-query attention with absolute-position causal / window
     masking. q (B, S, H, D); k, v (B, T, KV, D); qpos (S,), kpos (T,)
     absolute positions; kv_valid optional (B, T) bool. Returns
-    (B, S, H, D). With 0 < chunk < T, an online softmax over kv chunks of
-    `chunk` positions (T a multiple of it)."""
+    (B, S, H, DV), DV the values' width (MLA's differs from D). With
+    0 < chunk < T, an online softmax over kv chunks of `chunk` positions
+    (T a multiple of it); softcap > 0 caps the scores (`tanh_cap`)."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     DV = v.shape[-1]
     G = H // KV
-    scale = 1.0 / math.sqrt(D)
-    qg = q.reshape(B, S, KV, G, D) * scale
+    qg = q.reshape(B, S, KV, G, D) * scalar(q, 1.0 / math.sqrt(D))
 
     def scores_of(kc, kposc, validc):
         s = torch.einsum("bskgd,btkd->bkgst", qg, kc).float()
         if softcap:
-            s = torch.tanh(s / softcap) * softcap
+            s = tanh_cap(s, softcap)
         m = _attn_scores_mask(qpos, kposc, window)
         if validc is not None:
             m = m[None, :, :] & validc[:, None, :]
@@ -216,20 +265,35 @@ def attn_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _rope_for(cfg: ModelConfig, pos: torch.Tensor):
+def _rope_for(cfg: ModelConfig, pos: torch.Tensor,
+              positions3: torch.Tensor | None = None):
     if cfg.rope_type == "none":
         return None
     if cfg.rope_type == "mrope":
-        return mrope_sincos()
+        if positions3 is None:
+            raise ValueError("rope_type 'mrope' needs the batch's "
+                             "positions3 (B, S, 3)")
+        return mrope_sincos(positions3, cfg.hd, cfg.rope_theta,
+                            cfg.mrope_sections)
     return rope_sincos(pos, cfg.hd, cfg.rope_theta)
+
+
+def _cache_rows(cache_len: int, slot: int, S: int,
+                device: torch.device) -> torch.Tensor:
+    """The rows a decode write of S positions at `slot` fills: like
+    lax.dynamic_update_slice, the start is clamped so the S rows fit."""
+    slot = max(0, min(slot, cache_len - S))
+    return torch.arange(slot, slot + S, device=device)
 
 
 def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                layer_window: int = 0, cache: dict | None = None,
-               pos0: int = 0) -> tuple[torch.Tensor, dict]:
+               pos0: int = 0, positions3: torch.Tensor | None = None
+               ) -> tuple[torch.Tensor, dict]:
     """x (B, S, D). cache None (train / prefill) or {k, v, kpos} for
     decode, written functionally: the returned cache is new tensors and
-    the given one is left as it was. Returns (y, new_cache)."""
+    the given one is left as it was. positions3 (B, S, 3): M-RoPE's
+    position streams. Returns (y, new_cache)."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -237,7 +301,7 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     qpos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
-    sc = _rope_for(cfg, qpos)
+    sc = _rope_for(cfg, qpos, positions3)
     if sc is not None:
         q = apply_rope(q, *sc)
         k = apply_rope(k, *sc)
@@ -248,13 +312,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           softcap=cfg.logit_softcap)
         new_cache = {"k": k, "v": v, "kpos": qpos}
     else:
-        # write this step's k / v at its slot (a ring for window layers);
-        # like lax.dynamic_update_slice, the start is clamped so the
-        # S new rows fit
+        # write this step's k / v at its slot (a ring for window layers)
         T = cache["k"].shape[1]
         slot = (pos0 % T) if layer_window else min(pos0, T - 1)
-        slot = max(0, min(slot, T - S))
-        rows = torch.arange(slot, slot + S, device=x.device)
+        rows = _cache_rows(T, slot, S, x.device)
         ck = cache["k"].index_copy(1, rows, k.to(cache["k"].dtype))
         cv = cache["v"].index_copy(1, rows, v.to(cache["v"].dtype))
         kp = cache["kpos"].index_copy(0, rows, qpos)
@@ -283,16 +344,105 @@ def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
     }
 
 
-def mrope_sincos(*_args, **_kwargs):
-    raise _not_ported("M-RoPE (mrope_sincos, rope_type='mrope')", "A10b")
+# --------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V3).
+# --------------------------------------------------------------------------
 
 
-def mla_init(*_args, **_kwargs):
-    raise _not_ported("multi-head latent attention (mla_init, mla_apply, "
-                      "mla_cache_init; layer type 'mla')", "A10b")
+def mla_init(gen: torch.Generator, cfg: ModelConfig,
+             dtype: torch.dtype) -> dict:
+    m: MLAConfig = cfg.mla
+    dev = gen.device
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq_a": dense_init(gen, (cfg.d_model, m.q_lora_rank), dtype),
+        "q_norm": torch.ones(m.q_lora_rank, dtype=torch.float32, device=dev),
+        "wq_b": dense_init(gen, (m.q_lora_rank, cfg.n_heads, qk_dim), dtype),
+        "wkv_a": dense_init(gen, (cfg.d_model,
+                                  m.kv_lora_rank + m.qk_rope_dim), dtype),
+        "kv_norm": torch.ones(m.kv_lora_rank, dtype=torch.float32,
+                              device=dev),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank, cfg.n_heads,
+                                  m.qk_nope_dim + m.v_dim), dtype),
+        "wo_mla": dense_init(gen, (cfg.n_heads, m.v_dim, cfg.d_model),
+                             dtype, scale_axis=cfg.n_heads * m.v_dim),
+    }
 
 
-mla_apply = mla_cache_init = mla_init
+def _rms(x: torch.Tensor, scale: torch.Tensor,
+         eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * scale
+    return y.to(x.dtype)
+
+
+def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              cache: dict | None = None, pos0: int = 0
+              ) -> tuple[torch.Tensor, dict]:
+    """x (B, S, D). Prefill (cache None): every head's keys and values
+    expanded from the latents, full attention with qk width nope + rope
+    and value width v_dim; the cache keeps the latents {ckv, krope,
+    kpos}. Decode: the absorbed form, queries projected into the latent
+    space and scored against the cached latents directly (no per-head
+    keys or values are made). Returns (y, new_cache)."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    cq = _rms(x @ p["wq_a"], p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    kv_a = x @ p["wkv_a"]
+    c_kv = _rms(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
+    k_rope = kv_a[..., m.kv_lora_rank:]                      # (B,S,rope)
+    qpos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+    sin, cos = rope_sincos(qpos, m.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, sin, cos)
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0]
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+
+    if cache is None:
+        kv = torch.einsum("bsr,rhn->bshn", c_kv, p["wkv_b"])
+        k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            B, S, H, m.qk_rope_dim)], -1)
+        qf = torch.cat([q_nope, q_rope], -1)
+        y = dot_attention(qf, k, v, qpos=qpos, kpos=qpos,
+                          chunk=cfg.attn_chunk)
+        new_cache = {"ckv": c_kv, "krope": k_rope, "kpos": qpos}
+    else:
+        rows = _cache_rows(cache["ckv"].shape[1],
+                           min(pos0, cache["ckv"].shape[1] - 1), S,
+                           x.device)
+        ckv = cache["ckv"].index_copy(1, rows, c_kv.to(cache["ckv"].dtype))
+        krp = cache["krope"].index_copy(1, rows,
+                                        k_rope.to(cache["krope"].dtype))
+        kp = cache["kpos"].index_copy(0, rows, qpos)
+        w_uk = p["wkv_b"][..., :m.qk_nope_dim]               # (r, h, nope)
+        q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
+        s = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
+             + torch.einsum("bshk,btk->bhst", q_rope, krp)).float()
+        s = s * scale
+        s = torch.where((kp <= pos0)[None, None, None, :], s, -1e30)
+        prob = torch.softmax(s, -1).to(x.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", prob, ckv)
+        w_uv = p["wkv_b"][..., m.qk_nope_dim:]               # (r, h, v)
+        y = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
+        new_cache = {"ckv": ckv, "krope": krp, "kpos": kp}
+    y = torch.einsum("bshv,hvd->bsd", y, p["wo_mla"])
+    return y, new_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype: torch.dtype, device: torch.device) -> dict:
+    m: MLAConfig = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_seq, m.qk_rope_dim), dtype=dtype,
+                             device=device),
+        "kpos": torch.full((max_seq,), INT32_MAX, dtype=torch.int32,
+                           device=device),
+    }
 
 
 # --------------------------------------------------------------------------

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
-from repro_torch.models.layers import dense_init, one_hot
+from repro_torch.models.layers import dense_init, div, one_hot
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig,
@@ -92,10 +92,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig
         hs = F.silu(xt @ sh["w1"]) * (xt @ sh["w3"])
         y = y + hs @ sh["w2"]
 
-    # aux values (switch-style: balanced routing gives load_balance 1.0)
-    me = probs.mean((0, 1))                                   # (E,)
-    ce = sel.sum(2).float().mean((0, 1)) / m.top_k
-    load_balance = E * (me * ce).sum()
     z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
-    return y.reshape(B, S, D), {"load_balance": load_balance,
+    return y.reshape(B, S, D), {"load_balance": load_balance(probs, sel, m),
                                 "z_loss": z_loss}
+
+
+def load_balance(probs: torch.Tensor, sel: torch.Tensor,
+                 m: MoEConfig) -> torch.Tensor:
+    """The switch-style aux (1.0 when balanced) of router probabilities
+    (G, Sg, E) and choices one-hot (G, Sg, k, E); the division by top_k
+    rounds once (ROADMAP C.P8)."""
+    me = probs.mean((0, 1))                                   # (E,)
+    ce = div(sel.sum(2).float().mean((0, 1)), m.top_k)
+    return m.n_routed * (me * ce).sum()

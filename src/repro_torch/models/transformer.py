@@ -1,5 +1,10 @@
-"""Decoder-only transformer (port of `repro.models.transformer` on one
-device, layer type "attn": dense GQA models and DeepSeek-style MoE).
+"""Decoder-only model assembly (port of `repro.models.transformer` on
+one device) for every layer type of the reference: "attn" and "swa"
+(dense GQA, full or windowed), "mla" (DeepSeek-V3's latent attention),
+"hymba" / "hymba_g" (attention, windowed or global, in parallel with a
+Mamba head), "mlstm" and "slstm" (xLSTM's cells), each with a dense MLP,
+DeepSeek-style MoE or no FFN; token or embedding inputs (sinusoidal
+positions for MusicGen, M-RoPE's `positions3` for Qwen2-VL).
 
 Layers are partitioned into groups of consecutive identical layers
 (`ModelConfig.layer_groups`), and each group's parameters are stacked on
@@ -17,9 +22,9 @@ Public API (pure functions over the parameter dict):
                                                    -> (logits, caches[, hidden])
   params_from_numpy(params, cfg, device)           -> params
 
-`Transformer` holds the same dict as an nn.Module. Layer types "mla",
-"swa", "hymba", "hymba_g", "mlstm" and "slstm" and `input_mode
-"embeddings"` raise NotImplementedError naming their ROADMAP item.
+A batch is {"tokens": (B, S) int} or {"embeddings": (B, S, D)}, with
+"positions3" (B, S, 3) for M-RoPE. `Transformer` holds the same dict as
+an nn.Module.
 """
 
 from __future__ import annotations
@@ -33,16 +38,17 @@ from torch import nn
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
-from repro_torch.engine.store import _not_ported, resolve_device
+from repro_torch.engine.store import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 
-PORTED_LAYERS = ("attn",)
+PORTED_LAYERS = ("attn", "swa", "mla", "hymba", "hymba_g", "mlstm", "slstm")
 
 
 def _check_layer(ltype: str) -> None:
     if ltype not in PORTED_LAYERS:
-        raise _not_ported(f"layer type {ltype!r}", "A10b")
+        raise ValueError(f"unknown layer type {ltype!r}")
 
 
 # --------------------------------------------------------------------------
@@ -50,12 +56,23 @@ def _check_layer(ltype: str) -> None:
 # --------------------------------------------------------------------------
 
 
-def _init_layer(gen: torch.Generator, cfg: ModelConfig,
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, ltype: str,
                 is_moe: bool) -> dict:
-    """One layer of type "attn" (the only one ported)."""
     dt = L.dtype_of(cfg.param_dtype)
-    p: dict[str, Any] = {"norm1": L.norm_init(cfg, gen.device),
-                         "attn": L.attn_init(gen, cfg, dt)}
+    p: dict[str, Any] = {"norm1": L.norm_init(cfg, gen.device)}
+    if ltype in ("attn", "swa"):
+        p["attn"] = L.attn_init(gen, cfg, dt)
+    elif ltype == "mla":
+        p["attn"] = L.mla_init(gen, cfg, dt)
+    elif ltype in ("hymba", "hymba_g"):
+        p["attn"] = L.attn_init(gen, cfg, dt)
+        p["mamba"] = ssm_lib.mamba_init(gen, cfg, dt)
+    elif ltype == "mlstm":
+        p["cell"] = ssm_lib.mlstm_init(gen, cfg, dt)
+    elif ltype == "slstm":
+        p["cell"] = ssm_lib.slstm_init(gen, cfg, dt)
+    else:
+        _check_layer(ltype)
     has_ffn = cfg.d_ff > 0 or is_moe
     if has_ffn and not cfg.parallel_block:
         p["norm2"] = L.norm_init(cfg, gen.device)
@@ -80,7 +97,10 @@ def _group_cfg(cfg: ModelConfig, is_moe: bool) -> ModelConfig:
 
 def _stacked(count: int, make) -> dict:
     """`count` layers from `make()` stacked on a leading axis, filled in
-    place one layer at a time (a full-width group never exists twice)."""
+    place one layer at a time (a full-width group never exists twice;
+    one layer is a view of itself)."""
+    if count == 1:
+        return tree_lib.tree_map(lambda a: a[None], make())
     out = None
     for i in range(count):
         layer = make()
@@ -94,21 +114,21 @@ def _stacked(count: int, make) -> dict:
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on the generator's device, in the reference's
     layout and scales (`repro.models.transformer.init`); the draws are
-    torch's, not jax.random's."""
-    if cfg.input_mode != "tokens":
-        raise _not_ported(f"input_mode {cfg.input_mode!r}", "A10b")
+    torch's, not jax.random's. Embedding inputs have no "embed" leaf."""
     groups = cfg.layer_groups()
     for ltype, _, _ in groups:
         _check_layer(ltype)
     dt = L.dtype_of(cfg.param_dtype)
-    params: dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=gen.device) * 0.02).to(dt)}
+    params: dict[str, Any] = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = (torch.randn((cfg.vocab_size, cfg.d_model),
+                                       generator=gen, device=gen.device)
+                           * 0.02).to(dt)
     params["groups"] = []
-    for _, is_moe, count in groups:
+    for ltype, is_moe, count in groups:
         gcfg = _group_cfg(cfg, is_moe)
         params["groups"].append(_stacked(
-            count, lambda: _init_layer(gen, gcfg, is_moe)))
+            count, lambda: _init_layer(gen, gcfg, ltype, is_moe)))
     params["final_norm"] = L.norm_init(cfg, gen.device)
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
@@ -144,14 +164,41 @@ def params_from_numpy(params, cfg: ModelConfig,
 
 
 def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
-                 is_moe: bool, *, cache: dict | None = None,
-                 pos0: int = 0) -> tuple[torch.Tensor, dict, dict]:
-    """One layer -> (x, new_cache, aux)."""
-    _check_layer(ltype)
+                 is_moe: bool, *, cache: dict | None = None, pos0: int = 0,
+                 positions3: torch.Tensor | None = None,
+                 decode: bool = False) -> tuple[torch.Tensor, dict, dict]:
+    """One layer -> (x, new_cache, aux). decode: the recurrent layers take
+    their one-step form (the attention layers read it from the cache)."""
     aux = {"load_balance": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
     h = L.apply_norm(p["norm1"], x, cfg)
-    y, new_cache = L.attn_apply(p["attn"], h, cfg, cache=cache, pos0=pos0)
+    if ltype in ("attn", "swa", "hymba", "hymba_g"):
+        window = cfg.window if ltype in ("swa", "hymba") else 0
+        is_hymba = ltype.startswith("hymba")
+        acache = cache["attn"] if (is_hymba and cache is not None) else cache
+        y, new_cache = L.attn_apply(p["attn"], h, cfg, layer_window=window,
+                                    cache=acache, pos0=pos0,
+                                    positions3=positions3)
+        if is_hymba:
+            if decode:
+                ym, scache = ssm_lib.mamba_apply_step(p["mamba"], h, cfg,
+                                                      cache["ssm"])
+            else:
+                ym, scache = ssm_lib.mamba_apply_seq(
+                    p["mamba"], h, cfg, None if cache is None
+                    else cache["ssm"])
+            y = 0.5 * (y + ym)
+            new_cache = {"attn": new_cache, "ssm": scache}
+    elif ltype == "mla":
+        y, new_cache = L.mla_apply(p["attn"], h, cfg, cache=cache, pos0=pos0)
+    elif ltype == "mlstm":
+        fn = ssm_lib.mlstm_apply_step if decode else ssm_lib.mlstm_apply_seq
+        y, new_cache = fn(p["cell"], h, cfg, cache)
+    elif ltype == "slstm":
+        fn = ssm_lib.slstm_apply_step if decode else ssm_lib.slstm_apply_seq
+        y, new_cache = fn(p["cell"], h, cfg, cache)
+    else:
+        _check_layer(ltype)
     if cfg.parallel_block:
         # command-r style: x + attn(norm(x)) + mlp(norm(x)), one norm
         f = _ffn(p, h, cfg, is_moe, aux)
@@ -177,7 +224,8 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, is_moe: bool,
 
 def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
                ltype: str, is_moe: bool, *, caches: dict | None = None,
-               pos0: int = 0, collect_cache: bool = False):
+               pos0: int = 0, positions3: torch.Tensor | None = None,
+               decode: bool = False, collect_cache: bool = False):
     """The group's stacked layers in order -> (x, stacked new caches or
     None, load_balance, z_loss)."""
     gcfg = _group_cfg(cfg, is_moe)
@@ -189,7 +237,8 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
         c = None if caches is None else tree_lib.tree_map(lambda a: a[i],
                                                           caches)
         x, nc, aux = _layer_apply(p, x, gcfg, ltype, is_moe, cache=c,
-                                  pos0=pos0)
+                                  pos0=pos0, positions3=positions3,
+                                  decode=decode)
         lb, zl = lb + aux["load_balance"], zl + aux["z_loss"]
         if collect_cache:
             new.append(nc)
@@ -205,9 +254,10 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict,
               pos0: int = 0) -> torch.Tensor:
-    if cfg.input_mode != "tokens":
-        raise _not_ported(f"input_mode {cfg.input_mode!r}", "A10b")
-    x = params["embed"][batch["tokens"]].to(L.dtype_of(cfg.dtype))
+    if cfg.input_mode == "tokens":
+        x = params["embed"][batch["tokens"]].to(L.dtype_of(cfg.dtype))
+    else:
+        x = batch["embeddings"].to(L.dtype_of(cfg.dtype))
     if cfg.pos_embed == "sinusoidal":
         S, D = x.shape[1], x.shape[2]
         pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
@@ -225,22 +275,24 @@ def _logits_out(params: dict, cfg: ModelConfig,
     else:
         logits = x @ params["unembed"]
     if cfg.logit_softcap:
-        logits = (torch.tanh(logits.float() / cfg.logit_softcap)
-                  * cfg.logit_softcap).to(logits.dtype)
+        logits = L.tanh_cap(logits.float(), cfg.logit_softcap).to(
+            logits.dtype)
     return logits
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             return_cache: bool = False, last_only: bool = False):
-    """Prefill forward. batch: {"tokens": (B, S) int}. Returns (logits,
-    aux[, caches]); last_only computes the logits of the final position
-    only (prefill serving)."""
+    """Prefill forward. batch: tokens (B, S) | embeddings (B, S, D)
+    [+ positions3 (B, S, 3)]. Returns (logits, aux[, caches]); last_only
+    computes the logits of the final position only (prefill serving)."""
     x = _embed_in(params, cfg, batch)
+    positions3 = batch.get("positions3")
     lb = zl = torch.zeros((), device=x.device)
     caches = []
     for params_g, (ltype, is_moe, _) in zip(params["groups"],
                                             cfg.layer_groups()):
         x, new_c, l, z = _run_group(params_g, x, cfg, ltype, is_moe,
+                                    positions3=positions3,
                                     collect_cache=return_cache)
         if return_cache:
             caches.append(new_c)
@@ -261,9 +313,25 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
 
 def _cache_for_layer(cfg: ModelConfig, ltype: str, batch: int, max_seq: int,
                      device: torch.device) -> dict:
+    """One layer's empty cache: attention keys / values in the compute
+    dtype (a ring of `window` rows for windowed layers), MLA's latents,
+    the recurrent states in float32."""
+    dt = L.dtype_of(cfg.dtype)
+    if ltype in ("attn", "swa"):
+        w = cfg.window if ltype == "swa" else 0
+        return L.attn_cache_init(cfg, batch, max_seq, w, dt, device)
+    if ltype == "mla":
+        return L.mla_cache_init(cfg, batch, max_seq, dt, device)
+    if ltype in ("hymba", "hymba_g"):
+        w = cfg.window if ltype == "hymba" else 0
+        return {"attn": L.attn_cache_init(cfg, batch, max_seq, w, dt,
+                                          device),
+                "ssm": ssm_lib.mamba_state_init(cfg, batch, device)}
+    if ltype == "mlstm":
+        return ssm_lib.mlstm_state_init(cfg, batch, device)
+    if ltype == "slstm":
+        return ssm_lib.slstm_state_init(cfg, batch, device)
     _check_layer(ltype)
-    return L.attn_cache_init(cfg, batch, max_seq, 0, L.dtype_of(cfg.dtype),
-                             device)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -281,16 +349,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches: list,
                 pos: int, return_hidden: bool = False):
-    """One token for every sequence. batch: {"tokens": (B, 1) int}; pos:
-    the current position (an int). Returns (logits (B, 1, V), new caches[,
-    hidden (B, 1, D)]): `hidden` is the residual stream before the final
-    norm, in the compute dtype. The given caches are left as they were."""
+    """One token for every sequence. batch: tokens (B, 1) | embeddings
+    (B, 1, D) [+ positions3 (B, 1, 3)]; pos: the current position (an
+    int). Returns (logits (B, 1, V), new caches[, hidden (B, 1, D)]):
+    `hidden` is the residual stream before the final norm, in the compute
+    dtype. The given caches are left as they were."""
     x = _embed_in(params, cfg, batch, pos0=pos)
+    positions3 = batch.get("positions3")
     new_caches = []
     for params_g, caches_g, (ltype, is_moe, _) in zip(
             params["groups"], caches, cfg.layer_groups()):
         x, nc, _, _ = _run_group(params_g, x, cfg, ltype, is_moe,
                                  caches=caches_g, pos0=pos,
+                                 positions3=positions3, decode=True,
                                  collect_cache=True)
         new_caches.append(nc)
     logits = _logits_out(params, cfg, x)

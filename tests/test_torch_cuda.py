@@ -9,6 +9,8 @@ runs where JAX is not installed:
 (`--noconftest` because tests/conftest.py imports JAX.)
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1136,11 +1138,18 @@ LM_F32_TOL = 1e-4
 
 
 @pytest.mark.parametrize("arch,dtype", [("starcoder2-3b", "bfloat16"),
-                                        ("deepseek-moe-16b", "float32")])
+                                        ("deepseek-moe-16b", "float32"),
+                                        ("hymba-1.5b", "float32"),
+                                        ("xlstm-350m", "float32"),
+                                        ("deepseek-v3-671b", "float32"),
+                                        ("musicgen-medium", "float32"),
+                                        ("qwen2-vl-7b", "float32")])
 def test_lm_decode_on_the_card_matches_the_cpu(dev, arch, dtype):
     """A smoke model's forward and a prefill + 6-step decode on the card
-    against the same weights on the CPU; on the card, decoding the prompt
-    gives the forward's logits."""
+    against the same weights on the CPU, every family (attention with
+    Mamba, mLSTM / sLSTM, MLA with MoE, embedding inputs with sinusoidal
+    positions or M-RoPE's position streams); on the card, decoding the
+    prompt gives the forward's logits."""
     import dataclasses
 
     from repro_torch.configs import load_config
@@ -1150,8 +1159,16 @@ def test_lm_decode_on_the_card_matches_the_cpu(dev, arch, dtype):
                               param_dtype=dtype)
     cpu = tfm.init(torch.Generator().manual_seed(0), cfg)
     gpu = tree_lib.tree_map(lambda a: a.to(dev), cpu)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (3, 10)))
+    rng = np.random.default_rng(0)
+    if cfg.input_mode == "tokens":
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (3, 10)))}
+    else:
+        batch = {"embeddings": torch.from_numpy(rng.standard_normal(
+            (3, 10, cfg.d_model)).astype(np.float32))}
+        if cfg.rope_type == "mrope":
+            batch["positions3"] = torch.from_numpy(
+                rng.integers(0, 30, (3, 10, 3)).astype(np.int32))
     atol = LM_BF16_ATOL if dtype == "bfloat16" else LM_F32_TOL
     rtol = 0 if dtype == "bfloat16" else LM_F32_TOL
 
@@ -1159,18 +1176,82 @@ def test_lm_decode_on_the_card_matches_the_cpu(dev, arch, dtype):
         np.testing.assert_allclose(a.float().cpu().numpy(),
                                    b.float().cpu().numpy(), rtol=rtol,
                                    atol=atol)
-    fwd = tfm.forward(gpu, cfg, {"tokens": toks[:, :4].to(dev)})[0]
-    close(fwd, tfm.forward(cpu, cfg, {"tokens": toks[:, :4]})[0])
+
+    def part(sl, d):
+        return {k: v[:, sl].to(d) for k, v in batch.items()}
+    fwd = tfm.forward(gpu, cfg, part(slice(0, 4), dev))[0]
+    close(fwd, tfm.forward(cpu, cfg, part(slice(0, 4), "cpu"))[0])
     cc = tfm.init_cache(cfg, 3, 10, "cpu")
     gc = tfm.init_cache(cfg, 3, 10, dev)
     for pos in range(10):
-        t = toks[:, pos:pos + 1]
-        gl, gc = tfm.decode_step(gpu, cfg, {"tokens": t.to(dev)}, gc, pos)
-        cl, cc = tfm.decode_step(cpu, cfg, {"tokens": t}, cc, pos)
+        sl = slice(pos, pos + 1)
+        gl, gc = tfm.decode_step(gpu, cfg, part(sl, dev), gc, pos)
+        cl, cc = tfm.decode_step(cpu, cfg, part(sl, "cpu"), cc, pos)
         assert gl.device.type == dev.type
         close(gl, cl)
         if pos < 4:
             close(gl[:, 0], fwd[:, pos])
+
+
+def test_lm_divisions_round_once_on_the_card(dev, monkeypatch):
+    """ROADMAP C.P8: the LM's divisions by a Python number round once on
+    the card, as on the CPU (CUDA would multiply by the reciprocal). With
+    tanh taken out (it is no division, and libdevice's may differ from
+    the CPU's by an ulp) and inputs whose other arithmetic is exact, the
+    soft-capped smoke config's logits (`_logits_out`) and attention
+    scores (`dot_attention`), each `tanh_cap(s, 30)`, the MoE
+    load-balance aux at top_k = 6 and mLSTM's bf16 key scale
+    (/ sqrt(512)) are equal on the card and the CPU bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import load_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as tfm
+    monkeypatch.setattr(torch, "tanh", lambda x: x)
+    monkeypatch.setattr(L, "apply_norm", lambda p, x, cfg: x)
+    caps = []
+    real_cap = L.tanh_cap
+    monkeypatch.setattr(L, "tanh_cap",
+                        lambda s, c: caps.append(real_cap(s, c)) or caps[-1])
+    cfg = dataclasses.replace(load_config("starcoder2-3b", True),
+                              dtype="float32", param_dtype="float32",
+                              logit_softcap=30.0)
+    rng = np.random.default_rng(8)
+    # integer activations and weights: every product and sum exact
+    x = torch.from_numpy(rng.integers(-8, 9, (3, 5, cfg.d_model)).astype(
+        np.float32))
+    params = {"final_norm": {}, "embed": torch.from_numpy(rng.integers(
+        -8, 9, (cfg.vocab_size, cfg.d_model)).astype(np.float32))}
+    q, k, v = (torch.from_numpy(rng.integers(-4, 5, (2, 6, 4, 16)).astype(
+        np.float32)) for _ in range(3))
+    pos = torch.arange(6, dtype=torch.int32)
+    for d in ("cpu", dev):
+        tfm._logits_out({n: (t.to(d) if torch.is_tensor(t) else t)
+                         for n, t in params.items()}, cfg, x.to(d))
+        L.dot_attention(q.to(d), k.to(d), v.to(d), qpos=pos.to(d),
+                        kpos=pos.to(d), softcap=30.0)
+    assert len(caps) == 4
+    for a, b in ((caps[0], caps[2]), (caps[1], caps[3])):
+        assert b.device.type == dev.type
+        assert torch.equal(a, b.cpu())
+    # the aux: two experts hold all of the (dyadic) router mass, so its
+    # sums are exact and only the division by top_k rounds
+    m = dataclasses.replace(load_config("deepseek-moe-16b", True).moe,
+                            top_k=6)
+    for trial in range(64):
+        probs = np.zeros((2, 8, m.n_routed), np.float32)
+        probs[..., :2] = rng.integers(0, 9, (2, 8, 2)) / 8
+        sel = rng.integers(0, 2, (2, 8, m.top_k, m.n_routed)).astype(
+            np.int32)
+        got = [moe_lib.load_balance(torch.from_numpy(probs).to(d),
+                                    torch.from_numpy(sel).to(d), m)
+               for d in ("cpu", dev)]
+        assert torch.equal(got[0], got[1].cpu()), trial
+    kb = torch.from_numpy(rng.standard_normal(4096).astype(
+        np.float32)).to(torch.bfloat16)
+    assert torch.equal(L.div(kb, math.sqrt(512)),
+                       L.div(kb.to(dev), math.sqrt(512)).cpu())
 
 
 @pytest.mark.parametrize("mode,shards,fmr", [("two_phase", None, None),

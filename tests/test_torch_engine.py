@@ -460,7 +460,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
             "repro_torch.configs.starcoder2_3b",
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.models.layers", "repro_torch.models.moe",
-            "repro_torch.models.transformer",
+            "repro_torch.models.ssm", "repro_torch.models.transformer",
             "repro_torch.tree"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)

@@ -1,25 +1,34 @@
 """Parity of the port's language model (`repro_torch.models.{layers, moe,
-transformer}`, `repro_torch.configs`) with the JAX package's, on the CPU.
+ssm, transformer}`, `repro_torch.configs`) with the JAX package's, on the
+CPU, for every family: dense GQA, MoE, MLA (deepseek-v3), attention with
+Mamba (hymba), mLSTM / sLSTM (xlstm), embedding inputs (musicgen) and
+M-RoPE (qwen2-vl), and the layer type "swa" and a soft-capped model on
+variants of the smoke configs.
 
 The JAX side runs under `jax.jit`; its `init` tree crosses over through
 `transformer.params_from_numpy` (bf16 leaves as their 16-bit words), so
 both packages run the same weights. Tolerances:
 
 - float32 (`dataclasses.replace(cfg, dtype=param_dtype="float32")`):
-  rtol = atol = 2e-5 on logits and layer outputs (measured: <= 9e-6).
+  rtol = atol = 2e-5 on logits and layer outputs (measured: <= 9e-6;
+  max |got - want| / (1 + |want|) of the models' logits <= 5e-6,
+  deepseek-v3 and xlstm the largest), every family; the hidden state and
+  the caches within 1e-4 (measured <= 3e-5).
 - the configs' own bfloat16: the two packages round differently in the
   last bit (XLA rounds after each op of `gelu` / `silu` and keeps some dot
   outputs in float32 for the residual add they fuse with). Norms and
   attention on the same inputs are equal bit for bit; logits of the dense
-  smoke models differ by at most 0.043 (llama3-405b-smoke decode; 0.006
-  on the others), held to BF16_LOGIT_ATOL. In a bf16 MoE model such a
-  last-bit difference can move a token's top-k experts, after which its
-  logits are another function; so the bf16 MoE layer is held alone on the
-  same inputs, and the MoE model in float32.
+  smoke models differ by at most 0.043 (qwen1.5-110b decode; xlstm
+  0.042, llama3 0.035, qwen2-vl 0.035, musicgen 0.025, hymba 0.012,
+  starcoder2 and command-r 0.006), held to BF16_LOGIT_ATOL. In a bf16
+  MoE model such a last-bit difference can move a token's top-k experts,
+  after which its logits are another function; so the bf16 MoE layer is
+  held alone on the same inputs, and the MoE models in float32.
 """
 
 import dataclasses
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -47,13 +56,25 @@ BF16_LOGIT_ATOL = 0.0625
 # largest entry (measured: one bf16 ulp of it, 0.0078 at |y| ~ 2 for the
 # MLP, 0.25 at |y| ~ 58 for the MoE layer)
 BF16_LAYER_RTOL = 2**-7
-LM_ARCHS = ("starcoder2-3b", "llama3-405b", "command-r-plus-104b",
-            "deepseek-moe-16b")
-DENSE_ARCHS = LM_ARCHS[:3]
+LM_ARCHS = tuple(a for a in ARCHS if hasattr(load_config(a, True), "n_layers"))
+# smoke-config variants: the layer type "swa" (no shipped config uses it;
+# window 4 < the 14 positions decoded, so its ring wraps) and a soft-capped
+# model (ROADMAP C.P8: scores and logits divided by 30)
+VARIANTS = {
+    "swa": ("llama3-405b", dict(default_layer="swa", window=4,
+                                global_attn_layers=(1,))),
+    "softcap": ("starcoder2-3b", dict(logit_softcap=30.0)),
+}
+MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b")
+DENSE_ARCHS = tuple(a for a in LM_ARCHS if a not in MOE_ARCHS)
 PROMPT, DECODE, BATCH = 6, 8, 2
 
 
 def _cfgs(arch: str, dtype: str):
+    if arch in VARIANTS:
+        base, kw = VARIANTS[arch]
+        jc, tc = _cfgs(base, dtype)
+        return dataclasses.replace(jc, **kw), dataclasses.replace(tc, **kw)
     jc, tc = j_load_config(arch, True), load_config(arch, True)
     if dtype == "float32":
         jc = dataclasses.replace(jc, dtype=dtype, param_dtype=dtype)
@@ -97,6 +118,25 @@ def _tokens(vocab: int, shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, vocab, shape)
 
 
+def _inputs(cfg, S: int, seed: int) -> dict:
+    """A batch of S positions in the config's input mode, numpy: token
+    ids, or float32 embeddings with, for M-RoPE, position streams that
+    differ (temporal, height, width)."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "tokens":
+        return {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, S))}
+    batch = {"embeddings": rng.standard_normal(
+        (BATCH, S, cfg.d_model)).astype(np.float32)}
+    if cfg.rope_type == "mrope":
+        batch["positions3"] = rng.integers(0, 3 * S, (BATCH, S, 3)).astype(
+            np.int32)
+    return batch
+
+
+def _torch_batch(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 # -- configs and parameters ----------------------------------------------------
 
 
@@ -119,10 +159,11 @@ def test_configs_resolve_as_the_reference(arch):
                 repr(want).replace("repro_torch", "repro")
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS + ("qwen1.5-110b",))
+@pytest.mark.parametrize("arch", LM_ARCHS + ("swa",))
 def test_init_tree_matches_reference(arch):
-    """The port's `init` makes the reference's tree: the same leaf names,
-    shapes and dtypes (groups stacked on axis 0), and its scales."""
+    """The port's `init` makes the reference's tree for every family: the
+    same leaf names, shapes and dtypes (groups stacked on axis 0; no
+    "embed" for embedding inputs), and its scales."""
     jc, tc = _cfgs(arch, "bfloat16")
     jp = JT.init(jax.random.PRNGKey(0), jc)
     tp = TT.init(torch.Generator().manual_seed(0), tc)
@@ -159,30 +200,29 @@ def test_params_from_numpy_keeps_bits_and_module_holds_them():
                        TT.forward(tp, tc, {"tokens": toks})[0])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "hymba-1.5b",
-                                  "xlstm-350m", "musicgen-medium",
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b",
+                                  "deepseek-v3-671b", "musicgen-medium",
                                   "qwen2-vl-7b"])
-def test_unported_families_raise(arch):
-    """MLA, hybrid / SSM layers, embedding inputs and M-RoPE raise
-    NotImplementedError naming ROADMAP A10b at init and at cache init."""
-    tc = load_config(arch, True)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TT.init(torch.Generator().manual_seed(0), tc)
-    if tc.input_mode == "tokens":
-        with pytest.raises(NotImplementedError, match="A10b"):
-            TT.init_cache(tc, 1, 4, "cpu")
-
-
-def test_unported_layer_functions_raise():
-    """The MLA and M-RoPE functions of the layers module raise naming
-    ROADMAP A10b, and so does an M-RoPE config's rotary step."""
-    tc = load_config("qwen2-vl-7b", True)
-    for fn in (TL.mla_init, TL.mla_apply, TL.mla_cache_init,
-               TL.mrope_sincos):
-        with pytest.raises(NotImplementedError, match="A10b"):
-            fn(None, tc, torch.float32)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TL._rope_for(tc, torch.arange(3))
+def test_params_from_numpy_carries_every_family(arch):
+    """The new families' trees (mLSTM / sLSTM "cell", hymba's "mamba",
+    MLA's wq_a .. wo_mla, no "embed" for embedding inputs) cross over
+    with every leaf's bits; `Transformer` holds them and runs forward
+    with the family's batch."""
+    jc, tc, jp, tp = _model(arch, "bfloat16")
+    jnames, jleaves = tree_lib.flatten_with_names(
+        jax.tree_util.tree_map(np.asarray, jp))
+    tnames, tleaves = tree_lib.flatten_with_names(tp)
+    assert tnames == jnames
+    assert ("embed" in tnames) == (tc.input_mode == "tokens")
+    for a, b in zip(jleaves, tleaves):
+        if a.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(b.view(torch.int16).numpy(),
+                                          a.view(np.int16))
+        else:
+            np.testing.assert_array_equal(b.numpy(), a)
+    model = TT.Transformer(tp, tc)
+    batch = _torch_batch(_inputs(tc, 4, 1))
+    assert torch.equal(model(batch)[0], TT.forward(tp, tc, batch)[0])
 
 
 # -- layers --------------------------------------------------------------------
@@ -359,33 +399,34 @@ def _run_both(arch: str, dtype: str):
     (port, jax) pairs: forward logits and aux, each decode step's logits
     and hidden state."""
     jc, tc, jp, tp = _model(arch, dtype)
-    prompt = _tokens(tc.vocab_size, (BATCH, PROMPT), 10)
-    more = _tokens(tc.vocab_size, (BATCH, DECODE), 11)
-    jl, jaux = jax.jit(lambda p, t: JT.forward(p, jc, {"tokens": t}))(
-        jp, prompt)
-    tl, taux = TT.forward(tp, tc, {"tokens": torch.from_numpy(prompt)})
+    batch = _inputs(tc, PROMPT + DECODE, 10)
+    prompt = {k: v[:, :PROMPT] for k, v in batch.items()}
+    jl, jaux = jax.jit(lambda p, b: JT.forward(p, jc, b))(jp, prompt)
+    tl, taux = TT.forward(tp, tc, _torch_batch(prompt))
     out = {"forward": (tl, jl), "load_balance": (taux["load_balance"],
                                                  jaux["load_balance"]),
            "z_loss": (taux["z_loss"], jaux["z_loss"]), "steps": []}
-    jstep = jax.jit(lambda p, c, t, pos: JT.decode_step(
-        p, jc, {"tokens": t}, c, pos, return_hidden=True))
+    jstep = jax.jit(lambda p, c, b, pos: JT.decode_step(
+        p, jc, b, c, pos, return_hidden=True))
     jcache = JT.init_cache(jc, BATCH, PROMPT + DECODE)
     tcache = TT.init_cache(tc, BATCH, PROMPT + DECODE, "cpu")
-    toks = np.concatenate([prompt, more], 1)
     for pos in range(PROMPT + DECODE):
-        t = toks[:, pos:pos + 1]
-        jlg, jcache, jh = jstep(jp, jcache, t, jnp.int32(pos))
-        tlg, tcache, th = TT.decode_step(tp, tc, {"tokens": torch.from_numpy(
-            t)}, tcache, pos, return_hidden=True)
+        b = {k: v[:, pos:pos + 1] for k, v in batch.items()}
+        jlg, jcache, jh = jstep(jp, jcache, b, jnp.int32(pos))
+        tlg, tcache, th = TT.decode_step(tp, tc, _torch_batch(b), tcache,
+                                         pos, return_hidden=True)
         out["steps"].append({"logits": (tlg, jlg), "hidden": (th, jh)})
+    out["caches"] = (tcache, jcache)
     return out
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS + tuple(VARIANTS))
 def test_forward_and_decode_match_reference_f32(arch):
-    """float32: forward logits and aux values, and the logits and hidden
-    state of every prefill and decode step, within F32_TOL; the port's
-    decode of the prompt gives its forward's logits (the KV cache)."""
+    """float32, every family: forward logits and aux values, and the
+    logits and hidden state of every prefill and decode step, within
+    F32_TOL; every cache leaf (KV rings, MLA's latents, the recurrent
+    states) after the last step within it too; the port's decode of the
+    prompt gives its forward's logits (the caches and states)."""
     out = _run_both(arch, "float32")
     assert_close(*out["forward"])
     assert_close(*out["load_balance"])
@@ -395,13 +436,24 @@ def test_forward_and_decode_match_reference_f32(arch):
         assert_close(*st["hidden"], tol=1e-4)
         if i < PROMPT:
             assert_close(st["logits"][0][:, 0], out["forward"][0][:, i])
+    tcache, jcache = out["caches"]
+    tnames, tleaves = tree_lib.flatten_with_names(tcache)
+    jnames, jleaves = tree_lib.flatten_with_names(
+        jax.tree_util.tree_map(np.asarray, jcache))
+    assert tnames == jnames
+    for name, a, b in zip(tnames, tleaves, jleaves):
+        assert tuple(a.shape) == b.shape, name
+        if name.endswith("kpos"):
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+        else:
+            assert_close(a, b, tol=1e-4)
 
 
 @pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_forward_and_decode_match_reference_bf16(arch):
-    """The configs' own bf16 (dense models): forward and every decode
-    step's logits within BF16_LOGIT_ATOL of the reference's, and of the
-    port's own forward over the prompt."""
+    """The configs' own bf16 (every family without MoE): forward and every
+    decode step's logits within BF16_LOGIT_ATOL of the reference's, and
+    of the port's own forward over the prompt."""
     out = _run_both(arch, "bfloat16")
     tl, jl = out["forward"]
     assert tl.dtype == torch.bfloat16
@@ -411,6 +463,23 @@ def test_forward_and_decode_match_reference_bf16(arch):
         if i < PROMPT:
             assert_close(st["logits"][0][:, 0], tl[:, i], tol=0,
                          atol=BF16_LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("divisor,dtype", [(30.0, "float32"),
+                                           (6.0, "float32"),
+                                           (math.sqrt(512), "bfloat16")],
+                         ids=["softcap", "top_k", "mlstm_key_scale"])
+def test_divisions_round_as_eager_jax(divisor, dtype):
+    """ROADMAP C.P8: `layers.div` divides as JAX does, the Python divisor
+    taking the dividend's dtype (weak typing) and the quotient rounded
+    once: equal bit for bit to eager JAX on 10^5 normal inputs (a
+    float32 divisor on a bf16 tensor differs on ~2% of them)."""
+    x = np.random.default_rng(13).standard_normal(100_000).astype(np.float32)
+    jx = jnp.asarray(x, dtype)
+    want = np.asarray(jx / divisor, np.float32)
+    got = TL.div(_t(jx), divisor)
+    assert str(got.dtype).endswith(dtype)
+    np.testing.assert_array_equal(_np(got), want)
 
 
 def test_prefill_step_matches_reference():
@@ -430,3 +499,30 @@ def test_prefill_step_matches_reference():
     for a, b in zip(tree_lib.leaves(tc_), jax.tree_util.tree_leaves(jc_)):
         assert tuple(a.shape) == np.shape(b)
         assert_close(a, b)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-7b"])
+def test_step_functions_take_an_embeddings_batch(arch):
+    """The embedding archs, which `serve` cannot feed (ROADMAP C.R4), run
+    through `launch/steps`: make_prefill_step on an embeddings batch (with
+    positions3 for M-RoPE) against the reference's, the last position's
+    logits and every cache leaf within F32_TOL; make_serve_step is
+    decode_step on the same embeddings and caches."""
+    jc, tc, jp, tp = _model(arch, "float32")
+    batch = _inputs(tc, PROMPT, 14)
+    from repro.launch import steps as j_steps
+    from repro.models.sharding import Rules
+    rules = Rules(batch=(), fsdp=(), tensor=(), expert=())
+    jl, jcaches = jax.jit(j_steps.make_prefill_step(jc, rules))(jp, batch)
+    tl, tcaches = steps_lib.make_prefill_step(tc)(tp, _torch_batch(batch))
+    assert tl.shape == (BATCH, 1, tc.vocab_size)
+    assert_close(tl, jl)
+    for a, b in zip(tree_lib.leaves(tcaches),
+                    jax.tree_util.tree_leaves(jcaches)):
+        assert tuple(a.shape) == np.shape(b)
+        assert_close(a, b)
+    step = _torch_batch({k: v[:, :1] for k, v in batch.items()})
+    caches = TT.init_cache(tc, BATCH, PROMPT, "cpu")
+    got, _ = steps_lib.make_serve_step(tc)(tp, caches, step, 0)
+    want, _ = TT.decode_step(tp, tc, step, caches, 0)
+    assert torch.equal(got, want)

@@ -3,10 +3,11 @@ make_serve_step_with_mcam` / `knn_lm_head`, `launch.serve.serve`,
 `examples.serve_retrieval`) with the JAX package's, on the CPU.
 
 The JAX side decodes starcoder2-3b's smoke config (bf16) under `jax.jit`
-with `return_hidden=True`; the same hidden rows (carried across bit for
-bit) query a token store programmed by the JAX package and carried across
-with `MemoryStore.from_numpy`, so both engines search the same store with
-the same queries. The search results of the kNN-LM head (labels, votes,
+with `return_hidden=True` (and hymba-1.5b's, xlstm-350m's and
+deepseek-v3-671b's, the other token families); the same hidden rows
+(carried across bit for bit) query a token store programmed by the JAX
+package and carried across with `MemoryStore.from_numpy`, so both
+engines search the same store with the same queries. The search results of the kNN-LM head (labels, votes,
 indices, distances) must be equal bit for bit in `two_phase`, `ideal` and
 routed search (the JAX side on backend "ref", as its `serve` pins it; the
 port on "ref", on its default "auto" route and on "fused", each of whose
@@ -30,6 +31,7 @@ from repro.core.memory import MemoryConfig as JMemoryConfig
 from repro.engine import MemoryStore as JStore
 from repro.engine import RetrievalEngine as JEngine
 from repro.engine import SearchRequest as JRequest
+from repro.launch import serve as j_serve
 from repro.launch import steps as j_steps
 from repro.models import transformer as JT
 from repro.models.sharding import Rules
@@ -45,6 +47,9 @@ from repro_torch.models import transformer as TT
 torch.set_num_threads(1)
 
 ARCH = "starcoder2-3b"
+# the token families PR 20's starcoder2-3b does not cover: attention with
+# Mamba, mLSTM / sLSTM, MLA with MoE
+FAMILIES = ("hymba-1.5b", "xlstm-350m", "deepseek-v3-671b")
 BATCH, PROMPT, STEPS = 4, 3, 4
 DIM, K, SHARDS, NPROBE, LAM = 48, 32, 8, 2, 0.3
 # |mixed log-prob| differences: measured max 0.0139 in every mode (the
@@ -61,11 +66,11 @@ def _t(a) -> torch.Tensor:
 
 
 @functools.cache
-def _setup():
+def _setup(arch: str = ARCH):
     """The JAX model and decode, step by step (tokens, pos, caches before
     the step, logits, hidden), and the token store in both packages,
     unsharded and in SHARDS shards."""
-    jc, tc = j_load_config(ARCH, True), load_config(ARCH, True)
+    jc, tc = j_load_config(arch, True), load_config(arch, True)
     jp = JT.init(jax.random.PRNGKey(0), jc)
     rng = np.random.default_rng(0)
     vecs = rng.standard_normal((256, DIM)).astype(np.float32)
@@ -118,6 +123,29 @@ def test_head_search_equals_reference_bit_for_bit(mode, nprobe, backend):
             np.testing.assert_array_equal(
                 getattr(got, f).numpy(), np.asarray(getattr(want, f)),
                 err_msg=f"{mode} nprobe={nprobe} {backend} pos={pos}: {f}")
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "ideal"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_head_search_equals_reference_for_every_token_family(arch, mode):
+    """The same for the other token families' smoke models (bf16 hidden
+    rows of hymba's attention + Mamba, xlstm's mLSTM / sLSTM and
+    deepseek-v3's MLA + MoE layers): on the default route, every step's
+    search equal to JAX's bit for bit."""
+    jc, tc, jp, jmem, tmem, stores, trace = _setup(arch)
+    js, ts = stores[None]
+    jreq = JRequest(mode=mode, k=K)
+    jsearch = jax.jit(lambda s, q: JEngine(jmem.search).search(s, q, jreq))
+    eng = RetrievalEngine(tmem.search)
+    for tok, pos, _, _, hidden in trace:
+        assert hidden.dtype == jnp.bfloat16
+        q = hidden[:, 0][:, :DIM]
+        want = jsearch(js, q)
+        got = eng.search(ts, _t(q), SearchRequest(mode=mode, k=K))
+        for f in LEAVES:
+            np.testing.assert_array_equal(
+                getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                err_msg=f"{arch} {mode} pos={pos}: {f}")
 
 
 @pytest.mark.parametrize("mode,nprobe", [("dense", None),
@@ -185,11 +213,19 @@ def test_serve_step_with_mcam_runs_the_head_on_the_decode():
          retrieval_nprobe=NPROBE, retrieval_fused_min_rows=256),
     dict(retrieval=False),
     dict(arch="deepseek-moe-16b", retrieval=True),
-], ids=["two_phase", "ideal", "dense", "routed", "plain", "moe"])
+    dict(arch="hymba-1.5b", retrieval=True),
+    dict(arch="hymba-1.5b", retrieval=False),
+    dict(arch="xlstm-350m", retrieval=True),
+    dict(arch="xlstm-350m", retrieval=False),
+    dict(arch="deepseek-v3-671b", retrieval=True),
+    dict(arch="deepseek-v3-671b", retrieval=False),
+], ids=["two_phase", "ideal", "dense", "routed", "plain", "moe",
+        "hymba", "hymba_plain", "xlstm", "xlstm_plain", "mla", "mla_plain"])
 def test_serve_runs_on_the_cpu(kwargs, capsys):
-    """`serve` decodes every retrieval mode on `device="cpu"`, returns
-    (batch, steps) token ids and prints its throughput line; the same
-    seed gives the same tokens."""
+    """`serve` decodes every retrieval mode, and every token family with
+    and without the head, on `device="cpu"`, returns (batch, steps) token
+    ids and prints its throughput line; the same seed gives the same
+    tokens."""
     kwargs = {"arch": ARCH, **kwargs}
     arch = kwargs.pop("arch")
     run = functools.partial(serve_lib.serve, arch, True, 2, 3, 2,
@@ -200,6 +236,18 @@ def test_serve_runs_on_the_cpu(kwargs, capsys):
     assert ((toks >= 0) & (toks < cfg.vocab_size)).all()
     assert f"{arch}: 3 steps x 2 reqs in" in capsys.readouterr().out
     np.testing.assert_array_equal(run(), toks)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-7b"])
+def test_serve_of_an_embedding_arch_raises_as_the_reference(arch):
+    """ROADMAP C.R4: the reference's `serve` feeds token ids, and a model
+    of embedding inputs reads `batch["embeddings"]`, so both packages
+    raise KeyError('embeddings'); these archs run through `forward` /
+    `decode_step` and the step functions with an embeddings batch."""
+    with pytest.raises(KeyError, match="embeddings"):
+        j_serve.serve(arch, True, 2, 2, 2)
+    with pytest.raises(KeyError, match="embeddings"):
+        serve_lib.serve(arch, True, 2, 2, 2, device="cpu")
 
 
 def test_serve_cli_runs_on_cpu_and_raises_without_a_card(capsys):
