@@ -72,7 +72,10 @@ the card from the seed):
                LM_DECODE_ATOL (the archs without MoE); the decode step's
                time with and without the head, a profiled step of each
                (idle share, launches, device time by kind), the peak
-               memory and the weight-bytes bound are printed
+               memory and the weight-bytes bound are printed; for the
+               archs with mLSTM layers, a profiled prefill with the
+               port's `kinks.cummax` and with `torch.cummax` in its
+               place (launches, device ms; the same logits bit for bit)
 
 Then the same path at the paper's CUB geometry:
 
@@ -142,6 +145,27 @@ Then the paper's evaluation and the other optimizers:
  10. [optim]    adamw8bit, adafactor and sgd over a ResNet12 tree on the
                 card against the CPU, within OPTIM_RTOL
 
+Then LM training at full width (random weights drawn on the card from
+the seed, under the trainer's deterministic settings):
+
+ 11. [lm-train] `launch/train.train(arch, smoke=False, ...)`: starcoder2-3b
+                (30 layers, d = 3,072, bf16, remat, AdamW with float32
+                moments) at global batch 8 x 1,024 tokens for 30 steps,
+                deepseek-moe-16b cut in depth to 4 layers (1 dense + 3
+                MoE of 64 routed + 2 shared experts, top-6) for 6 and
+                xlstm-350m (24 layers, B = 8, S = 128: two mLSTM chunks;
+                at S = 256 its gradients overflow the float32 norm in
+                both packages, ROADMAP C.R7) for 4: every step's loss
+                finite and applied; starcoder2-3b's loss falls; a second
+                run from the seed repeats the losses and every parameter
+                and state leaf's checksum; step ms, tokens/s and MFU
+                against 6 N T at the bf16 peak, a profiled step (idle
+                share, launches, device ms by kind) and peak memory
+                against the state's bytes; starcoder2-3b also at
+                microbatch 4 (accumulation over 2); a smoke model with an
+                inf weight steps with applied 0 and every leaf unchanged.
+                No MCAM kernel launches in the phase.
+
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
 run. Then every kernel is held against its plain PyTorch version on the
@@ -172,6 +196,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -307,6 +332,29 @@ LM_KERNEL_KINDS = {
 }
 # the profiler range around layers.dot_attention in a profiled step
 LM_ATTENTION_RANGE = "lm.dot_attention"
+
+# [lm-train]: LM training through `launch/train.train` at full width, each
+# arch with (layers kept or None, global batch, sequence, steps of a
+# train() run), the starcoder2-3b run at microbatch LM_TRAIN_MICRO (its
+# steps), and the smoke arch whose step the guard check poisons. The
+# trainer's constant learning rate with no warm-up (the reference's)
+# throws starcoder2-3b's loss up over its first ~5 steps at full width
+# (11.55 -> 30.74 at step 4) before it falls (7.27 at step 29): the
+# phase holds the mean of the last LM_TRAIN_FALL losses below the first.
+# xlstm-350m runs at S = 128 (two mLSTM chunks): its sLSTM's gradients grow
+# with every position (norms ~1e17 here on the card, where the float32
+# norm overflows past ~1.8e19), and at S = 256 they overflow it in both
+# packages (ROADMAP C.R7, tests/test_torch_train_overflow.py)
+LM_TRAIN = {"starcoder2-3b": (None, 8, 1024, 30),
+            "deepseek-moe-16b": (4, 8, 1024, 6),
+            "xlstm-350m": (None, 8, 128, 4)}
+LM_TRAIN_FALL = 5
+LM_TRAIN_MICRO, LM_TRAIN_MICRO_STEPS = 4, 3
+LM_TRAIN_GUARD_ARCH = "starcoder2-3b"
+# a profiled train step's device time by kind (LM_KERNEL_KINDS' names;
+# the attention range is forward only: autograd runs backward outside it)
+LM_TRAIN_KERNEL_KINDS = {k: v for k, v in LM_KERNEL_KINDS.items()
+                         if k != "mcam"}
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -903,6 +951,11 @@ def run(args, torch) -> int:
     paper = run_paper(timing, launches)
     path_ms.update(paper.pop("phases_ms"))
     optim = run_optim(timing, args)
+    torch.cuda.empty_cache()
+
+    # -- LM training at full width -------------------------------------------
+    lm_train = run_lm_train(timing, args, card)
+    path_ms.update(lm_train.pop("phases_ms"))
     bwd = hat["backward"]
     row("mcam_episode", "mcam_episode.cu",
         "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
@@ -923,7 +976,7 @@ def run(args, torch) -> int:
                     "tenants": tenants, "pager": pager,
                     "lm_serve": lm_serve, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
-                    "optim": optim, "card": card}))
+                    "optim": optim, "lm_train": lm_train, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1895,6 +1948,32 @@ def _decode_vs_forward(torch, cfg, params, inputs: dict, P: int,
             float(fwd.float().abs().max()), within)
 
 
+def _prefill_cummax(t, prefill, params, prompt) -> dict:
+    """One profiled prefill with `core/kinks.cummax` (the port's, C.P9:
+    JAX's odd/even scan, for its gradient at ties) and one with
+    `torch.cummax` in its place (the parent's forward): launches, device
+    and wall ms of each. Fails unless both give the same logits' bits."""
+    from repro_torch.core import kinks
+
+    torch = t.torch
+    scan = kinks.cummax
+    out, logits = {}, []
+    try:
+        for name, fn in (("kinks.cummax", scan), ("torch.cummax", lambda x, d:
+                                                  torch.cummax(x, d).values)):
+            kinks.cummax = fn
+            logits.append(prefill(params, prompt)[0])
+            prof = _profile_search(t, lambda: prefill(params, prompt))
+            out[name] = {k: prof[k] for k in ("kernel_launches",
+                                              "device_ms", "wall_ms")}
+    finally:
+        kinks.cummax = scan
+    if not torch.equal(*logits):
+        fail("[lm-serve] the prefill's logits differ between kinks.cummax "
+             "and torch.cummax")
+    return out
+
+
 def run_lm_serve(t, args, launches: dict, card: str) -> dict:
     """[lm-serve]: the LM serving entry point (`launch/serve.serve`, the
     kNN-LM head of `launch/steps.make_serve_step_with_mcam`) at full width
@@ -2114,6 +2193,17 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
                     f", attention {pr.get('ranges_device_ms')}, top "
                     f"{pr['top_kernels'][:4]} ({card})")
 
+            # -- mLSTM prefill: C.P9's cummax against torch.cummax --------
+            if "mlstm" in cfg.layer_types():
+                res["prefill_cummax"] = _prefill_cummax(
+                    t, steps_lib.make_prefill_step(cfg), params, prompt)
+                log(f"[lm-serve] {arch} profiled prefill (B {B} x P {P}): "
+                    + "; ".join(f"{k} {v['kernel_launches']} launches, "
+                                f"device {v['device_ms']:.3f} ms, wall "
+                                f"{v['wall_ms']:.3f} ms"
+                                for k, v in res["prefill_cummax"].items())
+                    + f"; the same logits bit for bit ({card})")
+
             # -- the head over a token store of LM_STORE_ROWS rows --------
             if arch == LM_ARCHS[0]:
                 big_cfg = MemoryConfig(capacity=LM_STORE_ROWS,
@@ -2168,6 +2258,290 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
     finally:
         spy.close()
         serve_lib.load_config = real_load_config
+    out["phases_ms"] = phases_ms
+    return out
+
+
+class _TrainSpy:
+    """Wraps `launch/steps.make_train_step` until `close()`: each step of
+    the step functions it makes is synchronised and timed on the host
+    clock and its metrics read after it (`records`), the last step's
+    (the wrapped step function, params, opt_state, batch) kept."""
+
+    def __init__(self, t, steps_lib):
+        self.t, self.lib, self.real = t, steps_lib, steps_lib.make_train_step
+        self.records, self.last = [], None
+        steps_lib.make_train_step = self._make
+
+    def _make(self, cfg, tc):
+        step_fn, optimizer = self.real(cfg, tc)
+
+        def spied(params, opt_state, batch):
+            self.t.sync()
+            t0 = time.perf_counter()
+            out = step_fn(params, opt_state, batch)
+            self.t.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.records.append({"ms": ms, **{k: float(v) for k, v in
+                                              out[2].items()}})
+            self.last = (spied, out[0], out[1], batch)
+            return out
+        self.cfg = cfg
+        return spied, optimizer
+
+    def reset(self) -> None:
+        self.records, self.last = [], None
+
+    def close(self) -> None:
+        self.lib.make_train_step = self.real
+
+
+def _checksums(torch, tree) -> list:
+    """Per leaf, two sums over its bits (as integers, one weighted by the
+    position mod 65,521), in int64 and in chunks: equal lists mean equal
+    leaves but for a collision."""
+    from repro_torch import tree as tree_lib
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for leaf in tree_lib.leaves(tree):
+        flat = leaf.detach().reshape(-1)
+        if flat.is_floating_point():
+            flat = flat.view(ints[flat.element_size()])
+        a = b = 0
+        for c0 in range(0, flat.numel(), 1 << 26):
+            part = flat[c0:c0 + (1 << 26)].to(torch.int64)
+            w = (torch.arange(c0, c0 + part.numel(), device=part.device)
+                 % 65521) + 1
+            a += int(part.sum())
+            b += int((part * w).sum())
+        out.append((a, b))
+    return out
+
+
+def _train_bound(cfg, params, tokens: int) -> tuple[int, float]:
+    """(parameters a token multiplies, the step's useful-work bound in
+    ms): 6 N T FLOP at the bf16 tensor peak, N every parameter but the
+    routed experts' unchosen share (top_k / n_routed of them count) and
+    an untied input embedding (a lookup, no product; a tied one is the
+    output layer's matrix and counts once)."""
+    from repro_torch import tree as tree_lib
+    names, leaves = tree_lib.flatten_with_names(params)
+    n = sum(a.numel() for nm, a in zip(names, leaves)
+            if cfg.tie_embeddings or nm != "embed")
+    if cfg.moe is not None:
+        routed = sum(a.numel() for nm, a in zip(names, leaves)
+                     if "//moe//we" in nm)
+        n -= round(routed * (1 - cfg.moe.top_k / cfg.moe.n_routed))
+    return n, 6 * n * tokens / BF16_TENSOR_OPS_PER_S * 1e3
+
+
+def run_lm_train(t, args, card: str) -> dict:
+    """[lm-train]: LM training through the trainer's entry point
+    (`launch/train.train(arch, smoke=False, ...)`, random weights drawn on
+    the card from the seed, SyntheticLM batches or stub embeddings), each
+    arch of LM_TRAIN at full width (deepseek-moe-16b cut in depth, handed
+    to `train` by swapping its `load_config`) under the trainer's
+    deterministic settings: LM_TRAIN's steps, each with a finite loss, a
+    finite gradient norm and `applied` 1; starcoder2-3b's loss falls (the mean of the last
+    LM_TRAIN_FALL below the first); a second run from the
+    same seed gives the same per-leaf checksums of the parameters and the
+    optimizer state and the same losses (the first run's state freed
+    first). Then, on the second run's state: step ms (host-clock median
+    but the first step), tokens/s and MFU against 6 N T at the bf16
+    tensor peak, one profiled step (idle share, launches, device ms by
+    kind), peak memory against the state's bytes (weights, gradients and
+    optimizer state); starcoder2-3b also steps at microbatch
+    LM_TRAIN_MICRO (accumulation over 2). The guard: a smoke model with
+    an inf in one weight steps with `applied` 0 and leaves every
+    parameter and state leaf's bits as they were. No MCAM kernel may
+    launch in the phase."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    torch, dev, log = t.torch, t.dev, t.log
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import layers as layers_lib
+
+    out, phases_ms = {}, {}
+    spy = _TrainSpy(t, steps_lib)
+    real_load_config = train_lib.load_config
+    _build.reset_launches()
+    try:
+        for arch, (depth, B, S, n_steps) in LM_TRAIN.items():
+            cfg = load_config(arch, smoke=LM_SMOKE)
+            if depth:
+                cfg = dataclasses.replace(cfg, n_layers=min(cfg.n_layers,
+                                                            depth))
+            train_lib.load_config = lambda a, smoke, c=cfg: c
+            runs = []
+            for run in range(2):
+                spy.reset()
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with tempfile.TemporaryDirectory() as ckpt:
+                    losses = train_lib.train(arch, LM_SMOKE, n_steps, B, S,
+                                             ckpt, device=dev)
+                wall = (time.perf_counter() - t0) * 1e3
+                recs = spy.records
+                if len(recs) != n_steps or any(
+                        not math.isfinite(r["loss"]) or r["applied"] != 1.0
+                        or not math.isfinite(r["grad_norm"])
+                        for r in recs):
+                    fail(f"[lm-train] {arch} run {run}: steps {recs}")
+                _, params, opt_state, _ = spy.last
+                sums = _checksums(torch, (params, opt_state))
+                runs.append({"losses": losses, "wall_ms": wall,
+                             "peak": torch.cuda.max_memory_allocated(),
+                             "sums": sums,
+                             "step_ms": [r["ms"] for r in recs],
+                             "grad_norms": [r["grad_norm"] for r in recs]})
+                if run == 0:
+                    del params, opt_state
+                    spy.reset()
+            a, b = runs
+            if a["sums"] != b["sums"] or a["losses"] != b["losses"]:
+                bad = [i for i, (x, y) in enumerate(zip(a["sums"],
+                                                        b["sums"])) if x != y]
+                fail(f"[lm-train] {arch}: the rerun differs: losses "
+                     f"{a['losses']} vs {b['losses']}, leaves {bad[:8]}")
+            losses = b["losses"]
+            if arch == "starcoder2-3b" and not (
+                    statistics.mean(losses[-LM_TRAIN_FALL:]) < losses[0]):
+                fail(f"[lm-train] {arch}: the loss did not fall: {losses}")
+            step_fn, params, opt_state, batch = spy.last
+            cfg = spy.cfg
+            n_active, bound_ms = _train_bound(cfg, params, B * S)
+            p_bytes = sum(x.numel() * x.element_size()
+                          for x in tree_lib.leaves(params))
+            s_bytes = 2 * p_bytes + sum(x.numel() * x.element_size()
+                                        for x in tree_lib.leaves(opt_state))
+            step_ms = statistics.median(b["step_ms"][1:])
+            # one profiled step (two steps run: one left out)
+            attention = layers_lib.dot_attention
+
+            def annotated(*a_, **k_):
+                with torch.profiler.record_function(LM_ATTENTION_RANGE):
+                    return attention(*a_, **k_)
+            layers_lib.dot_attention = annotated
+            try:
+                prof = _profile_search(
+                    t, lambda: step_fn(params, opt_state, batch),
+                    LM_TRAIN_KERNEL_KINDS, (LM_ATTENTION_RANGE,))
+            finally:
+                layers_lib.dot_attention = attention
+            res = out[arch] = {
+                "layers": cfg.n_layers, "d_model": cfg.d_model,
+                "batch": B, "seq": S, "remat": cfg.remat,
+                "params": sum(x.numel() for x in tree_lib.leaves(params)),
+                "params_per_token": n_active, "param_bytes": p_bytes,
+                "state_bytes": s_bytes, "losses": losses,
+                "grad_norms": b["grad_norms"], "step_ms_all": b["step_ms"],
+                "step_ms": step_ms, "tokens_per_s": B * S / step_ms * 1e3,
+                "bound_ms": bound_ms, "mfu": bound_ms / step_ms,
+                "peak_memory_bytes": b["peak"],
+                "rerun_bit_for_bit": True, "profile": prof,
+                "applied": [1.0] * len(losses)}
+            phases_ms[f"lm_train_{arch}"] = b["wall_ms"]
+            log(f"[lm-train] {arch}: {cfg.n_layers} layers, d "
+                f"{cfg.d_model}, B {B} x S {S}, remat {cfg.remat}, "
+                f"{res['params']} parameters ({n_active} a token); losses "
+                f"{[round(x, 4) for x in losses]}, grad norms "
+                f"{[round(x, 3) for x in b['grad_norms']]}; rerun bit for "
+                f"bit "
+                f"({len(b['sums'])} leaves of params and state); step "
+                f"{step_ms:.1f} ms ({res['tokens_per_s']:.0f} tok/s), bound "
+                f"6NT {bound_ms:.1f} ms, MFU {res['mfu']:.3f}; peak memory "
+                f"{b['peak'] / 1e9:.2f} GB against {s_bytes / 1e9:.2f} GB "
+                f"of weights, gradients and optimizer state ({card})")
+            kinds = {k: round(v, 3)
+                     for k, v in prof["device_ms_by_kind"].items()}
+            log(f"[lm-train] {arch} profiled step: wall "
+                f"{prof['wall_ms']:.1f} ms, device {prof['device_ms']:.1f} "
+                f"ms, idle share {prof['idle_share']:.3f}, "
+                f"{prof['kernel_launches']} kernel launches, by kind "
+                f"{kinds}"
+                f", attention forward {prof.get('ranges_device_ms')}, top "
+                f"{prof['top_kernels'][:4]} ({card})")
+
+            # -- gradient accumulation at width: microbatch LM_TRAIN_MICRO
+            if arch == "starcoder2-3b":
+                accum = B // LM_TRAIN_MICRO
+                shape = ShapeConfig("custom", S, B, "train",
+                                    microbatch=LM_TRAIN_MICRO)
+                data = SyntheticLM(LMDataConfig(S, B, cfg.vocab_size))
+                spy.reset()
+                for step in range(LM_TRAIN_MICRO_STEPS):
+                    mb = train_lib.make_batch(cfg, shape, data,
+                                              n_steps + step, accum,
+                                              LM_TRAIN_MICRO, dev)
+                    params, opt_state, _ = step_fn(params, opt_state, mb)
+                    t.sync()
+                micro = spy.records
+                if len(micro) != LM_TRAIN_MICRO_STEPS or any(
+                        not math.isfinite(r["loss"]) or r["applied"] != 1.0
+                        for r in micro):
+                    fail(f"[lm-train] {arch} accum {accum}: {micro}")
+                ms = statistics.median(r["ms"] for r in micro[1:])
+                res["accum"] = {"microbatch": LM_TRAIN_MICRO,
+                                "accum": accum, "step_ms": ms,
+                                "losses": [r["loss"] for r in micro],
+                                "tokens_per_s": B * S / ms * 1e3,
+                                "mfu": bound_ms / ms}
+                log(f"[lm-train] {arch} microbatch {LM_TRAIN_MICRO} "
+                    f"(accum {accum}): step {ms:.1f} ms "
+                    f"({B * S / ms * 1e3:.0f} tok/s), MFU "
+                    f"{bound_ms / ms:.3f} ({card})")
+            del step_fn, params, opt_state, batch
+            spy.reset()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # -- the guard: a non-finite step changes nothing -----------------
+        cfg = load_config(LM_TRAIN_GUARD_ARCH, smoke=True)
+        step_fn, optimizer = steps_lib.make_train_step(
+            cfg, TrainConfig(learning_rate=1e-3))
+        from repro_torch.models import transformer as tfm
+        params = tfm.init(torch.Generator(device=dev).manual_seed(
+            args.seed), cfg)
+        opt_state = optimizer.init(params)
+        tree_lib.leaves(params)[-1].view(-1)[0] = float("inf")
+        before = [x.clone() for x in tree_lib.leaves((params, opt_state))]
+        data = SyntheticLM(LMDataConfig(16, 4, cfg.vocab_size))
+        batch = train_lib.make_batch(
+            cfg, ShapeConfig("custom", 16, 4, "train"), data, 0, 1, 4, dev)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        after = tree_lib.leaves((params, opt_state))
+        same = all(torch.equal(x.view(-1).view(torch.uint8)
+                               if x.is_floating_point() else x,
+                               y.view(-1).view(torch.uint8)
+                               if y.is_floating_point() else y)
+                   for x, y in zip(before, after))
+        applied = float(metrics["applied"])
+        if applied != 0.0 or not same:
+            fail(f"[lm-train] guard: applied {applied}, state unchanged "
+                 f"{same}")
+        out["guard"] = {"arch": cfg.name, "applied": applied,
+                        "unchanged_bit_for_bit": same,
+                        "loss": float(metrics["loss"])}
+        log(f"[lm-train] guard: {cfg.name} with an inf weight: loss "
+            f"{float(metrics['loss'])}, applied {applied}, every parameter "
+            f"and state leaf unchanged bit for bit")
+    finally:
+        spy.close()
+        train_lib.load_config = real_load_config
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    if counts:
+        fail(f"[lm-train] launched MCAM kernels: {counts}")
+    out["mcam_launches"] = 0
     out["phases_ms"] = phases_ms
     return out
 

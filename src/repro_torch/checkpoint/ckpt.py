@@ -46,7 +46,9 @@ def _dtype_name(leaf) -> str:
 def _to_numpy(leaf) -> np.ndarray:
     """A leaf as the array np.save writes: bf16 as 2-byte void records."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        # a copy: a train step updates its state in place while the
+        # writer thread runs, and .cpu() of a CPU tensor is the tensor
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.dtype("V2"))
         return t.numpy()

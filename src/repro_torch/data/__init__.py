@@ -1,1 +1,2 @@
-"""Procedural few-shot data (a copy of `repro.data`, numpy only)."""
+"""Procedural few-shot data and the LM token pipeline (copies of
+`repro.data`, numpy only)."""

@@ -1,2 +1,3 @@
-"""Launchers (port of `repro.launch`): the hardware-aware trainer and the
-serving launcher (LM decode with the kNN-LM head, multi-tenant search)."""
+"""Launchers (port of `repro.launch`): the LM trainer, the
+hardware-aware trainer and the serving launcher (LM decode with the
+kNN-LM head, multi-tenant search)."""

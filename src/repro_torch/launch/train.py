@@ -1,9 +1,26 @@
-"""Hardware-aware training of the few-shot controller, closed by serving
-(port of `repro.launch.train --hat`; the LM trainer waits for ROADMAP
-Queue A10c):
+"""Training launcher (port of `repro.launch.train` on one device): the
+language-model trainer and hardware-aware training of the few-shot
+controller, closed by serving.
+
+    python -m repro_torch.launch.train --arch starcoder2-3b --smoke \
+        --steps 50 --batch 8 --seq 128 [--device cpu]
+
+trains an LM (`train`): random init from the seed (the port's seeded
+`torch.Generator`: its draws are not jax.random's), deterministic
+step-addressable batches (`data.lm.SyntheticLM`, or stub embeddings for
+the embedding-input archs), `launch/steps.make_train_step` (gradient
+accumulation, int8 error feedback when configured, clipping, the
+optimizer the arch's size calls for, the in-step anomaly guard), and
+fault tolerance: checkpoints of {"params", "opt", "step"} in the JAX
+package's format (`--resume` restarts from the newest), a final
+checkpoint on SIGTERM / SIGINT (`runtime.ft.PreemptionHandler`),
+`AnomalyDetector` and `StepWatchdog`. `--model-parallel` above 1 is
+ROADMAP A9.
 
     python -m repro_torch.launch.train --hat [--device cpu] \
         [--hat-pretrain-steps 40] [--hat-meta-steps 40] [--ckpt-dir DIR]
+
+runs the hardware-aware trainer (`train_hat`):
 
 1. Pretrain a Conv4 controller with a linear head over the training
    classes (plain cross-entropy).
@@ -17,19 +34,21 @@ Queue A10c):
 4. Checkpoint the controller and the last store (the JAX package's
    format).
 
-It runs on the card unless `--device cpu` is given. Each meta step's
-hardware noise is the reference's: `step_key(seed, step)` is the key data
-of `jax.random.fold_in(PRNGKey(seed), step)` (`core.prng`), which
-`engine.noise_stream` folds as the reference folds it. The one documented
-difference from the reference is the controller's random init
-(`init_conv4` draws numpy's normals, not jax.random's).
+Both run on the card unless `--device cpu` (`device=`) is given; without
+a card and without it they raise. Each meta step's hardware noise is the
+reference's: `step_key(seed, step)` is the key data of
+`jax.random.fold_in(PRNGKey(seed), step)` (`core.prng`), which
+`engine.noise_stream` folds as the reference folds it. The documented
+differences from the reference are the random inits (`init_conv4` draws
+numpy's normals, the LM torch's).
 
-Training is reproducible bit for bit on the card: `train_hat` (and so
-the `__main__` entry) first calls `make_deterministic()`, which turns on
-torch's deterministic algorithms and cuDNN's deterministic convolutions
-and sets `CUBLAS_WORKSPACE_CONFIG`. cuBLAS reads that variable when it
-makes its first handle, so a program that does CUDA work before training
-calls `make_deterministic()` before that work.
+Training is reproducible bit for bit on the card: `train` and
+`train_hat` (and so the `__main__` entry) first call
+`make_deterministic()`, which turns on torch's deterministic algorithms
+and cuDNN's deterministic convolutions and sets
+`CUBLAS_WORKSPACE_CONFIG`. cuBLAS reads that variable when it makes its
+first handle, so a program that does CUDA work before training calls
+`make_deterministic()` before that work.
 """
 
 from __future__ import annotations
@@ -43,19 +62,28 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.configs import load_config
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.configs.omniglot_conv4 import FSLConfig, get_smoke_config
 from repro_torch.core.avss import SearchConfig, class_mean_votes
 from repro_torch.core.hat import HATConfig
 from repro_torch.core import prng
 from repro_torch.core.mcam import MCAMConfig
 from repro_torch.data.fsl import EpisodeSampler, OmniglotLike, pretrain_batch
+from repro_torch.data.lm import (LMDataConfig, SyntheticLM,
+                                 embedding_batch_for_step)
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
-from repro_torch.engine.store import resolve_device
+from repro_torch.engine.store import _not_ported, resolve_device
+from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.steps import make_hat_train_steps
+from repro_torch.models import transformer as tfm
 from repro_torch.models.controller import apply_conv4, init_conv4
 from repro_torch.optim import adamw
+from repro_torch.runtime.ft import (AnomalyDetector, PreemptionHandler,
+                                    StepWatchdog)
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_hat_ckpt")
+DEFAULT_LM_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
 #: cuBLAS's reproducible workspace setting (make_deterministic)
 CUBLAS_WORKSPACE = ":4096:8"
 
@@ -101,6 +129,85 @@ def make_deterministic() -> None:
     torch.use_deterministic_algorithms(True)
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def make_batch(cfg, shape: ShapeConfig, data: SyntheticLM, step: int,
+               accum: int, mb: int, device) -> dict:
+    """Step `step`'s global batch as tensors on `device`, every leaf
+    reshaped to (accum, mb, ...): the data source's token ids and labels,
+    or (embedding archs) `embedding_batch_for_step`'s embeddings, labels
+    and, for M-RoPE, positions3."""
+    if cfg.input_mode == "tokens":
+        b = data.batch_for_step(step)
+    else:
+        b = embedding_batch_for_step(step, shape.global_batch, shape.seq_len,
+                                     cfg.d_model, cfg.vocab_size,
+                                     mrope=cfg.rope_type == "mrope")
+    return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(
+        (accum, mb) + v.shape[1:])).to(device) for k, v in b.items()}
+
+
+def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
+          ckpt_dir: str = DEFAULT_LM_CKPT_DIR, resume: bool = False,
+          model_parallel: int = 1, log_every: int = 10,
+          device: torch.device | str | None = None) -> list[float]:
+    """Train `arch` (its smoke config with `smoke`) for `steps` steps of
+    `batch` sequences of `seq` tokens; returns the losses of the steps
+    run (module docstring). Checkpoints every TrainConfig.checkpoint_every
+    steps, and on preemption, under `ckpt_dir`."""
+    make_deterministic()
+    if model_parallel > 1:
+        raise _not_ported(f"--model-parallel {model_parallel} (a mesh)",
+                          "A9")
+    dev = resolve_device(device)
+    cfg = load_config(arch, smoke=smoke)
+    shape = ShapeConfig("custom", seq, batch, "train")
+    tc = TrainConfig(total_steps=steps, checkpoint_dir=ckpt_dir,
+                     learning_rate=1e-3 if smoke else 3e-4)
+    cfg = steps_lib.adapt_config(cfg, shape, 1)
+    mb = steps_lib.microbatch_for(cfg, shape)
+    accum = shape.global_batch // mb
+
+    data = SyntheticLM(LMDataConfig(seq, batch, cfg.vocab_size))
+    step_fn, optimizer = steps_lib.make_train_step(cfg, tc)
+    params = tfm.init(torch.Generator(device=dev).manual_seed(tc.seed), cfg)
+    opt_state = optimizer.init(params)
+
+    mgr = CheckpointManager(ckpt_dir, every=tc.checkpoint_every)
+    start = 0
+    if resume and mgr.latest_step() is not None:
+        start = mgr.latest_step()
+        state = mgr.restore({"params": params, "opt": opt_state,
+                             "step": torch.zeros((), dtype=torch.int32)})
+        params, opt_state = state["params"], state["opt"]
+        print(f"resumed from step {start}")
+
+    pre = PreemptionHandler()
+    anom = AnomalyDetector()
+    dog = StepWatchdog()
+    losses = []
+    for step in range(start, steps):
+        dog.start()
+        b = make_batch(cfg, shape, data, step, accum, mb, dev)
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        loss = float(metrics["loss"])
+        gn = float(metrics["grad_norm"])
+        dt = dog.stop()
+        losses.append(loss)
+        if not anom.check(loss, gn):
+            print(f"step {step}: ANOMALY skipped (loss={loss}, gn={gn})")
+        if step % log_every == 0 or step == steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
+                  f"{dt * 1000:.0f}ms")
+        state = {"params": params, "opt": opt_state,
+                 "step": torch.tensor(step + 1, dtype=torch.int32)}
+        mgr.maybe_save(step + 1, state)
+        if pre.preempted:
+            print("preemption requested -> checkpoint + exit")
+            mgr.maybe_save(step + 1, state, force=True)
+            break
+    mgr.wait()
+    return losses
 
 
 def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
@@ -209,6 +316,17 @@ def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="starcoder2-3b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory (default: under the "
+                         "temporary directory, one for LM runs, one for "
+                         "--hat)")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--hat", action="store_true",
                     help="two-stage hardware-aware training (paper Sec. "
                          "3.3) + the closed train->write->serve loop")
@@ -217,21 +335,26 @@ def main(argv=None) -> None:
     ap.add_argument("--hat-n-way", type=int, default=6)
     ap.add_argument("--hat-k-shot", type=int, default=3)
     ap.add_argument("--hat-eval-episodes", type=int, default=3)
-    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="--hat's seed (an LM run draws from "
+                         "TrainConfig.seed, as the reference's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
-    if not args.hat:
-        ap.error("only --hat is ported; the LM trainer waits for ROADMAP "
-                 "Queue A10c")
-    out = train_hat(args.hat_pretrain_steps, args.hat_meta_steps,
-                    args.hat_n_way, args.hat_k_shot,
-                    eval_episodes=args.hat_eval_episodes,
-                    ckpt_dir=args.ckpt_dir, seed=args.seed,
-                    device=args.device)
-    print(f"HAT done: served acc {out['served_acc']:.3f} "
-          f"(parity={out['parity']}); checkpoints in {out['ckpt_dir']}")
+    if args.hat:
+        out = train_hat(args.hat_pretrain_steps, args.hat_meta_steps,
+                        args.hat_n_way, args.hat_k_shot,
+                        eval_episodes=args.hat_eval_episodes,
+                        ckpt_dir=args.ckpt_dir or DEFAULT_CKPT_DIR,
+                        seed=args.seed, device=args.device)
+        print(f"HAT done: served acc {out['served_acc']:.3f} "
+              f"(parity={out['parity']}); checkpoints in {out['ckpt_dir']}")
+        return
+    losses = train(args.arch, args.smoke, args.steps, args.batch, args.seq,
+                   args.ckpt_dir or DEFAULT_LM_CKPT_DIR, args.resume,
+                   args.model_parallel, device=args.device)
+    print(f"first-10 mean {np.mean(losses[:10]):.4f} -> "
+          f"last-10 mean {np.mean(losses[-10:]):.4f}")
 
 
 if __name__ == "__main__":

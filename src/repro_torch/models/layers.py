@@ -238,7 +238,9 @@ def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + torch.einsum(
             "bkgst,btkd->bkgsd", p.to(vc.dtype), vc).float()
         m_run = m_new
-    o = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    # jnp.maximum, whose gradient splits a tie in half (torch.clamp's not)
+    floor = torch.full((), 1e-30, device=q.device)
+    o = acc / torch.maximum(l_run, floor)[..., None]
     return o.movedim(3, 1).reshape(B, S, H, DV).to(q.dtype)
 
 

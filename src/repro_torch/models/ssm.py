@@ -23,7 +23,12 @@ ROADMAP C.R3): in float32 the two agree within the parity tests'
 tolerance, not bit for bit. mLSTM's key scale 1 / sqrt(dh) divides a
 bf16 tensor by the number rounded to bf16, as JAX does (`layers.div`).
 `jax.nn.log_sigmoid` is `F.logsigmoid` (both min(x, 0) - log1p(exp(-|x|)))
-and `jax.nn.softplus` is written as JAX's logaddexp(x, 0).
+and `jax.nn.softplus` is JAX's logaddexp(x, 0).
+
+Gradients follow jax.grad at kinks and ties too (ROADMAP C.P9): the
+stabiliser's running max is `kinks.cummax` (a tie splits as JAX's
+`associative_scan(max)` splits it), `|x|` is `kinks.abs` (+1 at 0) and
+the softplus `kinks.softplus` (0.5 at 0).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import kinks
 from repro_torch.models.layers import dense_init, div
 
 # --------------------------------------------------------------------------
@@ -110,7 +116,7 @@ def mlstm_apply_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         lfc = lf[:, sl].transpose(1, 2)
         b = torch.cumsum(lfc, -1)                         # decay-from-start
         a = lic - b                                       # log(i_j / decay_j)
-        g = torch.maximum(m_in[..., None], torch.cummax(a, -1).values)
+        g = torch.maximum(m_in[..., None], kinks.cummax(a, -1))
         # intra-chunk weights w[t, j] = exp(a_j - g_t) for j <= t
         w = torch.exp(a[..., None, :] - g[..., :, None])  # (B,H,L,L)
         w = torch.where(causal, w, 0.0)
@@ -124,7 +130,7 @@ def mlstm_apply_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
         nq = sc.sum(-1) + torch.einsum("bhk,blhk,bhl->bhl", n, qc.float(),
                                        inter)
         m_t = b + g                                       # (B,H,L)
-        den = torch.maximum(nq.abs(), torch.exp(-m_t)) + 1e-6
+        den = torch.maximum(kinks.abs(nq), torch.exp(-m_t)) + 1e-6
         hs.append(num / den.transpose(1, 2)[..., None].to(num.dtype))
         # chunk-end state
         g_out = g[..., -1]
@@ -155,7 +161,8 @@ def mlstm_apply_step(p: dict, x1: torch.Tensor, cfg: ModelConfig,
         k[..., :, None] * v[..., None, :])                # (B,H,dh,dh)
     n = n * fp[..., None] + ip[..., None] * k
     num = torch.einsum("bhkv,bhk->bhv", C, q)
-    den = torch.maximum((n * q).sum(-1).abs(), torch.exp(-m_t)) + 1e-6
+    den = torch.maximum(kinks.abs((n * q).sum(-1)), torch.exp(-m_t))
+    den = den + 1e-6
     h = (o * (num / den[..., None]))[:, None]             # (B,1,H,dh)
     y = h.reshape(*x1.shape[:2], -1).to(x1.dtype) @ p["out_proj"]
     return y, {"C": C, "n": n, "m": m_t}
@@ -203,7 +210,7 @@ def _slstm_cell(p: dict, xw: dict, state: dict) -> dict:
     fp = torch.exp(lf + m - m_t)
     c = fp * c + ip * z
     n = fp * n + ip
-    h = o * c / (n.abs() + 1e-6)
+    h = o * c / (kinks.abs(n) + 1e-6)
     return {"c": c, "n": n, "h": h, "m": m_t}
 
 
@@ -273,16 +280,11 @@ def mamba_state_init(cfg: ModelConfig, batch: int,
             "conv": torch.zeros((batch, dc - 1, di), **f32)}
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.softplus: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
-    return x.clamp(min=0) + torch.log1p(torch.exp(-x.abs()))
-
-
 def _mamba_ssm_inputs(p: dict, xz: torch.Tensor, cfg: ModelConfig):
     di, dt_rank, ds, _ = _mamba_dims(cfg)
     x, z = xz[..., :di], xz[..., di:]
     dbc = x @ p["x_proj"]
-    dt = _softplus(dbc[..., :dt_rank] @ p["dt_proj"]
+    dt = kinks.softplus(dbc[..., :dt_rank] @ p["dt_proj"]
                    + p["dt_bias"]).float()                     # (B,S,di)
     Bm = dbc[..., dt_rank:dt_rank + ds].float()                # (B,S,ds)
     Cm = dbc[..., dt_rank + ds:].float()

@@ -9,22 +9,28 @@ positions for MusicGen, M-RoPE's `positions3` for Qwen2-VL).
 Layers are partitioned into groups of consecutive identical layers
 (`ModelConfig.layer_groups`), and each group's parameters are stacked on
 a leading axis, as the JAX package stacks them for `lax.scan`; here a
-Python loop runs the layers of a group, with no remat (training is not
-ported yet). A parameter tree of the JAX package's `init` crosses over
-as numpy arrays through `params_from_numpy`.
+Python loop runs the layers of a group, each layer's parameters one
+`unbind` of the stacked leaves (whose backward is one `stack`, where
+indexing layer by layer would sum a stacked-size zero tensor a layer).
+With `cfg.remat` and gradients enabled, each layer's body runs under
+`torch.utils.checkpoint` (the reference's `jax.checkpoint(body)`): its
+activations are recomputed in backward, with the same bits. A parameter
+tree of the JAX package's `init` crosses over as numpy arrays through
+`params_from_numpy`.
 
 Public API (pure functions over the parameter dict):
   init(gen, cfg)                                   -> params
   forward(params, cfg, batch[, return_cache, last_only])
                                                    -> (logits, aux[, caches])
+  loss_fn(params, cfg, batch)                      -> (loss, aux)
   init_cache(cfg, batch, max_seq, device)          -> caches
   decode_step(params, cfg, batch, caches, pos[, return_hidden])
                                                    -> (logits, caches[, hidden])
   params_from_numpy(params, cfg, device)           -> params
 
 A batch is {"tokens": (B, S) int} or {"embeddings": (B, S, D)}, with
-"positions3" (B, S, 3) for M-RoPE. `Transformer` holds the same dict as
-an nn.Module.
+"positions3" (B, S, 3) for M-RoPE, and "labels" (B, S) for the loss.
+`Transformer` holds the same dict as an nn.Module.
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
@@ -136,15 +142,7 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return params
 
 
-def _tensor_of(a, device) -> torch.Tensor:
-    """A numpy array (or a JAX array through np.asarray) as a tensor with
-    the same bits: bfloat16 arrives as ml_dtypes' bfloat16, which
-    torch.from_numpy rejects, and crosses as its 16-bit words."""
-    a = np.require(np.asarray(a), requirements=["C", "W"])
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+_tensor_of = tree_lib.tensor_of
 
 
 def params_from_numpy(params, cfg: ModelConfig,
@@ -222,23 +220,39 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, is_moe: bool,
     return torch.zeros_like(h)
 
 
+def _unstacked(tree) -> list:
+    """A group's stacked tree as one tree a layer: views from one `unbind`
+    of each leaf."""
+    parts = [a.unbind(0) for a in tree_lib.leaves(tree)]
+    return [tree_lib.unflatten(tree, [p[i] for p in parts])
+            for i in range(len(parts[0]))]
+
+
 def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
                ltype: str, is_moe: bool, *, caches: dict | None = None,
                pos0: int = 0, positions3: torch.Tensor | None = None,
                decode: bool = False, collect_cache: bool = False):
     """The group's stacked layers in order -> (x, stacked new caches or
-    None, load_balance, z_loss)."""
+    None, load_balance, z_loss). With cfg.remat, gradients enabled and no
+    decode, each layer's body is checkpointed (recomputed in backward)."""
     gcfg = _group_cfg(cfg, is_moe)
-    n = tree_lib.leaves(params_g)[0].shape[0]
+    layers = _unstacked(params_g)
+    layer_caches = (_unstacked(caches) if caches is not None
+                    else [None] * len(layers))
+    remat = cfg.remat and not decode and torch.is_grad_enabled()
     lb = zl = torch.zeros((), device=x.device)
     new = []
-    for i in range(n):
-        p = tree_lib.tree_map(lambda a: a[i], params_g)
-        c = None if caches is None else tree_lib.tree_map(lambda a: a[i],
-                                                          caches)
-        x, nc, aux = _layer_apply(p, x, gcfg, ltype, is_moe, cache=c,
-                                  pos0=pos0, positions3=positions3,
-                                  decode=decode)
+
+    def body(p, x, c):
+        return _layer_apply(p, x, gcfg, ltype, is_moe, cache=c, pos0=pos0,
+                            positions3=positions3, decode=decode)
+    for p, c in zip(layers, layer_caches):
+        if remat:
+            # the body draws no random numbers: no RNG state to stash
+            x, nc, aux = checkpoint(body, p, x, c, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, nc, aux = body(p, x, c)
         lb, zl = lb + aux["load_balance"], zl + aux["z_loss"]
         if collect_cache:
             new.append(nc)
@@ -304,6 +318,29 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     if return_cache:
         return logits, aux, caches
     return logits, aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """The reference's vocab-parallel cross entropy (on one device the
+    same sums): logsumexp over the float32 logits minus the label's logit
+    (a one-hot contraction; a label of -1 selects nothing and is masked),
+    averaged over the unmasked positions (at least 1); MoE models add
+    aux_weight * load_balance + 1e-3 * z_loss. Returns (loss, {"nll",
+    "load_balance"}), "nll" being the loss, as the reference returns it."""
+    logits, aux = forward(params, cfg, batch)
+    labels = batch["labels"]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)                          # (B, S)
+    onehot = L.one_hot(labels, cfg.vocab_size, logits.dtype)
+    label_logit = torch.einsum("bsv,bsv->bs", lf, onehot.float())
+    nll = lse - label_logit
+    mask = (labels >= 0).float()
+    loss = torch.div((nll * mask).sum(), torch.clamp(mask.sum(), min=1.0))
+    if cfg.moe is not None:
+        loss = (loss + cfg.moe.aux_weight * aux["load_balance"]
+                + 1e-3 * aux["z_loss"])
+    return loss, {"nll": loss, "load_balance": aux["load_balance"]}
 
 
 # --------------------------------------------------------------------------

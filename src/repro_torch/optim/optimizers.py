@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as tree_lib
+from repro_torch.engine.store import resolve_device
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -68,11 +69,16 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_lib.leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """min(1, max_norm / (norm + 1e-9)): the factor clipping applies."""
+    return torch.clamp(torch.div(torch.full((), float(max_norm),
+                                            device=norm.device),
+                                 norm + 1e-9), max=1.0)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     g = global_norm(grads)
-    scale = torch.clamp(torch.div(torch.full((), float(max_norm),
-                                             device=g.device), g + 1e-9),
-                        max=1.0)
+    scale = clip_scale(g, max_norm)
     return tree_lib.tree_map(lambda x: x * scale.to(x.dtype), grads), g
 
 
@@ -299,3 +305,15 @@ def adamw_state_from_numpy(state: dict, params_from_numpy) -> dict:
     return {"m": m, "v": params_from_numpy(state["v"]),
             "step": torch.tensor(int(state["step"]), dtype=torch.int32,
                                  device=dev)}
+
+
+def state_from_numpy(state: dict, device=None) -> dict:
+    """Carry any optimizer state of the JAX package across as numpy arrays
+    -- adamw's {"m", "v", "step"} (float32 or bfloat16 moments),
+    adamw8bit's int8 blocks and scales, adafactor's factors, sgd's
+    momentum, and the train step's "ef_residual" -- every leaf's bits
+    unchanged (bf16 as its 16-bit words), on `device` (default: the
+    card). The state of a tree whose parameters cross over unchanged (the
+    LM's); Conv4's take `adamw_state_from_numpy`."""
+    dev = resolve_device(device)
+    return tree_lib.tree_map(lambda a: tree_lib.tensor_of(a, dev), state)

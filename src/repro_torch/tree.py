@@ -13,6 +13,9 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
+import torch
+
 SEP = "//"
 
 
@@ -78,9 +81,43 @@ def _build(node, it):
     return next(it)
 
 
+def nodes_at(structure, tree) -> list[Any]:
+    """The nodes of `tree` at the leaf positions of `structure`, in
+    visiting order: `tree` has `structure`'s containers down to its
+    leaves, and any node (a tensor, a dict of tensors) at each of them --
+    as an optimizer's moments hold a state node a parameter."""
+    out: list[Any] = []
+    _nodes(structure, tree, out)
+    return out
+
+
+def _nodes(s, t, out: list) -> None:
+    if s is None:
+        return
+    if isinstance(s, dict):
+        for k in sorted(s):
+            _nodes(s[k], t[k], out)
+    elif isinstance(s, (list, tuple)):
+        for a, b in zip(s, t):
+            _nodes(a, b, out)
+    else:
+        out.append(t)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """fn applied leaf by leaf over trees of one structure."""
     flat = [leaves(t) for t in (tree, *rest)]
     if any(len(f) != len(flat[0]) for f in flat):
         raise ValueError("tree_map: the trees differ in structure")
     return unflatten(tree, [fn(*xs) for xs in zip(*flat)])
+
+
+def tensor_of(a, device) -> torch.Tensor:
+    """A numpy array (or a JAX array through np.asarray) as a tensor with
+    the same bits on `device`: bfloat16 arrives as ml_dtypes' bfloat16,
+    which torch.from_numpy rejects, and crosses as its 16-bit words."""
+    a = np.require(np.asarray(a), requirements=["C", "W"])
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)

@@ -1299,3 +1299,162 @@ def test_knn_head_on_the_card_equals_the_cpu(dev, mode, shards, fmr):
         mode, ("shortlist_blocks" if shards else "shortlist",
                "mcam_rescore"))
     assert all(_build.LAUNCHES[k] > 0 for k in needs), dict(_build.LAUNCHES)
+
+
+# -- LM training (launch/steps.make_train_step) ----------------------------------
+
+# card vs CPU after two float32 train steps (TF32 off): losses within
+# LM_TRAIN_RTOL and grad norms within LM_TRAIN_NORM_RTOL (measured: 6.9e-4,
+# xlstm-350m, whose normaliser amplifies libdevice's last bits); every
+# parameter within LM_TRAIN_RTOL of its leaf's largest entry plus
+# LM_TRAIN_LR_ATOL x lr x steps, but for at most LM_TRAIN_OUTLIERS of a
+# leaf's entries (one at least), which stay within the steps' update
+# budget (2 x lr a step): AdamW moves a weight by about lr x g / |g|, so
+# a weight whose gradient is rounding noise moves by a share of lr that
+# the noise decides (measured: one entry of 16,384 at 0.08 lr,
+# deepseek-v3-671b's embedding); optimizer state within
+# LM_TRAIN_STATE_RTOL of its leaf's largest entry (floored at 1e-3 of the
+# largest of its kind), the same share allowed within 10% of it. xLSTM's
+# normaliser (1 / max(|n.q|, exp(-m))) amplifies libdevice's last bits
+# into its gradients (the grad norms 6.9e-4 apart), so its moments get
+# LM_TRAIN_STATE_RTOL_XLSTM (its second run on the card: 71 of 24,576
+# entries of one moment beyond 1e-3)
+LM_TRAIN_RTOL = 5e-4
+LM_TRAIN_NORM_RTOL = 2e-3
+LM_TRAIN_LR_ATOL = 0.05
+LM_TRAIN_STATE_RTOL = 1e-3
+LM_TRAIN_STATE_RTOL_XLSTM = 1e-2
+LM_TRAIN_OUTLIERS = 1e-3
+LM_TRAIN_ARCHS = ("starcoder2-3b", "llama3-405b", "qwen1.5-110b",
+                  "command-r-plus-104b", "deepseek-moe-16b",
+                  "deepseek-v3-671b", "xlstm-350m", "hymba-1.5b",
+                  "musicgen-medium", "qwen2-vl-7b")
+
+
+def _lm_train_setup(arch: str, dtype: str = "float32"):
+    import dataclasses
+
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(load_config(arch, True), dtype=dtype,
+                              param_dtype=dtype)
+    cfg = steps_lib.adapt_config(cfg, ShapeConfig("s", 16, 4, "train"))
+    step, opt = steps_lib.make_train_step(cfg, TrainConfig(
+        learning_rate=1e-3))
+    params = tfm.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(1)
+    batches = []
+    for _ in range(2):
+        lead = (2, 2, 16)
+        if cfg.input_mode == "tokens":
+            b = {"tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, lead))}
+        else:
+            b = {"embeddings": torch.from_numpy(rng.standard_normal(
+                lead + (cfg.d_model,)).astype(np.float32))}
+            if cfg.rope_type == "mrope":
+                b["positions3"] = torch.from_numpy(rng.integers(
+                    0, 48, lead + (3,)).astype(np.int32))
+        b["labels"] = torch.from_numpy(rng.integers(-1, cfg.vocab_size,
+                                                    lead))
+        batches.append(b)
+    return cfg, step, opt, params, batches
+
+
+def _run_train(step, opt, params, batches, device):
+    from repro_torch import tree as tree_lib
+    p = tree_lib.tree_map(lambda a: a.clone().to(device), params)
+    s = opt.init(p)
+    metrics = []
+    for b in batches:
+        p, s, m = step(p, s, {k: v.to(device) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    return p, s, metrics
+
+
+@pytest.mark.parametrize("arch", LM_TRAIN_ARCHS)
+def test_lm_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """Two float32 train steps (accumulation over 2 microbatches, labels
+    with -1) of every smoke family on the card against the CPU."""
+    from repro_torch import tree as tree_lib
+    _, step, opt, params, batches = _lm_train_setup(arch)
+    gp, gs, gm = _run_train(step, opt, params, batches, dev)
+    cp, cs, cm = _run_train(step, opt, params, batches, "cpu")
+    for a, b in zip(gm, cm):
+        assert a["applied"] == b["applied"] == 1.0
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=LM_TRAIN_RTOL)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"],
+                                   rtol=LM_TRAIN_NORM_RTOL)
+    lr, steps = 1e-3, len(batches)
+    pnames, pleaves = tree_lib.flatten_with_names(gp)
+    for n, g, c in zip(pnames, pleaves, tree_lib.leaves(cp)):
+        assert g.device.type == dev.type
+        w = c.float().numpy()
+        tight = LM_TRAIN_RTOL * np.abs(w).max() + LM_TRAIN_LR_ATOL * lr * steps
+        _mostly_close(n, g, w, tight, tight + 2 * lr * steps)
+    names, gl = tree_lib.flatten_with_names(gs)
+    cl = tree_lib.leaves(cs)
+    tops = {}
+    for n, c in zip(names, cl):
+        tops[n.split("//")[0]] = max(tops.get(n.split("//")[0], 0.0),
+                                     float(c.float().abs().max()))
+    for n, g, c in zip(names, gl, cl):
+        w = c.float().numpy()
+        scale = max(np.abs(w).max(), 1e-3 * tops[n.split("//")[0]])
+        rtol = (LM_TRAIN_STATE_RTOL_XLSTM if arch == "xlstm-350m"
+                else LM_TRAIN_STATE_RTOL)
+        _mostly_close(n, g, w, rtol * scale, 0.1 * scale)
+
+
+def _mostly_close(name: str, got: torch.Tensor, want: np.ndarray,
+                  tight: float, loose: float) -> None:
+    """Every entry within `loose`, and all but LM_TRAIN_OUTLIERS of them
+    (one at least) within `tight`."""
+    diff = np.abs(got.float().cpu().numpy() - want)
+    assert diff.max() <= loose, (name, float(diff.max()), loose)
+    off = int((diff > tight).sum())
+    assert off <= max(1, int(LM_TRAIN_OUTLIERS * diff.size)), (name, off)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "deepseek-moe-16b",
+                                  "xlstm-350m", "hymba-1.5b"])
+def test_lm_train_steps_repeat_bit_for_bit_on_the_card(dev, arch,
+                                                       trainer_settings):
+    """Under `make_deterministic`, two runs of two bf16 train steps from
+    the same start give the same metrics and every parameter and
+    optimizer leaf bit for bit."""
+    from repro_torch import tree as tree_lib
+    _, step, opt, params, batches = _lm_train_setup(arch, "bfloat16")
+    runs = [_run_train(step, opt, params, batches, dev) for _ in range(2)]
+    assert runs[0][2] == runs[1][2]
+    for a, b in zip(tree_lib.leaves(runs[0][:2]),
+                    tree_lib.leaves(runs[1][:2])):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_train_step_divisions_round_once_on_the_card(dev):
+    """ROADMAP C.P7 / C.P8 in the train step: `g / accum` at accum 3 and
+    the int8 codec's `/ 127` are once-rounded divisions on the card (a
+    multiplication by the reciprocal would round twice), equal to the
+    CPU's bit for bit."""
+    from repro_torch.models import layers as L
+    from repro_torch.runtime import compression
+    rng = np.random.default_rng(5)
+    for dt in (torch.float32, torch.bfloat16):
+        g = torch.from_numpy(rng.standard_normal(1 << 16).astype(
+            np.float32)).to(dt)
+        assert torch.equal(L.div(g, 3), L.div(g.to(dev), 3).cpu())
+    # the reciprocal's product differs somewhere: the test can fail
+    assert not torch.equal(L.div(g.float(), 3), g.float() * (1 / 3))
+    x = {"a": torch.from_numpy((rng.standard_normal(4096) * 3).astype(
+        np.float32))}
+    qc, sc = compression.compress(x)
+    qg, sg = compression.compress({"a": x["a"].to(dev)})
+    assert torch.equal(sc["a"], sg["a"].cpu())
+    assert torch.equal(qc["a"], qg["a"].cpu())
+    amax = x["a"].abs().amax()
+    assert torch.equal(sc["a"], torch.div(amax, torch.tensor(127.0))
+                       + 1e-20)
