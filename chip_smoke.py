@@ -195,6 +195,7 @@ fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -293,6 +294,15 @@ PAGER_CLASSES, PAGER_WRITE_ROWS = 65536, 65536
 PAGER_SHARDS, PAGER_GROUP = 256, 4
 PAGER_SLOTS, PAGER_NPROBE, PAGER_BATCHES, PAGER_QUERIES = 16, 4, 8, 64
 LEAVES = ("votes", "dist", "indices", "labels")
+# [sharded]: meshes of positions on the one card ((shape, axis names, the
+# store's shard axes)), the routed nprobe, the streamed write's ragged
+# capacity and batches (the last wraps past the ring's end)
+SHARDED_MESHES = (((8,), ("data",), ("data",)),
+                  ((4, 2), ("data", "model"), ("data", "model")),
+                  ((4, 2), ("data", "model"), ("data",)))
+SHARDED_NPROBE = 2
+SHARDED_WRITE_CAPACITY = 65500
+SHARDED_WRITE_BATCHES = (30000, 30000, 20000)
 # [lm-serve]: the LM serving entry point at full width. The archs (run in
 # turn, the first freed before the second), whether they are cut to their
 # smoke configs (a CPU rehearsal), each serve run's batch, decoded steps
@@ -898,6 +908,13 @@ def run(args, torch) -> int:
                         full16=(q16, full))
     path_ms.update(routed.pop("phases_ms"))
 
+    # -- the store row-sharded over meshes of positions on the card ----------
+    sharded = run_sharded(timing, store, support, labels, queries,
+                          {"two_phase": tp, "ideal": ideal}, (q16, full),
+                          launches)
+    path_ms.update(sharded.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
     # -- the card against the CPU (plain versions) on a small store ----------
     m = 1024
     small_cfg = MemoryConfig(capacity=m, dim=d, search=cfg.search)
@@ -973,6 +990,7 @@ def run(args, torch) -> int:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"phases_ms": {"program": program_ms, **path_ms},
                     "accuracy_two_phase": acc, "routed": routed,
+                    "sharded": sharded,
                     "tenants": tenants, "pager": pager,
                     "lm_serve": lm_serve, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
@@ -1218,9 +1236,202 @@ def run_cub_serve(t, args, launches: dict) -> dict:
                         {"two_phase": tp, "ideal": ideal}, launches,
                         suffix="_cub", nprobes=(ROUTED_KERNEL_NPROBE,))
     path_ms.update(routed.pop("phases_ms"))
+    # [sharded]'s check at this width: two_phase on the (8,) mesh
+    sharded = _sharded_search(t, engine, store, queries, "two_phase", tp,
+                              SHARDED_MESHES[0], launches, "_cub")
+    t.log(f"[sharded cub] two_phase on the (8,) mesh == unsharded: "
+          f"{sharded}")
     return {"program_ms": program_ms, "accuracy_two_phase": acc,
             "accuracy_full": acc_full, "store_mb": mb, "routed": routed,
+            "sharded": sharded,
             "phases_ms": {"cub_program": program_ms, **path_ms}}
+
+
+def _sharded_search(t, engine, store, queries, mode, want, mesh_spec,
+                    launches, suffix="") -> dict:
+    """`mode` (k = 64) of `store` row-sharded over a mesh of positions on
+    the card, with the launch counts zeroed just before and read just
+    after (counted under `<kernel><suffix>`): every leaf and predict()
+    must equal the unsharded result `want`, each shard launching its own
+    shortlist (and rescore) -> {mesh, shards, launches}."""
+    torch = t.torch
+    from repro_torch.engine import SearchRequest
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh
+    shape, names, axes = mesh_spec
+    ms = store.shard(Mesh.repeat(t.dev, shape, names), axes)
+    s = ms.n_shards
+    req = SearchRequest(mode=mode, k=64)
+    _build.reset_launches()
+    res = engine.search(ms, queries, req)
+    t.sync()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _count(launches, counts, suffix)
+    tag = f"[sharded{suffix.replace('_', ' ')}] {mode} {shape} {axes}"
+    if not (_equal_results(torch, res, want)
+            and torch.equal(res.predict(), want.predict())):
+        fail(f"{tag}: differs from the unsharded search")
+    need = {"shortlist": s, **({"mcam_rescore": s}
+                               if mode == "two_phase" else {})}
+    if any(counts.get(k, 0) != v for k, v in need.items()):
+        fail(f"{tag}: launches {counts}, expected {need}")
+    return {"mesh": list(shape), "axes": list(axes), "shards": s,
+            "launches": counts}
+
+
+def run_sharded(t, store, support, labels, queries, exhaustive, full16,
+                launches) -> dict:
+    """[sharded]: the main store row-sharded over meshes of positions on
+    the one card (`SHARDED_MESHES`: 8 shards of 8,192 rows; 4 x 2 over
+    both axes; 4 x 2 over "data", 4 shards each replicated twice).
+    two_phase and ideal on each equal the unsharded search bit for bit,
+    each shard launching its own kernels (`_sharded_search`); host-clock
+    medians and a profiled call of each mode on the (8,) mesh beside the
+    unsharded search's; `full` (B = 16) on the (8,) store equals the
+    unsharded `full`; routed at SHARDED_NPROBE equals the logical
+    partition's routed search; the shard-local write of a ragged store
+    (SHARDED_WRITE_CAPACITY padded to a multiple of 8) in
+    SHARDED_WRITE_BATCHES, the last wrapping past the ring's end across
+    shard boundaries, equals the unsharded write in every leaf (its
+    sketch `shard(mesh)`'s of that store), timed against it; the (8,)
+    store saves 8 tiles a row leaf, restores and re-shards to the same
+    leaves."""
+    import tempfile
+    from collections import Counter
+    torch = t.torch
+    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh
+    engine = RetrievalEngine(store.cfg.search)
+    out, phases = {"searches": []}, {}
+    for spec in SHARDED_MESHES:
+        for mode in ("two_phase", "ideal"):
+            got = _sharded_search(t, engine, store, queries, mode,
+                                  exhaustive[mode], spec, launches)
+            out["searches"].append(got)
+            t.log(f"[sharded] {mode} {got['mesh']} over {got['axes']}: == "
+                  f"unsharded, launches {got['launches']}")
+    m8 = Mesh.repeat(t.dev, *SHARDED_MESHES[0][:2])
+    ms = store.shard(m8)
+    for mode in ("two_phase", "ideal"):
+        req = SearchRequest(mode=mode, k=64)
+        row = {}
+        for name, st in (("unsharded", store), ("mesh8", ms)):
+            ms_ = t.host_ms(lambda st=st: engine.search(st, queries, req))
+            prof = _profile_search(t, lambda st=st: engine.search(
+                st, queries, req))
+            row[name] = {"ms": ms_, **{k: prof[k] for k in (
+                "device_ms", "idle_share", "kernel_launches", "wall_ms",
+                "top_kernels")}}
+            phases[f"sharded_{mode}_{name}"] = ms_
+        out[mode] = row
+        t.log(f"[sharded time] {mode} B=256 k=64: unsharded "
+              f"{row['unsharded']['ms']:.3f} ms (device "
+              f"{row['unsharded']['device_ms']:.3f}, idle "
+              f"{row['unsharded']['idle_share']:.3f}, "
+              f"{row['unsharded']['kernel_launches']} launches); (8,) mesh "
+              f"{row['mesh8']['ms']:.3f} ms (device "
+              f"{row['mesh8']['device_ms']:.3f}, idle "
+              f"{row['mesh8']['idle_share']:.3f}, "
+              f"{row['mesh8']['kernel_launches']} launches)")
+    q16, full = full16
+    req = SearchRequest(mode="full")
+    _build.reset_launches()
+    res = engine.search(ms, q16, req)
+    t.sync()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _count(launches, counts)
+    if counts.get("mcam_search") != 1 or not _equal_results(torch, res,
+                                                           full):
+        fail(f"[sharded] full (B=16) on the (8,) store differs from the "
+             f"unsharded full search, launches {counts}")
+    out["full"] = {name: t.host_ms(lambda st=st: engine.search(st, q16, req))
+                   for name, st in (("unsharded", store), ("mesh8", ms))}
+    t.log(f"[sharded] full B=16 on the (8,) store == unsharded: "
+          f"{out['full']['mesh8']:.3f} ms, unsharded "
+          f"{out['full']['unsharded']:.3f} ms, launches {counts}")
+    logical = store.shard(n_shards=ms.n_shards)
+    for mode in ("two_phase", "ideal"):
+        req = SearchRequest(mode=mode, k=64, nprobe=SHARDED_NPROBE)
+        _build.reset_launches()
+        res = engine.search(ms, queries, req)
+        t.sync()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _count(launches, counts)
+        if not _equal_results(torch, res, engine.search(logical, queries,
+                                                        req)):
+            fail(f"[sharded] routed {mode} nprobe={SHARDED_NPROBE} differs "
+                 f"from the logical partition's")
+        if not 0 < counts.get("shortlist_blocks", 0) <= ms.n_shards:
+            fail(f"[sharded] routed {mode}: launches {counts}")
+        ms_ = t.host_ms(lambda: engine.search(ms, queries, req))
+        ms_logical = t.host_ms(lambda: engine.search(logical, queries, req))
+        phases[f"sharded_routed_{mode}"] = ms_
+        out[f"routed_{mode}"] = {"ms": ms_, "logical_ms": ms_logical,
+                                 "launches": counts}
+        t.log(f"[sharded] routed {mode} nprobe={SHARDED_NPROBE} on the "
+              f"(8,) store == the logical partition's: {ms_:.3f} ms "
+              f"(logical partition {ms_logical:.3f} ms), launches {counts}")
+
+    # the shard-local write-through of a ragged store
+    cfg = dataclasses.replace(store.cfg, capacity=SHARDED_WRITE_CAPACITY)
+    batches, a = [], 0
+    for b in SHARDED_WRITE_BATCHES:
+        idx = torch.arange(a, a + b, device=t.dev) % support.shape[0]
+        batches.append((support[idx], labels[idx]))
+        a += b
+
+    def program(st):
+        for x, lab in batches:
+            st = st.write(x, lab)
+        return st
+    base = MemoryStore.create(cfg).calibrate(support)
+    mbase = base.shard(m8)
+    unsharded, streamed = program(base), program(mbase)
+    t.sync()
+    want = unsharded.shard(n_shards=8)
+    sketch = unsharded.shard(m8)
+    if streamed.capacity != want.capacity or int(streamed.size) != a:
+        fail(f"[sharded write] capacity {streamed.capacity}, size "
+             f"{int(streamed.size)}")
+    for f in ("values", "proj", "proj_packed", "s_grid", "labels"):
+        if not torch.equal(getattr(streamed, f).full(t.dev),
+                           getattr(want, f)):
+            fail(f"[sharded write] {f} differs from the unsharded write")
+    for f in ("sketch_sums", "sketch_counts"):
+        if not torch.equal(getattr(streamed, f).full(t.dev),
+                           getattr(sketch, f).full(t.dev)):
+            fail(f"[sharded write] {f} differs from shard(mesh)'s")
+    w_ms = {"unsharded": t.host_ms(lambda: program(base), reps=3),
+            "mesh8": t.host_ms(lambda: program(mbase), reps=3)}
+    phases.update({f"sharded_write_{k}": v for k, v in w_ms.items()})
+    out["write"] = {"capacity": streamed.capacity, "rows": a, **w_ms}
+    t.log(f"[sharded write] capacity {SHARDED_WRITE_CAPACITY} (padded to "
+          f"{streamed.capacity}) in batches {SHARDED_WRITE_BATCHES}: every "
+          f"leaf == the unsharded write; {w_ms['mesh8']:.2f} ms on the (8,) "
+          f"mesh, {w_ms['unsharded']:.2f} ms unsharded")
+    del base, mbase, unsharded, streamed, want, sketch
+
+    # the tiled checkpoint: 8 tiles a row leaf, restored and re-sharded
+    with tempfile.TemporaryDirectory() as tmp:
+        ms.save(tmp)
+        per_leaf = dict(sorted(Counter(
+            f.name.split(".")[0] for f in
+            (Path(tmp) / "step_0000000000").glob("*.npy")).items()))
+        back = MemoryStore.restore(tmp, store.cfg).shard(m8)
+    t.sync()
+    if sorted(per_leaf.values()) != [1, 1, 1, 8, 8, 8, 8]:
+        fail(f"[sharded ckpt] tiles a leaf {per_leaf}")
+    for f in ("values", "proj", "proj_packed", "s_grid", "labels",
+              "sketch_sums", "sketch_counts"):
+        if not torch.equal(getattr(back, f).full(t.dev),
+                           getattr(ms, f).full(t.dev)):
+            fail(f"[sharded ckpt] {f} differs after save -> restore -> "
+                 f"shard")
+    out["checkpoint_tiles"] = per_leaf
+    t.log(f"[sharded ckpt] save of the (8,) store: tiles a leaf {per_leaf};"
+          f" restore -> shard equal in every leaf")
+    return {**out, "phases_ms": phases}
 
 
 def _equal_results(torch, a, b) -> bool:

@@ -1,10 +1,16 @@
-"""Atomic, manifest-last checkpoints (port of `repro.checkpoint.ckpt`,
-unsharded).
+"""Atomic, manifest-last, tiled checkpoints (port of
+`repro.checkpoint.ckpt`).
 
 The on-disk format is the JAX package's, so a checkpoint written by one
 package restores in the other:
 
-    <directory>/step_%010d/leaf%05d.0.npy   one tile per leaf
+    <directory>/step_%010d/leaf%05d.0.npy   an unsharded leaf, one tile
+    <directory>/step_%010d/leaf%05d.<start0>_<start1>....npy
+                                            a row-sharded leaf (a mesh
+                                            store's `ShardedRows`): one
+                                            tile a shard, keyed by its
+                                            global start; replicas are
+                                            one block, written once
     <directory>/step_%010d/manifest.json    {"step", "leaves": [{"name",
                                              "shape", "dtype"}, ...]}
 
@@ -15,8 +21,8 @@ into place, so a writer that dies leaves no directory that looks
 complete. bfloat16 leaves are stored as numpy's 2-byte void records (what
 `np.save` writes for JAX's bfloat16) with the manifest dtype "bfloat16",
 and read back by their raw 16 bits: the card's machine has no `ml_dtypes`.
-A checkpoint that JAX wrote from sharded arrays (several tiles a leaf) is
-assembled from its tiles. There is no sharded writer (ROADMAP Queue A9).
+Restore assembles a leaf of several tiles, written by either package,
+into the global array.
 """
 
 from __future__ import annotations
@@ -38,9 +44,21 @@ def _leaf_id(i: int) -> str:
 
 
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
-        return str(leaf.dtype).removeprefix("torch.")
+    dtype = getattr(leaf, "dtype", None)
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
     return str(np.asarray(leaf).dtype)
+
+
+def _tiles(leaf) -> list[tuple[str, object]]:
+    """(file key, part) of each tile of a leaf: a row-sharded leaf's
+    non-empty blocks (its `tiles()`) keyed by their global start, as the
+    reference keys a sharded array's addressable shards; any other leaf
+    whole, as tile "0"."""
+    tiled = getattr(leaf, "tiles", None)
+    if tiled is None:
+        return [("0", leaf)]
+    return [("_".join(map(str, start)), part) for start, part in tiled()]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -68,10 +86,11 @@ def save(directory: str, step: int, tree, *, blocking: bool = True,
     before returning). With blocking=False the files are written on a
     thread, which is returned. Keeps the newest `keep` steps (0: all)."""
     names, leaves = tree_lib.flatten_with_names(tree)
-    meta = [{"name": n, "shape": list(np.shape(leaf)),
+    meta = [{"name": n, "shape": list(leaf.shape if hasattr(leaf, "tiles")
+                                      else np.shape(leaf)),
              "dtype": _dtype_name(leaf)} for n, leaf in zip(names, leaves)]
-    tiles = [(f"{_leaf_id(i)}.0.npy", _to_numpy(leaf))
-             for i, leaf in enumerate(leaves)]
+    tiles = [(f"{_leaf_id(i)}.{key}.npy", _to_numpy(part))
+             for i, leaf in enumerate(leaves) for key, part in _tiles(leaf)]
 
     def _write():
         tmp = os.path.join(directory, f".tmp-{step}-0")

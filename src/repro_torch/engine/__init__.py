@@ -1,5 +1,6 @@
 """Retrieval engine: MemoryStore + SearchRequest/SearchResult +
-RetrievalEngine, the router (logical partitions, `nprobe`), TenantStore
+RetrievalEngine, the router (logical partitions, `nprobe`), the
+mesh-sharded search (`shard(mesh, axes)`, engine/sharded.py), TenantStore
 (multi-tenant search) and ShardPager (host-resident shards)."""
 
 from repro_torch.engine.api import SearchRequest, SearchResult

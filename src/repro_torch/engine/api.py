@@ -20,8 +20,9 @@ class SearchRequest:
     (ideal-distance top-k only). k: candidate count of the shortlist
     modes. backend: 'auto' defers to the engine. nprobe: the shards a
     routed search visits on a partitioned store (None: every shard).
-    axes: the multi-device sharded search, not ported yet (ROADMAP Queue
-    A9). fused_min_rows, noisy: per-request overrides of the engine's."""
+    axes: the mesh axes a mesh-sharded store is searched over (None: the
+    store's own; ignored on an unsharded store). fused_min_rows, noisy:
+    per-request overrides of the engine's."""
 
     mode: str = "two_phase"
     k: int = 64

@@ -24,8 +24,17 @@ core (`_routed_block_search`) and one kernel entry
   search_tenants     each query's tenant in a stacked TenantStore
                      (engine/tenant.py); key rows are rows of the tenant
 
-Not ported yet: the multi-device sharded search (`SearchRequest.axes`,
-ROADMAP Queue A9) raises NotImplementedError.
+A mesh-sharded store (`store.shard(mesh, axes)`) is searched shard by
+shard through engine/sharded.py: `two_phase` and `ideal` run each shard's
+block through the kernels on its device and merge the (distance, global
+row, label) triplets on the first shard's device; a routed search
+(`nprobe` < S) runs `_routed_block_search` over each shard's own block
+for the queries whose visit lists name it, then the same merge by
+distance (each candidate's vote merged with it); `full` searches the
+rows assembled with `.full()`. `SearchRequest.axes`
+overrides the store's axes on a mesh store and is ignored on an
+unsharded one, as in the reference. Every result equals the unsharded
+store's bit for bit.
 """
 
 from __future__ import annotations
@@ -43,9 +52,11 @@ from repro_torch.core import quantization as quant_lib
 from repro_torch.core.avss import SearchConfig
 from repro_torch.engine.api import SearchRequest, SearchResult
 from repro_torch.engine import router as router_lib
+from repro_torch.engine import sharded as sharded_lib
 from repro_torch.engine import tenant as tenant_lib
 from repro_torch.engine.backends import resolve_backend
-from repro_torch.engine.store import MemoryStore, _not_ported
+from repro_torch.engine.sharded import _use_fused
+from repro_torch.engine.store import MemoryStore
 from repro_torch.engine.tenant import TenantStore
 from repro_torch.kernels import mcam_dist
 from repro_torch.kernels import mcam_episode
@@ -81,17 +92,6 @@ def noise_stream(key) -> int | None:
 # visit: above every visited row (real distances and the mask penalty stay
 # below 2**23), and every sum stays integer-exact in f32 (< 2**24).
 SHORTLIST_UNVISITED_PENALTY = 2.0 ** 23
-
-
-def _use_fused(backend: str, rows: int, fused_min_rows: int | None) -> bool:
-    """The fused-or-dense rule of every shortlist (port of
-    `repro.engine.sharded._use_fused`): the fused kernel on 'fused', and
-    on any kernel backend once the rows a query ranks reach
-    `fused_min_rows`; 'ref' keeps the dense plain route."""
-    if backend == "fused":
-        return True
-    return (backend != "ref" and fused_min_rows is not None
-            and rows >= fused_min_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,10 +186,10 @@ class RetrievalEngine:
         """Search a programmed MemoryStore, on the store's device.
 
         queries: (B, dim) float embeddings (quantized with the store's
-        calibrated range) or pre-quantized integer words."""
+        calibrated range) or pre-quantized integer words. A mesh store is
+        searched shard by shard (module docstring); results are on its
+        first shard's device."""
         req = request if request is not None else SearchRequest()
-        if req.axes is not None:
-            raise _not_ported("SearchRequest.axes (sharded search)", "A9")
         if store.residency == "host":
             raise ValueError(
                 "RetrievalEngine.search: this store's shards live in host "
@@ -205,7 +205,33 @@ class RetrievalEngine:
         if (req.nprobe is not None and req.mode != "full"
                 and req.nprobe < store.n_shards):
             return eng._search_routed(store, q, req)
-        return eng._search_unsharded(store, q, req)
+        if store.mesh is None:
+            return eng._search_unsharded(store, q, req)
+        if req.mode == "full":
+            return eng._search_unsharded(store.assembled(), q, req)
+        return eng._search_mesh(store, q, req)
+
+    def _search_mesh(self, store: MemoryStore, q: torch.Tensor,
+                     req: SearchRequest) -> SearchResult:
+        """Exhaustive two_phase / ideal of a mesh store: per-shard
+        shortlists (the fused kernel once a shard's rows reach the fused
+        threshold) and, for two_phase, per-shard rescores, merged by
+        engine/sharded.py; `req.axes` overrides the store's axes."""
+        axes = tuple(req.axes) if req.axes is not None else store.axes
+        common = dict(k=req.k, backend=self.resolved_backend,
+                      fused_min_rows=self._fused_threshold(req),
+                      packed=store.proj_packed, pack_bits=store.pack_bits)
+        if req.mode == "two_phase":
+            res = sharded_lib.sharded_two_phase_search(
+                q, store.values, self.cfg, store.mesh, axes,
+                valid=store.valid, labels=store.labels, s_grid=store.s_grid,
+                proj=store.proj, **common)
+        else:
+            res = sharded_lib.sharded_ideal_search(
+                q, store.proj, store.labels, store.mesh, axes, **common)
+        votes = torch.where(res["labels"] >= 0, res["votes"], float("-inf"))
+        return SearchResult(votes, res["dist"], res["indices"], res["labels"],
+                            self._iterations(q.shape[-1]))
 
     # -- routed search -----------------------------------------------------
 
@@ -218,9 +244,13 @@ class RetrievalEngine:
         `q` is quantized."""
         s = store.n_shards
         rows = store.capacity // s
-        scores = router_lib.route_scores(q, store.sketch_sums,
-                                         store.sketch_counts, self.cfg.enc)
+        sums, counts = store.sketch_sums, store.sketch_counts
+        if store.mesh is not None:      # (S, R, d): one block a shard
+            sums, counts = sums.full(store.device), counts.full(store.device)
+        scores = router_lib.route_scores(q, sums, counts, self.cfg.enc)
         ids = router_lib.top_shards(scores, req.nprobe)
+        if store.mesh is not None:
+            return self._routed_mesh(store, q, ids, req)
 
         def blocks(t: torch.Tensor) -> torch.Tensor:
             return t.reshape((s, rows) + tuple(t.shape[1:]))
@@ -305,6 +335,47 @@ class RetrievalEngine:
                                            every, rows)
         top = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
         return shortlist_kernel.split_keys(top)
+
+    def _routed_mesh(self, store: MemoryStore, q: torch.Tensor,
+                     ids: torch.Tensor, req: SearchRequest) -> SearchResult:
+        """The routed search of a mesh store, equal to the unsharded
+        store's: each shard runs `_routed_block_search` over its own
+        block (a one-block table: the block-table entry on the shard's
+        device) for the queries whose visit lists `ids` name it, with
+        their batch positions as noise coordinates; the shards'
+        candidates (distance, global row, label and vote, k_loc = min(k,
+        rows) each) merge on the first shard's device by a stable sort on
+        distance, the unvisited shards' slots at +inf."""
+        s, dev0, B = store.n_shards, store.device, q.shape[0]
+        rows = store.capacity // s
+        k = min(req.k, ids.shape[1] * rows)
+        dist = torch.full((B, s, min(k, rows)), float("inf"), device=dev0)
+        votes = torch.zeros_like(dist)
+        key_rows = torch.full_like(dist, -1, dtype=torch.int64)
+        labels = torch.full_like(dist, -1, dtype=torch.int32)
+        for i in range(s):
+            sel = torch.nonzero((ids == i).any(dim=1))[:, 0]
+            if not len(sel):
+                continue
+            table = BlockTable(
+                proj=store.proj.block(i)[None],
+                proj_packed=store.proj_packed.block(i)[None],
+                s_grid=store.s_grid.block(i)[None],
+                labels=store.labels.block(i)[None],
+                pack_bits=store.pack_bits)
+            dev = table.proj.device
+            res = self._routed_block_search(
+                q[sel].to(dev),
+                torch.zeros(len(sel), 1, dtype=torch.int64, device=dev),
+                torch.full((1,), i * rows, dtype=torch.int64, device=dev),
+                table, req, noise_qidx=sel.to(dev))
+            for buf, part in ((dist, res.dist), (votes, res.votes),
+                              (key_rows, res.indices), (labels, res.labels)):
+                buf[sel, i] = part.to(dev0)
+        take = sharded_lib._merge(dist.reshape(B, -1), k)
+        return SearchResult(*(take(t.reshape(B, -1))
+                              for t in (votes, dist, key_rows, labels)),
+                            self._iterations(q.shape[-1]))
 
     def _lut_dist(self, q: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
         """(B, N) exact LUT distances of query words against projection
@@ -618,3 +689,19 @@ class RetrievalEngine:
                 noise_qidx=noise_qidx)
         return {"votes": votes, "dist": dist, "indices": idx,
                 "iterations": self._iterations(q_values.shape[-1])}
+
+    # -- sharded two-phase search ------------------------------------------
+
+    def sharded_two_phase(self, q_values: torch.Tensor, s_values, mesh,
+                          axes=("data",), k: int = 64,
+                          valid=None) -> dict[str, Any]:
+        """Two-phase search with the supports row-sharded over `axes` of
+        `mesh` (a tensor is split into the shards' blocks here), bit-
+        identical to `two_phase`: each shard shortlists its rows (the
+        fused kernel at and above the engine's `fused_min_rows`), rescores
+        its candidates with global rows as noise coordinates, and the
+        candidates merge by (distance, global row) (engine/sharded.py)."""
+        return sharded_lib.sharded_two_phase_search(
+            q_values, s_values, self.cfg, mesh, axes=axes, k=k, valid=valid,
+            backend=self.resolved_backend,
+            fused_min_rows=self.fused_min_rows)

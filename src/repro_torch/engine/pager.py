@@ -86,6 +86,11 @@ class ShardPager:
     def __init__(self, store: MemoryStore, engine: RetrievalEngine,
                  slots: int | None = None, prefetch: bool = True,
                  device: torch.device | str | None = None) -> None:
+        if store.mesh is not None:
+            raise ValueError(
+                "ShardPager: pass a logically partitioned store "
+                "(MemoryStore.shard(n_shards=S[, residency='host'])); "
+                "mesh-sharded stores are already device-resident")
         if store.n_shards < 2:
             raise ValueError(
                 "ShardPager: pass a partitioned store "

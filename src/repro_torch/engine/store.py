@@ -27,9 +27,22 @@ never-written slots), and the sketch records S contiguous row blocks,
 which `SearchRequest.nprobe` routes over. With `residency="host"` the
 leaves move to host memory (pinned where they came from the card), and
 `engine/pager.ShardPager` pages the visited blocks onto the device.
-Re-sharding starts from the logical `cfg.capacity` rows. `shard(mesh)`
-(multi-device sharding) is not ported yet and raises NotImplementedError
-naming its ROADMAP item.
+Re-sharding starts from the logical `cfg.capacity` rows.
+
+`shard(mesh, axes)` row-shards the store over a `launch/mesh.Mesh`: the
+row fields (values, proj, proj_packed, s_grid, labels) and the sketch
+become `engine/sharded.ShardedRows`, one block a shard on the shard's
+device (the sketch one (1, R, d) block a shard); size, lo and hi stay one
+tensor on the first shard's device, and (mesh, axes) are recorded, so
+`RetrievalEngine.search` takes the sharded path. Reading such a field as
+one tensor raises; the paths that need the global rows (`full` searches,
+routed searches' sketch, `_unpad` and re-sharding) assemble them with
+`.full()`. Writes to a store of more than
+one shard are shard-local (`_program_streamed`): each shard selects, in
+place, the batch rows the ring assigns to its own block, so no store row
+crosses devices; the result equals the unsharded write bit for bit.
+`save` writes one checkpoint tile a shard of each row leaf; `restore`
+returns an unsharded store.
 """
 
 from __future__ import annotations
@@ -45,11 +58,16 @@ from repro_torch.core import quantization as quant_lib
 from repro_torch.core.avss import SearchConfig
 from repro_torch.core.memory import MemoryConfig
 from repro_torch.engine import router as router_lib
+from repro_torch.engine import sharded as sharded_lib
+from repro_torch.engine.sharded import ShardedRows
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch.mesh import Mesh
 
 #: array leaves of the store
 DATA_FIELDS = ("values", "proj", "proj_packed", "s_grid", "labels", "size",
                "lo", "hi", "sketch_sums", "sketch_counts")
+#: the leaves a mesh store row-shards (the sketch is sharded too)
+ROW_FIELDS = ("values", "proj", "proj_packed", "s_grid", "labels")
 #: what `to_numpy` returns and `from_numpy` takes: the leaves and whether
 #: (lo, hi) came from `calibrate`
 STATE_FIELDS = DATA_FIELDS + ("calibrated",)
@@ -113,6 +131,8 @@ class MemoryStore:
     cfg: MemoryConfig
     calibrated: bool = False
     residency: str = "device"
+    mesh: Mesh | None = None
+    axes: tuple[str, ...] = ()
 
     # -- construction --------------------------------------------------------
 
@@ -247,9 +267,17 @@ class MemoryStore:
     def save(self, directory: str, step: int = 0) -> None:
         """Persist the store (values, labels, the write-time proj / s_grid,
         the calibrated range and the ring size) in the JAX package's
-        checkpoint format. A partitioned store saves its logical rows;
-        restore, then `shard` again."""
-        ckpt.save(directory, step, self._unpad().to_state())
+        checkpoint format. A partitioned store saves its logical rows; a
+        mesh store one tile a shard of each row leaf (its logical rows:
+        a ragged store's pad rows are cut from the last blocks). Restore,
+        then `shard` again."""
+        if self.mesh is None:
+            ckpt.save(directory, step, self._unpad().to_state())
+            return
+        n = self.cfg.capacity
+        ckpt.save(directory, step, {
+            k: v.head(n) if isinstance(v, ShardedRows) else v
+            for k, v in self.to_state().items()})
 
     @classmethod
     def restore(cls, directory: str, cfg: MemoryConfig,
@@ -266,23 +294,42 @@ class MemoryStore:
     def shard(self, mesh=None, axes=("data",), *, n_shards: int | None = None,
               residency: str = "device") -> "MemoryStore":
         """Partition the store into `n_shards` contiguous row blocks (see
-        the module docstring): ragged splits pad with label -1, value-0
-        rows, indistinguishable from never-written slots, so top-k results
-        equal the unpartitioned search's for k <= the logical rows. The
-        sketch is rebuilt at S blocks. residency="host" moves every leaf to
-        host memory (pinned when it came from the card); "device" moves a
-        host store's leaves back (to the card when they were pinned).
-        Idempotent: it starts from the logical `cfg.capacity` rows."""
+        the module docstring), or row-shard it over `axes` of `mesh` (S =
+        the product of their sizes, each block on its shard's device):
+        ragged splits pad with label -1, value-0 rows, indistinguishable
+        from never-written slots, so top-k results equal the unpartitioned
+        search's for k <= the logical rows. The sketch is rebuilt at S
+        blocks. residency="host" moves every leaf to host memory (pinned
+        when it came from the card); "device" moves a host store's leaves
+        back (to the card when they were pinned). Idempotent: it starts
+        from the logical `cfg.capacity` rows (a mesh store's assembled with
+        `.full()`), so `shard(mesh_a).shard(mesh_b)` equals
+        `shard(mesh_b)`."""
         if residency not in ("device", "host"):
             raise ValueError(f"unknown residency {residency!r}: expected "
                              f"'device' or 'host'")
+        devices = None
         if mesh is not None:
-            raise _not_ported("shard(mesh) (multi-device sharding)", "A9")
-        if n_shards is None or n_shards < 1:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"MemoryStore.shard: mesh must be a "
+                                f"repro_torch.launch.mesh.Mesh, got "
+                                f"{type(mesh).__name__}")
+            if residency != "device":
+                raise ValueError(
+                    "MemoryStore.shard: mesh-sharded stores are device-"
+                    "resident; residency='host' applies to logical "
+                    "partitions (shard(n_shards=S, residency='host')) "
+                    "paged by engine/pager.ShardPager")
+            axes = tuple(axes)
+            devices = sharded_lib.shard_devices(mesh, axes)
+            n_shards = len(devices)
+        elif n_shards is None or n_shards < 1:
             raise ValueError("MemoryStore.shard: pass a mesh or "
                              "n_shards >= 1")
         base = self._unpad()
         store = base._pad_rows((-base.capacity) % n_shards)
+        if mesh is not None:
+            return store._place(mesh, axes, devices)
         sk_sums, sk_counts = router_lib.build_sketch(
             store.values, store.labels, n_shards,
             self.sketch_sums.shape[1])
@@ -290,12 +337,45 @@ class MemoryStore:
                                     sketch_counts=sk_counts)
         if residency == "host":
             return store._to_host(pin=self.device.type == "cuda"
-                                  or self.values.is_pinned())
+                                  or base.values.is_pinned())
         if self.residency == "host":
             home = "cuda" if self.values.is_pinned() else "cpu"
             store = dataclasses.replace(store, **{
                 f: getattr(store, f).to(home) for f in DATA_FIELDS})
         return store
+
+    def _place(self, mesh: Mesh, axes: tuple[str, ...],
+               devices: list[torch.device]) -> "MemoryStore":
+        """This unsharded store (rows a multiple of the shard count) with
+        its row fields split over `devices`, each shard's sketch built on
+        its own block, and (mesh, axes) recorded."""
+        r = self.sketch_sums.shape[1]
+        rows = {f: ShardedRows.split(getattr(self, f), devices)
+                for f in ROW_FIELDS}
+        sketch = [router_lib.bucket_sums(v, lab, r) for v, lab in
+                  zip(rows["values"].blocks, rows["labels"].blocks)]
+        dev0 = devices[0]
+        return dataclasses.replace(
+            self, **rows, residency="device", mesh=mesh, axes=axes,
+            sketch_sums=ShardedRows(s[None] for s, _ in sketch),
+            sketch_counts=ShardedRows(c[None] for _, c in sketch),
+            size=self.size.to(dev0), lo=self.lo.to(dev0),
+            hi=self.hi.to(dev0))
+
+    def assembled(self) -> "MemoryStore":
+        """A mesh store's rows as an unsharded store on its first shard's
+        device, pad rows included: every row field assembled with
+        `.full()` (a copy of each block), the sketch the sum of the
+        shards' (exact int32). `full` searches of a mesh store run over
+        it."""
+        dev = self.device
+        rows = {f: getattr(self, f).full(dev) for f in ROW_FIELDS}
+        return dataclasses.replace(
+            self, **rows, mesh=None, axes=(),
+            sketch_sums=self.sketch_sums.full(dev).sum(
+                0, keepdim=True).to(torch.int32),
+            sketch_counts=self.sketch_counts.full(dev).sum(
+                0, keepdim=True).to(torch.int32))
 
     def _to_host(self, pin: bool) -> "MemoryStore":
         """Every leaf in host memory, pinned where `pin` (a store of the
@@ -312,7 +392,10 @@ class MemoryStore:
         """Back to the logical view: pad rows dropped, the sketch reset
         to one block and residency "device", so re-sharding always starts
         from the same store. Moves no array between memories (`shard`
-        places them)."""
+        places them), but a mesh store's rows, assembled with `.full()` on
+        its first shard's device."""
+        if self.mesh is not None:
+            return self.assembled()._unpad()
         n = self.cfg.capacity
         base = self
         if self.capacity != n:
@@ -353,7 +436,8 @@ class MemoryStore:
 
     @property
     def device(self) -> torch.device:
-        return self.values.device
+        """The store's device: a mesh store's first shard's."""
+        return self.values.device if self.mesh is None else self.size.device
 
     @property
     def capacity(self) -> int:
@@ -365,8 +449,11 @@ class MemoryStore:
 
     @property
     def n_shards(self) -> int:
-        """Row blocks of the partition: the sketch's leading axis (1 for
-        an unpartitioned store)."""
+        """Row blocks of the partition: derived from the mesh for a
+        mesh store, else the sketch's leading axis (1 for an
+        unpartitioned store)."""
+        if self.mesh is not None:
+            return sharded_lib.n_shards(self.mesh, self.axes)
         return int(self.sketch_sums.shape[0])
 
     @property
@@ -378,7 +465,10 @@ class MemoryStore:
 
     @property
     def valid(self) -> torch.Tensor:
-        """(N,) bool: slots holding a written support."""
+        """(N,) bool: slots holding a written support (a ShardedRows on a
+        mesh store)."""
+        if self.mesh is not None:
+            return self.labels.map(lambda t: t >= 0)
         return self.labels >= 0
 
     # -- programming ---------------------------------------------------------
@@ -403,7 +493,9 @@ class MemoryStore:
     def write(self, vectors, labels) -> "MemoryStore":
         """Program a batch of float support embeddings into the ring buffer:
         quantization, LUT projection, packing and string-grid layout happen
-        here, once."""
+        here, once. A mesh store of more than one shard is written shard
+        by shard (`_program_streamed`); one of a single shard takes the
+        scatter of the unsharded store over its one block."""
         x = torch.as_tensor(vectors).to(device=self.device,
                                         dtype=torch.float32)
         n = x.shape[0]
@@ -422,8 +514,13 @@ class MemoryStore:
         v = _quantize(x, self.cfg.search.enc.levels, self.lo, self.hi)
         lab = torch.as_tensor(labels).to(device=self.device,
                                          dtype=torch.int32)
+        if self.mesh is not None and self.n_shards > 1:
+            return self._program_streamed(v, lab)
         start = int(self.size) % ring
         idx = (start + torch.arange(n, device=self.device)) % ring
+        if self.mesh is not None:
+            return self.assembled()._program(idx, v, lab)._place(
+                self.mesh, self.axes, [self.device])
         return self._program(idx, v, lab)
 
     def _program(self, idx: torch.Tensor, v: torch.Tensor,
@@ -460,6 +557,50 @@ class MemoryStore:
             store = dataclasses.replace(store, **{
                 f: getattr(store, f).pin_memory() for f in DATA_FIELDS})
         return store
+
+    def _program_streamed(self, v: torch.Tensor,
+                          lab: torch.Tensor) -> "MemoryStore":
+        """Shard-local write-through of a quantized batch into a mesh
+        store (port of the reference's `_program_streamed`): the batch's
+        projection, packed words and layout are computed once, on the
+        first shard's device, and copied to each shard's (a replicated
+        batch); each shard inverts the ring for every row of its block
+        (j = (g - start) mod capacity for global row g; written iff j < n
+        and g < capacity, so pad rows stay pads), selects in place and
+        rebuilds its own sketch. No scatter, and no store row leaves its
+        device; equal, bit for bit, to the unsharded write, wraparound
+        across shard boundaries included."""
+        enc, ring, n = self.cfg.search.enc, self.cfg.capacity, v.shape[0]
+        start = int(self.size) % ring
+        proj = kernel_ops.support_projection(v, enc)
+        batch = {"values": v, "proj": proj,
+                 "proj_packed": kernel_ops.pack_projection(proj, enc),
+                 "s_grid": _layout(v, self.cfg), "labels": lab}
+        r = self.sketch_sums.block(0).shape[1]
+        out = {f: [] for f in ROW_FIELDS}
+        sums, counts = [], []
+        g0 = 0
+        for i in range(len(self.values.blocks)):
+            old_values = self.values.block(i)
+            dev, rows = old_values.device, old_values.shape[0]
+            g = torch.arange(g0, g0 + rows, device=dev)
+            j = torch.remainder(g - start, ring)
+            written = (j < n) & (g < ring)
+            jc = torch.clamp(j, max=n - 1)
+            for f in ROW_FIELDS:
+                old = getattr(self, f).block(i)
+                w = written.reshape((-1,) + (1,) * (old.dim() - 1))
+                out[f].append(torch.where(w, batch[f].to(dev)[jc].to(
+                    old.dtype), old))
+            s, c = router_lib.bucket_sums(out["values"][i], out["labels"][i],
+                                          r)
+            sums.append(s[None])
+            counts.append(c[None])
+            g0 += rows
+        return dataclasses.replace(
+            self, **{f: ShardedRows(b) for f, b in out.items()},
+            sketch_sums=ShardedRows(sums), sketch_counts=ShardedRows(counts),
+            size=self.size + n)
 
     def quantize_queries(self, queries) -> torch.Tensor:
         """Float embeddings -> quantized query words ([0, 4) for AVSS,

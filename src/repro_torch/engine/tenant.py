@@ -77,6 +77,10 @@ class TenantStore:
             raise ValueError("TenantStore.stack: need at least one store")
         first = stores[0]
         for i, s in enumerate(stores):
+            if s.mesh is not None:
+                raise ValueError(
+                    f"TenantStore.stack: store {i} is sharded; stack "
+                    f"unsharded stores (shard-of-stacks is not supported)")
             if s.n_shards != 1 or s.residency != "device":
                 raise ValueError(
                     f"TenantStore.stack: store {i} is partitioned; stack "

@@ -3,7 +3,7 @@ train step and the execution knobs it depends on (`adapt_config`,
 `microbatch_for`, `optimizer_for`), the two-stage hardware-aware
 trainer's steps, and the LM's prefill and serve steps with the kNN-LM
 head over the MCAM store. The mesh-sharded variants, the sharding trees
-and the dry-run's input specs wait for ROADMAP Queue A9, as do the
+and the dry-run's input specs wait for ROADMAP Queue A9b, as do the
 reference's `REPRO_OPT` levels (sharding and tuning knobs of its TPU
 meshes): this module has the `REPRO_OPT=0` semantics."""
 

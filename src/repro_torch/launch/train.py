@@ -15,7 +15,7 @@ fault tolerance: checkpoints of {"params", "opt", "step"} in the JAX
 package's format (`--resume` restarts from the newest), a final
 checkpoint on SIGTERM / SIGINT (`runtime.ft.PreemptionHandler`),
 `AnomalyDetector` and `StepWatchdog`. `--model-parallel` above 1 is
-ROADMAP A9.
+ROADMAP A9b.
 
     python -m repro_torch.launch.train --hat [--device cpu] \
         [--hat-pretrain-steps 40] [--hat-meta-steps 40] [--ckpt-dir DIR]
@@ -158,7 +158,7 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     make_deterministic()
     if model_parallel > 1:
         raise _not_ported(f"--model-parallel {model_parallel} (a mesh)",
-                          "A9")
+                          "A9b")
     dev = resolve_device(device)
     cfg = load_config(arch, smoke=smoke)
     shape = ShapeConfig("custom", seq, batch, "train")

@@ -258,7 +258,8 @@ def test_store_round_trip_in_the_port(tmp_path):
     ts.save(str(tmp_path))
     back = MemoryStore.restore(str(tmp_path), tcfg, device="cpu")
     for f in MemoryStore.__dataclass_fields__:
-        if f not in ("cfg", "calibrated", "residency"):
+        if f not in ("cfg", "calibrated", "residency", "mesh", "axes"):
             assert torch.equal(getattr(back, f), getattr(ts, f)), f
     assert back.residency == ts.residency == "device"
+    assert back.mesh is ts.mesh is None and back.axes == ts.axes == ()
     _same_results(_port_results(back, tcfg, q), _port_results(ts, tcfg, q))

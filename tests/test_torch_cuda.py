@@ -1127,6 +1127,73 @@ def test_paged_search_on_the_card_matches_the_device_twin(dev):
     assert pager.transfers["staged"] > 0
 
 
+# -- the mesh-sharded store (engine/sharded.py), 8 positions on the card ------
+
+
+def _card_mesh(dev, shape=(8,), names=("data",)):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh.repeat(dev, shape, names)
+
+
+@pytest.mark.parametrize("shape,names,axes", [
+    ((8,), ("data",), ("data",)),
+    ((4, 2), ("data", "model"), ("data", "model")),
+    ((4, 2), ("data", "model"), ("data",))])
+@pytest.mark.parametrize("mode", ["two_phase", "ideal", "full"])
+def test_sharded_search_on_the_card_equals_unsharded(dev, shape, names,
+                                                     axes, mode):
+    """A 4,096-row store on 8 positions of the card (fused shortlists of
+    512-row shards, per-shard rescores): every result equals the
+    unsharded store's search on the card bit for bit, each shard
+    launching its own kernels; routed at nprobe 2 equals the logical
+    partition's."""
+    _, gpu, q = _routed_pair(dev)
+    base = gpu._unpad()
+    ms = base.shard(_card_mesh(dev, shape, names), axes)
+    eng = RetrievalEngine(base.cfg.search, fused_min_rows=256)
+    req = SearchRequest(mode=mode, k=64)
+    want = eng.search(base, q, req)
+    _build.reset_launches()
+    got = eng.search(ms, q, req)
+    torch.cuda.synchronize()
+    for f in ("votes", "dist", "indices", "labels"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    if mode != "full":
+        assert _build.LAUNCHES["shortlist"] == ms.n_shards
+        assert _build.LAUNCHES["mcam_rescore"] == (
+            ms.n_shards if mode == "two_phase" else 0)
+        routed = SearchRequest(mode=mode, k=64, nprobe=2)
+        got = eng.search(ms, q, routed)
+        want = eng.search(base.shard(n_shards=ms.n_shards), q, routed)
+        torch.cuda.synchronize()
+        for f in ("votes", "dist", "indices", "labels"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_sharded_write_on_the_card_equals_unsharded(dev):
+    """The shard-local write-through on the card (capacity 4,004 padded to
+    4,008 over 8; three batches, the last wrapping across shard
+    boundaries) equals the unsharded write in every leaf, its sketch the
+    logical partition's."""
+    rng = np.random.default_rng(5)
+    cfg = MemoryConfig(capacity=4004, dim=48,
+                       search=avss_lib.SearchConfig("mtmc", cl=32))
+    x = rng.standard_normal((5000, 48)).astype(np.float32)
+    lab = rng.integers(0, 256, 5000)
+    base = MemoryStore.create(cfg, device=dev).calibrate(x)
+    ms = base.shard(_card_mesh(dev))
+    assert ms.capacity == 4008
+    for a, b in ((0, 1500), (1500, 3000), (3000, 5000)):
+        base = base.write(x[a:b], lab[a:b])
+        ms = ms.write(x[a:b], lab[a:b])
+    want = base.shard(n_shards=8)
+    torch.cuda.synchronize()
+    for f in ("values", "proj", "proj_packed", "s_grid", "labels",
+              "sketch_sums", "sketch_counts"):
+        assert torch.equal(getattr(ms, f).full(dev), getattr(want, f)), f
+    assert int(ms.size) == 5000
+
+
 # -- the LM serving path (launch/serve, the kNN-LM head) ------------------------
 
 # card vs CPU logits of a bf16 dense smoke model: cuBLAS and the CPU round

@@ -219,14 +219,22 @@ def test_store_lifecycle_errors():
 
 
 def test_unported_features_name_their_roadmap_item():
+    """The retrieval half of ROADMAP A9 is ported (A9a): `shard` takes a
+    `launch/mesh.Mesh` and refuses anything else, and
+    `SearchRequest.axes` is ignored on an unsharded store, as the
+    reference ignores it (tests/test_torch_sharded.py holds the sharded
+    searches against the JAX package); the LM half (A9b) names its item
+    in the trainer (tests/test_torch_train_entry.py)."""
     jcfg, tcfg = _configs(8)
     st = MemoryStore.create(tcfg, device="cpu")
     eng = RetrievalEngine(tcfg.search)
     q = np.zeros((1, 48), np.int32)
-    for call in (lambda: st.shard(object()),
-                 lambda: eng.search(st, q, SearchRequest(axes=("data",)))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A9"):
-            call()
+    with pytest.raises(TypeError, match="must be a repro_torch.launch.mesh"):
+        st.shard(object())
+    plain = eng.search(st, q, SearchRequest())
+    axes = eng.search(st, q, SearchRequest(axes=("data",)))
+    for f in ("votes", "dist", "indices", "labels"):
+        assert torch.equal(getattr(plain, f), getattr(axes, f)), f
 
 
 def test_carry_across_with_from_numpy(programmed):

@@ -310,7 +310,7 @@ def test_request_validation():
         st.shard()
     with pytest.raises(ValueError, match="residency"):
         st.shard(n_shards=2, residency="disk")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A9"):
+    with pytest.raises(TypeError, match="must be a repro_torch.launch.mesh"):
         st.shard(object())
 
 
