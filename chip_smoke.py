@@ -165,6 +165,24 @@ the seed, under the trainer's deterministic settings):
                 microbatch 4 (accumulation over 2); a smoke model with an
                 inf weight steps with applied 0 and every leaf unchanged.
                 No MCAM kernel launches in the phase.
+ 12. [lm-mesh]  the LM's sharding layer on meshes of positions of the
+                card: starcoder2-3b's train step (full width, B 8 x
+                1,024) with parameters, AdamW state and batches placed on
+                the reference test's (2, 2, 2) pod / data / model mesh
+                (`param_shardings`, `opt_shardings`, `input_specs`, under
+                `active_mesh`) equals the unplaced step bit for bit over
+                3 steps (losses, grad norms, every leaf's checksum), with
+                each side's step ms, a profiled step, peak memory and the
+                bytes a position holds; `train(model_parallel=2)` equals
+                `model_parallel=1` over 2 steps; [hat]'s full-width meta
+                step on an episode placed over (4,) "data" positions
+                equals the unplaced one (its dense and backward kernels
+                launched); `runtime/pipeline.pipeline_apply` of 4
+                tanh(h @ W) stages of d = 3,072 over 6 microbatches
+                equals the sequential loop; the legacy
+                `core.memory.distributed_search` on the main store over
+                (8,) positions equals the unsharded two_phase (8
+                shortlist and 8 rescore launches).
 
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
@@ -365,6 +383,19 @@ LM_TRAIN_GUARD_ARCH = "starcoder2-3b"
 # the attention range is forward only: autograd runs backward outside it)
 LM_TRAIN_KERNEL_KINDS = {k: v for k, v in LM_KERNEL_KINDS.items()
                          if k != "mcam"}
+
+# [lm-mesh]: starcoder2-3b's step placed on the reference test's (2, 2, 2)
+# mesh at full width (B 8 x 1,024), against the unplaced step; train()
+# at model_parallel 2 against 1; the HAT meta step on a (4,) data mesh;
+# the pipeline over (4,) stages of starcoder2-3b's width; the memory
+# shims' distributed_search on the main store over (8,)
+LM_MESH_ARCH = "starcoder2-3b"
+LM_MESH = ((2, 2, 2), ("pod", "data", "model"))
+LM_MESH_B, LM_MESH_S, LM_MESH_STEPS = 8, 1024, 3
+LM_MESH_TRAIN_STEPS = 2
+HAT_MESH = (4,)
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS, PIPE_D = 4, 6, 1024, 3072
+SHIM_MESH = (8,)
 
 MIN_ACCURACY = 0.95
 REPS = 5                        # timed runs per measurement (median)
@@ -959,6 +990,7 @@ def run(args, torch) -> int:
     episode = run_episode(timing, args.seed)
     hat = run_hat(timing, args, launches)
     path_ms.update(hat.pop("phases_ms"))
+    hat_episode = hat.pop("episode_arrays")
     torch.cuda.empty_cache()
     cub = run_cub(timing, args, launches)
     path_ms.update(cub.pop("phases_ms"))
@@ -973,6 +1005,12 @@ def run(args, torch) -> int:
     # -- LM training at full width -------------------------------------------
     lm_train = run_lm_train(timing, args, card)
     path_ms.update(lm_train.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
+    # -- the LM's sharding layer on meshes of positions ----------------------
+    lm_mesh = run_lm_mesh(timing, args, card, store, queries, hat_episode,
+                          launches)
+    path_ms.update(lm_mesh.pop("phases_ms"))
     bwd = hat["backward"]
     row("mcam_episode", "mcam_episode.cu",
         "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
@@ -994,7 +1032,8 @@ def run(args, torch) -> int:
                     "tenants": tenants, "pager": pager,
                     "lm_serve": lm_serve, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
-                    "optim": optim, "lm_train": lm_train, "card": card}))
+                    "optim": optim, "lm_train": lm_train,
+                    "lm_mesh": lm_mesh, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2484,8 +2523,8 @@ class _TrainSpy:
         self.records, self.last = [], None
         steps_lib.make_train_step = self._make
 
-    def _make(self, cfg, tc):
-        step_fn, optimizer = self.real(cfg, tc)
+    def _make(self, cfg, tc, **kw):
+        step_fn, optimizer = self.real(cfg, tc, **kw)
 
         def spied(params, opt_state, batch):
             self.t.sync()
@@ -2510,11 +2549,14 @@ class _TrainSpy:
 def _checksums(torch, tree) -> list:
     """Per leaf, two sums over its bits (as integers, one weighted by the
     position mod 65,521), in int64 and in chunks: equal lists mean equal
-    leaves but for a collision."""
+    leaves but for a collision. A placed leaf is assembled first, one at a
+    time."""
     from repro_torch import tree as tree_lib
+    from repro_torch.models.sharding import Placed
     ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     out = []
     for leaf in tree_lib.leaves(tree):
+        leaf = leaf.full() if isinstance(leaf, Placed) else leaf
         flat = leaf.detach().reshape(-1)
         if flat.is_floating_point():
             flat = flat.view(ints[flat.element_size()])
@@ -2753,6 +2795,320 @@ def run_lm_train(t, args, card: str) -> dict:
     if counts:
         fail(f"[lm-train] launched MCAM kernels: {counts}")
     out["mcam_launches"] = 0
+    out["phases_ms"] = phases_ms
+    return out
+
+
+def _held_bytes(tree, positions) -> dict:
+    """Bytes of a placed tree: per mesh position (the blocks it holds),
+    of every block stored once (replicas and blocks shared by positions
+    on one device once), and of the leaves themselves."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.models.sharding import Placed
+    leaves = [x for x in tree_lib.leaves(tree) if isinstance(x, Placed)]
+    return {"per_position": [sum(x.nbytes_at(pos) for x in leaves)
+                             for pos in positions],
+            "stored": sum(x.nbytes for x in leaves),
+            "leaves": sum(x.numel() * x.block(positions[0]).element_size()
+                          for x in leaves)}
+
+
+def run_lm_mesh(t, args, card: str, store, queries, hat_episode: dict,
+                launches: dict) -> dict:
+    """[lm-mesh]: the LM's sharding layer on meshes of positions of the
+    card. (1) starcoder2-3b's train step at full width (B LM_MESH_B x
+    LM_MESH_S, the trainer's settings) on the reference test's (2, 2, 2)
+    pod / data / model mesh under `active_mesh`: parameters and state
+    placed by `param_shardings` / `opt_shardings`, batches by
+    `input_specs`; LM_MESH_STEPS steps equal the unplaced step's bit for
+    bit (losses, grad norms, every parameter and state leaf's checksums);
+    each side's step ms, one profiled step (idle share, launches), peak
+    memory, and the placed side's bytes per position against its leaves'.
+    (2) `train(model_parallel=2)` for LM_MESH_TRAIN_STEPS steps equals
+    `model_parallel=1` bit for bit (one card: a (1, 1) host mesh). (3)
+    The Omniglot meta step of [hat]'s episode placed over a (4,) "data"
+    mesh equals the unplaced step bit for bit. (4) `pipeline_apply` of
+    tanh(h @ W) stages at d = PIPE_D over a (4,) "pipe" mesh equals the
+    sequential loop over each microbatch bit for bit. (5) The legacy
+    shim `core.memory.distributed_search` on the main store over (8,)
+    equals the unsharded two_phase search bit for bit."""
+    import contextlib
+    import gc
+    import tempfile
+    import warnings
+
+    import numpy as np
+    torch, dev, log = t.torch, t.dev, t.log
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.omniglot_conv4 import get_config
+    from repro_torch.core import memory as mem_lib
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.engine import RetrievalEngine, SearchRequest
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.controller import apply_conv4
+    from repro_torch.models.sharding import active_mesh, place, rules_for_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.pipeline import pipeline_apply
+
+    out, phases_ms = {}, {}
+    t0_phase = time.perf_counter()
+
+    # -- (1) the train step placed on (2, 2, 2) against the unplaced step ---
+    B, S = LM_MESH_B, LM_MESH_S
+    mesh = Mesh.repeat(dev, *LM_MESH)
+    positions = list(np.ndindex(mesh.devices.shape))
+    rules = rules_for_mesh(mesh)
+    shape = ShapeConfig("custom", S, B, "train")
+    dp = int(np.prod([mesh.shape[a] for a in rules.batch]))
+    cfg = steps_lib.adapt_config(load_config(LM_MESH_ARCH, smoke=LM_SMOKE),
+                                 shape, dp)
+    tc = TrainConfig(learning_rate=1e-3 if LM_SMOKE else 3e-4)
+    data = SyntheticLM(LMDataConfig(S, B, cfg.vocab_size))
+    batches = [train_lib.make_batch(cfg, shape, data, step, 1, B, dev)
+               for step in range(LM_MESH_STEPS)]
+    runs = {}
+    _build.reset_launches()
+    for placed in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = active_mesh(mesh, rules) if placed else contextlib.nullcontext()
+        with ctx:
+            step_fn, optimizer = steps_lib.make_train_step(
+                cfg, tc, rules=rules if placed else None)
+            params = tfm.init(torch.Generator(device=dev).manual_seed(
+                args.seed), cfg)
+            inputs, held = batches, None
+            if placed:
+                aps = tfm.abstract_params(cfg)
+                psh = steps_lib.param_shardings(cfg, mesh, rules)
+                params = place(params, psh)
+                opt_state = place(optimizer.init(params),
+                                  steps_lib.opt_shardings(
+                                      optimizer.init(aps), aps, psh, mesh,
+                                      rules))
+                specs = steps_lib.input_specs(cfg, shape, mesh, rules)
+                inputs = [place(b, {k: v.sharding for k, v in specs.items()})
+                          for b in batches]
+                held = _held_bytes((params, opt_state), positions)
+            else:
+                opt_state = optimizer.init(params)
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            recs = []
+            for b in inputs:
+                t.sync()
+                t0 = time.perf_counter()
+                params, opt_state, m = step_fn(params, opt_state, b)
+                t.sync()
+                recs.append({"ms": (time.perf_counter() - t0) * 1e3,
+                             **{k: float(v) for k, v in m.items()}})
+            peak = torch.cuda.max_memory_allocated()
+            sums = _checksums(torch, (params, opt_state))
+            prof = _profile_search(
+                t, lambda: step_fn(params, opt_state, inputs[-1]),
+                LM_TRAIN_KERNEL_KINDS)
+        runs[placed] = {"losses": [r["loss"] for r in recs],
+                        "grad_norms": [r["grad_norm"] for r in recs],
+                        "applied": [r["applied"] for r in recs],
+                        "step_ms_all": [r["ms"] for r in recs],
+                        "step_ms": statistics.median(r["ms"]
+                                                     for r in recs[1:]),
+                        "peak_memory_bytes": peak, "sums": sums,
+                        "held_bytes": held,
+                        "profile": {k: prof[k] for k in (
+                            "wall_ms", "device_ms", "idle_share",
+                            "kernel_launches", "device_ms_by_kind")}}
+        del step_fn, params, opt_state, inputs, m, prof
+    a, b = runs[False], runs[True]
+    if (a["losses"] != b["losses"] or a["grad_norms"] != b["grad_norms"]
+            or a["sums"] != b["sums"]
+            or any(x != 1.0 or not math.isfinite(y) for x, y in zip(
+                a["applied"] + b["applied"], a["losses"] + b["losses"]))):
+        bad = [i for i, (x, y) in enumerate(zip(a["sums"], b["sums"]))
+               if x != y]
+        fail(f"[lm-mesh] the placed step differs from the unplaced: losses "
+             f"{a['losses']} vs {b['losses']}, norms {a['grad_norms']} vs "
+             f"{b['grad_norms']}, leaves {bad[:8]}")
+    for r in runs.values():
+        r.pop("sums")
+    out["train_step"] = {"arch": cfg.name, "mesh": list(LM_MESH[0]),
+                         "axes": list(LM_MESH[1]), "batch": B, "seq": S,
+                         "unplaced": a, "placed": b, "bit_for_bit": True}
+    held = b["held_bytes"]
+    log(f"[lm-mesh] {cfg.name} B {B} x S {S} on {LM_MESH[0]} "
+        f"{LM_MESH[1]} positions of the card: {LM_MESH_STEPS} steps equal "
+        f"the unplaced step bit for bit (losses "
+        f"{[round(x, 4) for x in b['losses']]}, grad norms "
+        f"{[round(x, 3) for x in b['grad_norms']]}, every parameter and "
+        f"state leaf); step {b['step_ms']:.1f} ms placed, "
+        f"{a['step_ms']:.1f} ms unplaced; peak "
+        f"{b['peak_memory_bytes'] / 1e9:.2f} / "
+        f"{a['peak_memory_bytes'] / 1e9:.2f} GB; bytes a position "
+        f"{min(held['per_position']) / 1e9:.3f}-"
+        f"{max(held['per_position']) / 1e9:.3f} GB, stored "
+        f"{held['stored'] / 1e9:.2f} GB against "
+        f"{held['leaves'] / 1e9:.2f} GB of leaves ({card})")
+    for name, r in (("placed", b), ("unplaced", a)):
+        pr = r["profile"]
+        log(f"[lm-mesh] {name} profiled step: wall {pr['wall_ms']:.1f} ms, "
+            f"device {pr['device_ms']:.1f} ms, idle share "
+            f"{pr['idle_share']:.3f}, {pr['kernel_launches']} kernel "
+            f"launches, by kind "
+            f"{ {k: round(v, 3) for k, v in pr['device_ms_by_kind'].items()} }"
+            f" ({card})")
+    phases_ms["lm_mesh_step_placed"] = b["step_ms"]
+    phases_ms["lm_mesh_step_unplaced"] = a["step_ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (2) train(model_parallel=2) against model_parallel=1 -------------
+    spy = _TrainSpy(t, steps_lib)
+    mp_runs = {}
+    try:
+        for mp in (1, 2):
+            spy.reset()
+            gc.collect()
+            torch.cuda.empty_cache()
+            with tempfile.TemporaryDirectory() as ckpt:
+                losses = train_lib.train(LM_MESH_ARCH, LM_SMOKE,
+                                         LM_MESH_TRAIN_STEPS, B, S, ckpt,
+                                         model_parallel=mp, device=dev)
+            _, p_, o_, _ = spy.last
+            mp_runs[mp] = {"losses": losses,
+                           "grad_norms": [r["grad_norm"]
+                                          for r in spy.records],
+                           "step_ms": [r["ms"] for r in spy.records],
+                           "sums": _checksums(torch, (p_, o_))}
+            del p_, o_
+            spy.reset()
+    finally:
+        spy.close()
+    if (mp_runs[1]["losses"] != mp_runs[2]["losses"]
+            or mp_runs[1]["sums"] != mp_runs[2]["sums"]):
+        fail(f"[lm-mesh] train(model_parallel=2) differs from 1: "
+             f"{mp_runs[1]['losses']} vs {mp_runs[2]['losses']}")
+    for r in mp_runs.values():
+        r.pop("sums")
+    out["train_model_parallel"] = {"1": mp_runs[1], "2": mp_runs[2],
+                                   "bit_for_bit": True}
+    log(f"[lm-mesh] train({LM_MESH_ARCH}, model_parallel=2) on a (1, 1) "
+        f"host mesh: {LM_MESH_TRAIN_STEPS} steps equal model_parallel=1 bit "
+        f"for bit (losses {mp_runs[2]['losses']}, every parameter and "
+        f"state leaf); steps {[round(x, 1) for x in mp_runs[2]['step_ms']]}"
+        f" ms ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (3) the HAT meta step on a (4,) "data" mesh -----------------------
+    fsl = get_config()
+    hat_cfg = train_lib.hat_config(fsl)
+    hat = {}
+    for m_ in (None, Mesh.repeat(dev, HAT_MESH, ("data",))):
+        meta_opt = adamw(1e-4, weight_decay=1e-4)
+        _, meta_step, place_fn = steps_lib.make_hat_train_steps(
+            apply_conv4, hat_cfg, meta_opt, n_way=fsl.n_way, device=dev,
+            mesh=m_)
+        params = {"backbone": train_lib.init_params(
+            fsl, fsl.n_train_classes, args.seed, HAT_WIDTH, dev)["backbone"]}
+        state = meta_opt.init(params)
+        arrays = place_fn(hat_episode)
+        key = train_lib.step_key(args.seed, 0)
+        meta_step(params, state, arrays, key)     # warm-up (out of place)
+        _build.reset_launches()
+        t.sync()
+        t0 = time.perf_counter()
+        params, state, loss = meta_step(params, state, arrays, key)
+        t.sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _count(launches, counts)
+        hat["placed" if m_ is not None else "unplaced"] = {
+            "loss": float(loss), "ms": ms, "launches": counts,
+            "sums": _checksums(torch, (params, state))}
+    if (hat["placed"]["loss"] != hat["unplaced"]["loss"]
+            or hat["placed"]["sums"] != hat["unplaced"]["sums"]):
+        fail(f"[lm-mesh] the placed HAT meta step differs: {hat}")
+    for r in hat.values():
+        r.pop("sums")
+    out["hat_meta_step"] = {**hat, "mesh": list(HAT_MESH),
+                            "bit_for_bit": True}
+    log(f"[lm-mesh] HAT meta step ({fsl.n_way}-way {fsl.k_shot}-shot) with "
+        f"the episode placed on {HAT_MESH} data positions: loss "
+        f"{hat['placed']['loss']:.6f}, equal to the unplaced step bit for "
+        f"bit; {hat['placed']['ms']:.1f} / {hat['unplaced']['ms']:.1f} ms "
+        f"(after a warm-up call), launches {hat['placed']['launches']} "
+        f"({card})")
+
+    # -- (4) the pipeline over (4,) stages -----------------------------------
+    pmesh = Mesh.repeat(dev, (PIPE_STAGES,), ("pipe",))
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    Ws = torch.randn((PIPE_STAGES, PIPE_D, PIPE_D), generator=gen,
+                     device=dev) / math.sqrt(PIPE_D)
+    x = torch.randn((PIPE_MICRO, PIPE_ROWS, PIPE_D), generator=gen,
+                    device=dev)
+
+    def stage(W, h):
+        return torch.tanh(h @ W)
+
+    def sequential():
+        outs = []
+        for mb in range(PIPE_MICRO):
+            h = x[mb]
+            for i in range(PIPE_STAGES):
+                h = stage(Ws[i], h)
+            outs.append(h)
+        return torch.stack(outs)
+    got = pipeline_apply(stage, Ws, x, pmesh)
+    want = sequential()
+    t.sync()
+    if not torch.equal(got, want):
+        fail(f"[lm-mesh] pipeline_apply differs from the sequential loop: "
+             f"max abs {float((got - want).abs().max())}")
+    pipe_ms = t.host_ms(lambda: pipeline_apply(stage, Ws, x, pmesh))
+    seq_ms = t.host_ms(sequential)
+    out["pipeline"] = {"stages": PIPE_STAGES, "microbatches": PIPE_MICRO,
+                       "rows": PIPE_ROWS, "d": PIPE_D, "bit_for_bit": True,
+                       "ms": pipe_ms, "sequential_ms": seq_ms}
+    log(f"[lm-mesh] pipeline_apply: {PIPE_STAGES} tanh(h @ W) stages of d "
+        f"{PIPE_D} over {PIPE_MICRO} microbatches of {PIPE_ROWS} rows on "
+        f"(4,) pipe positions equals the sequential loop bit for bit; "
+        f"{pipe_ms:.2f} ms against {seq_ms:.2f} ms ({card})")
+    del Ws, x, got, want
+
+    # -- (5) the legacy shim distributed_search over (8,) ------------------
+    smesh = Mesh.repeat(dev, SHIM_MESH, ("data",))
+    state = store.to_state()
+    req = SearchRequest(mode="two_phase", k=64)
+    want = RetrievalEngine(store.cfg.search).search(store, queries, req)
+
+    def shim():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return mem_lib.distributed_search(state, queries, store.cfg,
+                                              smesh, axes=("data",), k=64)
+    _build.reset_launches()
+    got = shim()
+    t.sync()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _count(launches, counts)
+    if not all(torch.equal(got[k], getattr(want, k)) for k in LEAVES):
+        fail("[lm-mesh] distributed_search differs from the unsharded "
+             "two_phase search")
+    shim_ms = t.host_ms(shim, reps=3)
+    out["shims"] = {"rows": store.capacity, "mesh": list(SHIM_MESH),
+                    "bit_for_bit": True, "launches": counts,
+                    "distributed_search_ms": shim_ms}
+    log(f"[lm-mesh] core.memory.distributed_search on {store.capacity} rows "
+        f"over {SHIM_MESH} data positions equals the unsharded two_phase "
+        f"bit for bit; launches {counts}; {shim_ms:.2f} ms a call (host "
+        f"clock, from the dict state: rebuilds the packed table and the "
+        f"shards) ({card})")
+    phases_ms["lm_mesh"] = (time.perf_counter() - t0_phase) * 1e3
     out["phases_ms"] = phases_ms
     return out
 
@@ -3266,6 +3622,9 @@ def run_hat(t, args, launches: dict) -> dict:
            "episode_host_ms": episode_host_ms, "served_accuracy": acc,
            "forward": forward, "backward": backward,
            "agreement": agree, "meta_step_trace": trace,
+           "episode_arrays": {k: getattr(ep, k) for k in (
+               "support_images", "support_labels", "query_images",
+               "query_labels")},
            "phases_ms": {"hat_meta_step": statistics.median(meta_times),
                          "hat_pretrain_step": statistics.median(pre_times)}}
     t.log(f"[hat] step times: pretrain {pre_times} ms, meta {meta_times} ms; "

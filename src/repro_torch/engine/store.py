@@ -108,11 +108,6 @@ def _layout(values: torch.Tensor, cfg: MemoryConfig) -> torch.Tensor:
     return grid.to(torch.int8).contiguous()
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch: {what} is not ported yet (ROADMAP Queue {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class MemoryStore:
     """Programmed MCAM store (see module docstring). Lifecycle: create ->

@@ -1,6 +1,6 @@
-"""Training launcher (port of `repro.launch.train` on one device): the
-language-model trainer and hardware-aware training of the few-shot
-controller, closed by serving.
+"""Training launcher (port of `repro.launch.train`): the language-model
+trainer and hardware-aware training of the few-shot controller, closed
+by serving.
 
     python -m repro_torch.launch.train --arch starcoder2-3b --smoke \
         --steps 50 --batch 8 --seq 128 [--device cpu]
@@ -14,13 +14,18 @@ optimizer the arch's size calls for, the in-step anomaly guard), and
 fault tolerance: checkpoints of {"params", "opt", "step"} in the JAX
 package's format (`--resume` restarts from the newest), a final
 checkpoint on SIGTERM / SIGINT (`runtime.ft.PreemptionHandler`),
-`AnomalyDetector` and `StepWatchdog`. `--model-parallel` above 1 is
-ROADMAP A9b.
+`AnomalyDetector` and `StepWatchdog`. The run happens under the host's
+mesh (`launch/mesh.make_host_mesh(--model-parallel)`: every CUDA device
+as (n / mp, mp) data x model, mp clamped to the device count, so one
+card or the CPU gives (1, 1)) and its rules, whose data-parallel width
+sets the MoE token groups, as the reference's does; the parameters stay
+unplaced, as the reference leaves them.
 
     python -m repro_torch.launch.train --hat [--device cpu] \
         [--hat-pretrain-steps 40] [--hat-meta-steps 40] [--ckpt-dir DIR]
 
-runs the hardware-aware trainer (`train_hat`):
+runs the hardware-aware trainer (`train_hat`), its batches and episodes
+placed over the host mesh's data axis (`make_hat_train_steps`' `place`):
 
 1. Pretrain a Conv4 controller with a linear head over the training
    classes (plain cross-entropy).
@@ -73,10 +78,12 @@ from repro_torch.data.fsl import EpisodeSampler, OmniglotLike, pretrain_batch
 from repro_torch.data.lm import (LMDataConfig, SyntheticLM,
                                  embedding_batch_for_step)
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
-from repro_torch.engine.store import _not_ported, resolve_device
+from repro_torch.engine.store import resolve_device
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_hat_train_steps
 from repro_torch.models import transformer as tfm
+from repro_torch.models.sharding import active_mesh, gathered, rules_for_mesh
 from repro_torch.models.controller import apply_conv4, init_conv4
 from repro_torch.optim import adamw
 from repro_torch.runtime.ft import (AnomalyDetector, PreemptionHandler,
@@ -156,57 +163,61 @@ def train(arch: str, smoke: bool, steps: int, batch: int, seq: int,
     run (module docstring). Checkpoints every TrainConfig.checkpoint_every
     steps, and on preemption, under `ckpt_dir`."""
     make_deterministic()
-    if model_parallel > 1:
-        raise _not_ported(f"--model-parallel {model_parallel} (a mesh)",
-                          "A9b")
     dev = resolve_device(device)
     cfg = load_config(arch, smoke=smoke)
     shape = ShapeConfig("custom", seq, batch, "train")
     tc = TrainConfig(total_steps=steps, checkpoint_dir=ckpt_dir,
                      learning_rate=1e-3 if smoke else 3e-4)
-    cfg = steps_lib.adapt_config(cfg, shape, 1)
+    mesh = make_host_mesh(model_parallel, device)
+    rules = rules_for_mesh(mesh)
+    dp = int(np.prod([mesh.shape[a] for a in rules.batch]))
+    cfg = steps_lib.adapt_config(cfg, shape, dp)
     mb = steps_lib.microbatch_for(cfg, shape)
     accum = shape.global_batch // mb
 
     data = SyntheticLM(LMDataConfig(seq, batch, cfg.vocab_size))
-    step_fn, optimizer = steps_lib.make_train_step(cfg, tc)
-    params = tfm.init(torch.Generator(device=dev).manual_seed(tc.seed), cfg)
-    opt_state = optimizer.init(params)
+    with active_mesh(mesh, rules):
+        step_fn, optimizer = steps_lib.make_train_step(cfg, tc, rules=rules)
+        params = tfm.init(torch.Generator(device=dev).manual_seed(tc.seed),
+                          cfg)
+        opt_state = optimizer.init(params)
 
-    mgr = CheckpointManager(ckpt_dir, every=tc.checkpoint_every)
-    start = 0
-    if resume and mgr.latest_step() is not None:
-        start = mgr.latest_step()
-        state = mgr.restore({"params": params, "opt": opt_state,
-                             "step": torch.zeros((), dtype=torch.int32)})
-        params, opt_state = state["params"], state["opt"]
-        print(f"resumed from step {start}")
+        mgr = CheckpointManager(ckpt_dir, every=tc.checkpoint_every)
+        start = 0
+        if resume and mgr.latest_step() is not None:
+            start = mgr.latest_step()
+            state = mgr.restore({"params": params, "opt": opt_state,
+                                 "step": torch.zeros((),
+                                                     dtype=torch.int32)})
+            params, opt_state = state["params"], state["opt"]
+            print(f"resumed from step {start}")
 
-    pre = PreemptionHandler()
-    anom = AnomalyDetector()
-    dog = StepWatchdog()
-    losses = []
-    for step in range(start, steps):
-        dog.start()
-        b = make_batch(cfg, shape, data, step, accum, mb, dev)
-        params, opt_state, metrics = step_fn(params, opt_state, b)
-        loss = float(metrics["loss"])
-        gn = float(metrics["grad_norm"])
-        dt = dog.stop()
-        losses.append(loss)
-        if not anom.check(loss, gn):
-            print(f"step {step}: ANOMALY skipped (loss={loss}, gn={gn})")
-        if step % log_every == 0 or step == steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
-                  f"{dt * 1000:.0f}ms")
-        state = {"params": params, "opt": opt_state,
-                 "step": torch.tensor(step + 1, dtype=torch.int32)}
-        mgr.maybe_save(step + 1, state)
-        if pre.preempted:
-            print("preemption requested -> checkpoint + exit")
-            mgr.maybe_save(step + 1, state, force=True)
-            break
-    mgr.wait()
+        pre = PreemptionHandler()
+        anom = AnomalyDetector()
+        dog = StepWatchdog()
+        losses = []
+        for step in range(start, steps):
+            dog.start()
+            b = make_batch(cfg, shape, data, step, accum, mb, dev)
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            loss = float(metrics["loss"])
+            gn = float(metrics["grad_norm"])
+            dt = dog.stop()
+            losses.append(loss)
+            if not anom.check(loss, gn):
+                print(f"step {step}: ANOMALY skipped (loss={loss}, "
+                      f"gn={gn})")
+            if step % log_every == 0 or step == steps - 1:
+                print(f"step {step:5d} loss {loss:.4f} gnorm {gn:.3f} "
+                      f"{dt * 1000:.0f}ms")
+            state = {"params": params, "opt": opt_state,
+                     "step": torch.tensor(step + 1, dtype=torch.int32)}
+            mgr.maybe_save(step + 1, state)
+            if pre.preempted:
+                print("preemption requested -> checkpoint + exit")
+                mgr.maybe_save(step + 1, state, force=True)
+                break
+        mgr.wait()
     return losses
 
 
@@ -229,10 +240,12 @@ def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
     test_ids = np.arange(fsl.n_train_classes,
                          fsl.n_train_classes + fsl.n_test_classes)
     hat_cfg = hat_config(fsl)
+    mesh = make_host_mesh(1, device)               # DP over the devices
     pre_opt = adamw(1e-3, weight_decay=1e-4)
     meta_opt = adamw(1e-4, weight_decay=1e-4)  # gentle: adapt, don't destroy
     pre_step, meta_step, place = make_hat_train_steps(
-        apply_conv4, hat_cfg, pre_opt, meta_opt, n_way=n_way, device=dev)
+        apply_conv4, hat_cfg, pre_opt, meta_opt, n_way=n_way, device=dev,
+        mesh=mesh)
 
     # stage 1: transferable features (plain CE, full training label set)
     params = init_params(fsl, len(train_ids), seed, width, dev)
@@ -276,7 +289,7 @@ def train_hat(pretrain_steps: int = 40, meta_steps: int = 40,
     store = None
     with torch.no_grad():
         for e in range(eval_episodes):
-            ep = place(vars(eval_sampler.episode(e)))
+            ep = gathered(place(vars(eval_sampler.episode(e))))
             s_emb = apply_conv4(backbone, ep["support_images"])
             q_emb = apply_conv4(backbone, ep["query_images"])
             s_lab = ep["support_labels"]

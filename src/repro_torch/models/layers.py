@@ -4,10 +4,13 @@ attention with its decode cache, DeepSeek-V3's multi-head latent
 attention (MLA) with its absorbed decode over cached latents, and MLPs.
 
 Parameters are nested dicts of tensors applied by pure functions, as in
-the JAX package. Its sharding hints (`aconstrain`, `PARAM_LOGICAL`,
-`param_specs`) place nothing on one device and are not ported, nor are
-the `REPRO_OPT` branches (TPU sharding tunings): this module has the
-`REPRO_OPT=0` semantics and reads no environment variable.
+the JAX package. Parameter layouts are resolved from leaf NAMES
+(`PARAM_LOGICAL`, `logical_for`, `param_specs`: the reference's table,
+with its `REPRO_OPT` level 1 embedding rows read from the environment
+when this module is imported, as the reference reads them); the
+activation hints (`sharding.aconstrain`) sit where the reference's do
+and change no value. `REPRO_OPT` >= 4 makes the norm multiply in the
+compute dtype (`apply_norm`), as the reference's level 4 does.
 
 Numerics follow the reference: norms take their statistics in float32
 (population variance, rsqrt(var + 1e-6)) and cast back to the compute
@@ -30,14 +33,82 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+import re
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree as tree_lib
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.models.sharding import ParamSpec, aconstrain
 
 INT32_MAX = 2**31 - 1
+
+# --------------------------------------------------------------------------
+# Name -> logical axes registry. Arrays may carry extra LEADING axes (layer
+# stacking); logical tuples are right-aligned and left-padded with None.
+# --------------------------------------------------------------------------
+
+# REPRO_OPT level 1: embeddings vocab-sharded only (FSDP-sharding d_model
+# makes the unembed contraction partial-sum the float32 logits over the
+# data axis); level 0: FSDP + vocab. Any value but "0" is level 1 here,
+# as in the reference.
+_EMBED_VOCAB_ONLY = os.environ.get("REPRO_OPT", "0") != "0"
+
+_EMBED_LOGICAL = ([(r"^unembed$", (None, "tensor")),
+                   (r"^embed$", ("tensor", None))] if _EMBED_VOCAB_ONLY else
+                  [(r"^unembed$", ("fsdp", "tensor")),
+                   (r"^embed$", ("tensor", "fsdp"))])
+
+PARAM_LOGICAL = _EMBED_LOGICAL + [
+    (r"pos_embed$", (None, "fsdp")),
+    (r"w[qkv]$", ("fsdp", "tensor", None)),
+    (r"b[qkv]$", ("tensor", None)),
+    (r"wo$", ("tensor", None, "fsdp")),
+    (r"w[13]$", ("fsdp", "tensor")),
+    (r"w2$", ("tensor", "fsdp")),
+    (r"wq_a$|wkv_a$", ("fsdp", None)),
+    (r"wq_b$|wkv_b$", (None, "tensor", None)),
+    (r"wo_mla$", ("tensor", None, "fsdp")),
+    (r"router$", ("fsdp", None)),
+    (r"we[13]$", ("expert", None, "fsdp")),
+    (r"we2$", ("expert", "fsdp", None)),
+    (r"w_gates$", ("fsdp", "tensor")),
+    (r"w_ogate$", ("fsdp", "tensor", None)),
+    (r"r_(z|i|f|o)$", ("tensor", None, None)),
+    (r"w_(z|i|f|o)$", ("fsdp", "tensor", None)),
+    (r"in_proj$", ("fsdp", "tensor")),
+    (r"out_proj$", ("tensor", "fsdp")),
+    (r"conv_w$", (None, "tensor")),
+    (r"x_proj$", ("tensor", None)),
+    (r"dt_proj$", (None, "tensor")),
+    (r"a_log$", ("tensor", None)),
+    (r"head_w$", ("fsdp", "tensor")),
+    # everything else (norm scales, small biases, gate vectors): replicated
+    (r".", ()),
+]
+
+# REPRO_OPT level (the norm reads level 4), read when imported
+OPT_LEVEL = int(os.environ.get("REPRO_OPT", "0") or 0)
+
+
+def logical_for(name: str, ndim: int) -> tuple:
+    for pat, logical in PARAM_LOGICAL:
+        if re.search(pat, name):
+            pad = ndim - len(logical)
+            return (None,) * pad + tuple(logical)
+    return (None,) * ndim
+
+
+def param_specs(params) -> object:
+    """A tree of ParamSpec mirroring `params` (tensors, meta tensors or
+    anything with `.ndim`), by each leaf's own key."""
+    names, leaves = tree_lib.flatten_with_names(params)
+    return tree_lib.unflatten(params, [
+        ParamSpec(logical_for(n.split(tree_lib.SEP)[-1], leaf.ndim))
+        for n, leaf in zip(names, leaves)])
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -102,6 +173,17 @@ def norm_init(cfg: ModelConfig, device: torch.device, dim=None) -> dict:
 
 def apply_norm(p: dict, x: torch.Tensor, cfg: ModelConfig,
                eps: float = 1e-6) -> torch.Tensor:
+    if OPT_LEVEL >= 4:
+        # statistics in float32, the products in the compute dtype
+        xf = x.float()
+        if cfg.norm == "layernorm":
+            mu = xf.mean(-1, keepdim=True)
+            var = xf.var(-1, keepdim=True, correction=0)
+            inv = torch.rsqrt(var + eps)
+            return ((x - mu.to(x.dtype)) * inv.to(x.dtype)
+                    * p["scale"].to(x.dtype) + p["nbias"].to(x.dtype))
+        var = (xf * xf).mean(-1, keepdim=True)
+        return x * torch.rsqrt(var + eps).to(x.dtype) * p["scale"].to(x.dtype)
     xf = x.float()
     if cfg.norm == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -302,6 +384,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = aconstrain(q, "batch", None, "tensor", None)
+    k = aconstrain(k, "batch", None, "tensor", None)
+    v = aconstrain(v, "batch", None, "tensor", None)
     qpos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
     sc = _rope_for(cfg, qpos, positions3)
     if sc is not None:
@@ -328,7 +413,9 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                           chunk=0, kv_valid=valid.expand(B, T),
                           softcap=cfg.logit_softcap)
         new_cache = {"k": ck, "v": cv, "kpos": kp}
+    y = aconstrain(y, "batch", None, "tensor", None)
     y = torch.einsum("bshk,hkd->bsd", y, p["wo"])
+    y = aconstrain(y, "batch", None, None)
     return y, new_cache
 
 
@@ -391,7 +478,8 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     B, S, _ = x.shape
     H = cfg.n_heads
     cq = _rms(x @ p["wq_a"], p["q_norm"])
-    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    q = aconstrain(torch.einsum("bsr,rhk->bshk", cq, p["wq_b"]),
+                   "batch", None, "tensor", None)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     kv_a = x @ p["wkv_a"]
     c_kv = _rms(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
@@ -403,7 +491,8 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
 
     if cache is None:
-        kv = torch.einsum("bsr,rhn->bshn", c_kv, p["wkv_b"])
+        kv = aconstrain(torch.einsum("bsr,rhn->bshn", c_kv, p["wkv_b"]),
+                        "batch", None, "tensor", None)
         k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             B, S, H, m.qk_rope_dim)], -1)
@@ -431,6 +520,7 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         y = torch.einsum("bshr,rhv->bshv", o_lat, w_uv)
         new_cache = {"ckv": ckv, "krope": krp, "kpos": kp}
     y = torch.einsum("bshv,hvd->bsd", y, p["wo_mla"])
+    y = aconstrain(y, "batch", None, None)
     return y, new_cache
 
 
@@ -472,13 +562,14 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = _ACTS[cfg.mlp_act]
-    h = x @ p["w1"]
+    h = aconstrain(x @ p["w1"], "batch", None, "tensor")
     if cfg.mlp_bias:
         h = h + p["mb1"]
     h = act(h)
     if cfg.mlp_gated:
-        h = h * (x @ p["w3"])
+        h = h * aconstrain(x @ p["w3"], "batch", None, "tensor")
     y = h @ p["w2"]
+    y = aconstrain(y, "batch", None, None)
     if cfg.mlp_bias:
         y = y + p["mb2"]
     return y

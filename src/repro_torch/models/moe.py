@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models.layers import dense_init, div, one_hot
+from repro_torch.models.sharding import Rules, constrain
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig,
@@ -50,10 +51,13 @@ def _capacity(tokens_per_group: int, m: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for clean tiling
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig
-              ) -> tuple[torch.Tensor, dict]:
-    """x (B, S, D) -> (y, aux) with aux = {load_balance, z_loss}."""
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              rules: Rules | None = None) -> tuple[torch.Tensor, dict]:
+    """x (B, S, D) -> (y, aux) with aux = {load_balance, z_loss}. `rules`
+    names the layouts of the token groups and the expert queues
+    (`sharding.constrain`; no value changes)."""
     m: MoEConfig = cfg.moe
+    rules = rules or Rules(batch=(), fsdp=(), tensor=(), expert=())
     B, S, D = x.shape
     T = B * S
     G = min(m.groups, T)
@@ -61,6 +65,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig
         G -= 1
     Sg = T // G
     xt = x.reshape(G, Sg, D)
+    xt = constrain(xt, rules, "batch", None, None)
 
     logits = xt.float() @ p["router"]                         # (G,Sg,E)
     probs = torch.softmax(logits, dim=-1)
@@ -78,13 +83,17 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig
     # one-hot queue slots (G,Sg,k,E,C); dropped choices select none
     slot_oh = one_hot(torch.where(within, pos, C), C + 1, x.dtype)[..., :C]
     dispatch = (slot_oh * within[..., None].to(x.dtype)).sum(2)
+    dispatch = constrain(dispatch, rules, "batch", None, "expert", None)
     combine = (slot_oh * (gate[..., None, None]
                           * within[..., None].float()).to(x.dtype)).sum(2)
+    combine = constrain(combine, rules, "batch", None, "expert", None)
 
     xe = torch.einsum("gsd,gsec->gecd", xt, dispatch)
+    xe = constrain(xe, rules, "batch", "expert", None, None)
     h = torch.einsum("gecd,edf->gecf", xe, p["we1"])
     h = F.silu(h) * torch.einsum("gecd,edf->gecf", xe, p["we3"])
     ye = torch.einsum("gecf,efd->gecd", h, p["we2"])
+    ye = constrain(ye, rules, "batch", "expert", None, None)
     y = torch.einsum("gecd,gsec->gsd", ye, combine)
 
     if m.n_shared:

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import kinks
 from repro_torch.models.layers import dense_init, div
+from repro_torch.models.sharding import aconstrain
 
 # --------------------------------------------------------------------------
 # mLSTM
@@ -69,7 +70,7 @@ def mlstm_init(gen: torch.Generator, cfg: ModelConfig,
 
 def _mlstm_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     H = cfg.n_heads
-    xin = x @ p["in_proj"]
+    xin = aconstrain(x @ p["in_proj"], "batch", None, "tensor")
     q = torch.einsum("bsd,dhk->bshk", xin, p["wq"])
     k = div(torch.einsum("bsd,dhk->bshk", xin, p["wk"]),
             math.sqrt(q.shape[-1]))
@@ -307,7 +308,7 @@ def mamba_apply_seq(p: dict, xin: torch.Tensor, cfg: ModelConfig,
     di, _, ds, dc = _mamba_dims(cfg)
     if state is None:
         state = mamba_state_init(cfg, B, xin.device)
-    xz = xin @ p["in_proj"]
+    xz = aconstrain(xin @ p["in_proj"], "batch", None, "tensor")
     # depthwise causal conv over time, seeded with the conv ring state
     xpad = torch.cat([state["conv"].to(xz.dtype), xz[..., :di]], 1)
     idx = (torch.arange(S, device=xin.device)[:, None]

@@ -20,13 +20,25 @@ tree of the JAX package's `init` crosses over as numpy arrays through
 
 Public API (pure functions over the parameter dict):
   init(gen, cfg)                                   -> params
-  forward(params, cfg, batch[, return_cache, last_only])
+  forward(params, cfg, batch[, return_cache, last_only, rules])
                                                    -> (logits, aux[, caches])
-  loss_fn(params, cfg, batch)                      -> (loss, aux)
+  loss_fn(params, cfg, batch[, rules])             -> (loss, aux)
   init_cache(cfg, batch, max_seq, device)          -> caches
-  decode_step(params, cfg, batch, caches, pos[, return_hidden])
+  decode_step(params, cfg, batch, caches, pos[, return_hidden, rules])
                                                    -> (logits, caches[, hidden])
   params_from_numpy(params, cfg, device)           -> params
+  abstract_params(cfg) / shardings(cfg, mesh, rules)
+
+`rules` (`models/sharding.Rules`) names the activations' layouts at the
+reference's `constrain` sites; without it every name resolves to
+unsharded. A parameter leaf may be a `sharding.Placed` tensor: the
+top-level leaves are assembled once a call, and a group's stacked leaves
+one layer at a time inside the layer's (checkpointed) body, so no whole
+second copy of the model exists; gradients flow back into the blocks.
+The reference's `REPRO_OPT` level 2 (an XLA optimization barrier on
+each block output, `_barrier`) and level 5 (the decode residual's
+layout, `_decode_stream`) change no value; they sit where the
+reference's do.
 
 A batch is {"tokens": (B, S) int} or {"embeddings": (B, S, D)}, with
 "positions3" (B, S, 3) for M-RoPE, and "labels" (B, S) for the loss.
@@ -48,6 +60,10 @@ from repro_torch.engine.store import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.sharding import (NamedSharding, Rules, aconstrain,
+                                         constrain, gathered, legalize_spec)
+
+_NO_RULES = Rules(batch=(), fsdp=(), tensor=(), expert=())
 
 PORTED_LAYERS = ("attn", "swa", "mla", "hymba", "hymba_g", "mlstm", "slstm")
 
@@ -161,9 +177,25 @@ def params_from_numpy(params, cfg: ModelConfig,
 # --------------------------------------------------------------------------
 
 
+def _barrier(y: torch.Tensor) -> torch.Tensor:
+    """REPRO_OPT level 2: the reference's `optimization_barrier` on a block
+    output, which keeps XLA from hoisting the next norm's float32 upcast
+    above the tensor-parallel psum. Eager PyTorch runs the ops as written,
+    so at every level this is the identity."""
+    return y
+
+
+def _decode_stream(x: torch.Tensor, decode: bool) -> torch.Tensor:
+    """REPRO_OPT level 5: the decode residual stream's layout, its hidden
+    dim over the FSDP axes (`aconstrain`: no value changes)."""
+    if decode and L.OPT_LEVEL >= 5:
+        x = aconstrain(x, "batch", None, "fsdp")
+    return x
+
+
 def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
-                 is_moe: bool, *, cache: dict | None = None, pos0: int = 0,
-                 positions3: torch.Tensor | None = None,
+                 is_moe: bool, rules: Rules, *, cache: dict | None = None,
+                 pos0: int = 0, positions3: torch.Tensor | None = None,
                  decode: bool = False) -> tuple[torch.Tensor, dict, dict]:
     """One layer -> (x, new_cache, aux). decode: the recurrent layers take
     their one-step form (the attention layers read it from the cache)."""
@@ -199,19 +231,19 @@ def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
         _check_layer(ltype)
     if cfg.parallel_block:
         # command-r style: x + attn(norm(x)) + mlp(norm(x)), one norm
-        f = _ffn(p, h, cfg, is_moe, aux)
-        return x + y + f, new_cache, aux
-    x = x + y
+        f = _barrier(_ffn(p, h, cfg, is_moe, rules, aux))
+        return _decode_stream(x + _barrier(y) + f, decode), new_cache, aux
+    x = x + _barrier(y)
     if "norm2" in p and (is_moe or cfg.d_ff > 0):
         h2 = L.apply_norm(p["norm2"], x, cfg)
-        x = x + _ffn(p, h2, cfg, is_moe, aux)
-    return x, new_cache, aux
+        x = x + _barrier(_ffn(p, h2, cfg, is_moe, rules, aux))
+    return _decode_stream(x, decode), new_cache, aux
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, is_moe: bool,
-         aux: dict) -> torch.Tensor:
+         rules: Rules, aux: dict) -> torch.Tensor:
     if is_moe:
-        y, a = moe_lib.moe_apply(p["moe"], h, cfg)
+        y, a = moe_lib.moe_apply(p["moe"], h, cfg, rules)
         aux["load_balance"] = aux["load_balance"] + a["load_balance"]
         aux["z_loss"] = aux["z_loss"] + a["z_loss"]
         return y
@@ -222,19 +254,23 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, is_moe: bool,
 
 def _unstacked(tree) -> list:
     """A group's stacked tree as one tree a layer: views from one `unbind`
-    of each leaf."""
+    of each leaf (of each block of a Placed leaf)."""
     parts = [a.unbind(0) for a in tree_lib.leaves(tree)]
     return [tree_lib.unflatten(tree, [p[i] for p in parts])
             for i in range(len(parts[0]))]
 
 
 def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
-               ltype: str, is_moe: bool, *, caches: dict | None = None,
-               pos0: int = 0, positions3: torch.Tensor | None = None,
+               ltype: str, is_moe: bool, rules: Rules, *,
+               caches: dict | None = None, pos0: int = 0,
+               positions3: torch.Tensor | None = None,
                decode: bool = False, collect_cache: bool = False):
     """The group's stacked layers in order -> (x, stacked new caches or
     None, load_balance, z_loss). With cfg.remat, gradients enabled and no
-    decode, each layer's body is checkpointed (recomputed in backward)."""
+    decode, each layer's body is checkpointed (recomputed in backward).
+    A layer's Placed leaves are assembled inside its body, so under remat
+    the assembled weights are freed after the forward and assembled again
+    in backward."""
     gcfg = _group_cfg(cfg, is_moe)
     layers = _unstacked(params_g)
     layer_caches = (_unstacked(caches) if caches is not None
@@ -244,8 +280,9 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
     new = []
 
     def body(p, x, c):
-        return _layer_apply(p, x, gcfg, ltype, is_moe, cache=c, pos0=pos0,
-                            positions3=positions3, decode=decode)
+        return _layer_apply(gathered(p), x, gcfg, ltype, is_moe, rules,
+                            cache=c, pos0=pos0, positions3=positions3,
+                            decode=decode)
     for p, c in zip(layers, layer_caches):
         if remat:
             # the body draws no random numbers: no RNG state to stash
@@ -267,7 +304,7 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _embed_in(params: dict, cfg: ModelConfig, batch: dict,
-              pos0: int = 0) -> torch.Tensor:
+              rules: Rules = _NO_RULES, pos0: int = 0) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         x = params["embed"][batch["tokens"]].to(L.dtype_of(cfg.dtype))
     else:
@@ -277,11 +314,11 @@ def _embed_in(params: dict, cfg: ModelConfig, batch: dict,
         pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
         sin, cos = L.rope_sincos(pos, D, 10000.0)
         x = x + torch.cat([sin, cos], -1)[None].to(x.dtype)
-    return x
+    return constrain(x, rules, "batch", None, None)
 
 
-def _logits_out(params: dict, cfg: ModelConfig,
-                x: torch.Tensor) -> torch.Tensor:
+def _logits_out(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                rules: Rules = _NO_RULES) -> torch.Tensor:
     """Logits in the compute dtype."""
     x = L.apply_norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
@@ -291,21 +328,31 @@ def _logits_out(params: dict, cfg: ModelConfig,
     if cfg.logit_softcap:
         logits = L.tanh_cap(logits.float(), cfg.logit_softcap).to(
             logits.dtype)
-    return logits
+    return constrain(logits, rules, "batch", None, "tensor")
+
+
+def _top_level(params: dict) -> dict:
+    """The parameter dict with its Placed leaves outside the layer groups
+    (embeddings, final norm) assembled; the groups as they are."""
+    return {k: v if k == "groups" else gathered(v)
+            for k, v in params.items()}
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
-            return_cache: bool = False, last_only: bool = False):
+            return_cache: bool = False, last_only: bool = False, *,
+            rules: Rules | None = None):
     """Prefill forward. batch: tokens (B, S) | embeddings (B, S, D)
     [+ positions3 (B, S, 3)]. Returns (logits, aux[, caches]); last_only
     computes the logits of the final position only (prefill serving)."""
-    x = _embed_in(params, cfg, batch)
+    rules = rules or _NO_RULES
+    params = _top_level(params)
+    x = _embed_in(params, cfg, batch, rules)
     positions3 = batch.get("positions3")
     lb = zl = torch.zeros((), device=x.device)
     caches = []
     for params_g, (ltype, is_moe, _) in zip(params["groups"],
                                             cfg.layer_groups()):
-        x, new_c, l, z = _run_group(params_g, x, cfg, ltype, is_moe,
+        x, new_c, l, z = _run_group(params_g, x, cfg, ltype, is_moe, rules,
                                     positions3=positions3,
                                     collect_cache=return_cache)
         if return_cache:
@@ -313,22 +360,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         lb, zl = lb + l, zl + z
     if last_only:
         x = x[:, -1:]
-    logits = _logits_out(params, cfg, x)
+    logits = _logits_out(params, cfg, x, rules)
     aux = {"load_balance": lb, "z_loss": zl}
     if return_cache:
         return logits, aux, caches
     return logits, aux
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict
-            ) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            rules: Rules | None = None) -> tuple[torch.Tensor, dict]:
     """The reference's vocab-parallel cross entropy (on one device the
     same sums): logsumexp over the float32 logits minus the label's logit
     (a one-hot contraction; a label of -1 selects nothing and is masked),
     averaged over the unmasked positions (at least 1); MoE models add
     aux_weight * load_balance + 1e-3 * z_loss. Returns (loss, {"nll",
     "load_balance"}), "nll" being the loss, as the reference returns it."""
-    logits, aux = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch, rules=rules)
     labels = batch["labels"]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)                          # (B, S)
@@ -385,26 +432,61 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches: list,
-                pos: int, return_hidden: bool = False):
+                pos: int, return_hidden: bool = False, *,
+                rules: Rules | None = None):
     """One token for every sequence. batch: tokens (B, 1) | embeddings
     (B, 1, D) [+ positions3 (B, 1, 3)]; pos: the current position (an
     int). Returns (logits (B, 1, V), new caches[, hidden (B, 1, D)]):
     `hidden` is the residual stream before the final norm, in the compute
     dtype. The given caches are left as they were."""
-    x = _embed_in(params, cfg, batch, pos0=pos)
+    rules = rules or _NO_RULES
+    params = _top_level(params)
+    x = _embed_in(params, cfg, batch, rules, pos0=pos)
+    x = _decode_stream(x, True)
     positions3 = batch.get("positions3")
     new_caches = []
     for params_g, caches_g, (ltype, is_moe, _) in zip(
             params["groups"], caches, cfg.layer_groups()):
-        x, nc, _, _ = _run_group(params_g, x, cfg, ltype, is_moe,
+        x, nc, _, _ = _run_group(params_g, x, cfg, ltype, is_moe, rules,
                                  caches=caches_g, pos0=pos,
                                  positions3=positions3, decode=True,
                                  collect_cache=True)
         new_caches.append(nc)
-    logits = _logits_out(params, cfg, x)
+    logits = _logits_out(params, cfg, x, rules)
     if return_hidden:
         return logits, new_caches, x
     return logits, new_caches
+
+
+# --------------------------------------------------------------------------
+# Abstract params + shardings (no allocation).
+# --------------------------------------------------------------------------
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and dtypes,
+    no storage."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """`init`'s tree on the meta device: every leaf's shape and dtype, no
+    storage (a full-width model allocates nothing)."""
+    return init(_MetaGenerator(), cfg)
+
+
+def shardings(cfg: ModelConfig, mesh, rules: Rules) -> dict:
+    """The NamedSharding tree of the parameters: each leaf's logical axes
+    (`layers.param_specs`) resolved by `rules` and legalized against its
+    dims."""
+    aps = abstract_params(cfg)
+    return tree_lib.tree_map(
+        lambda leaf, spec: NamedSharding(mesh, legalize_spec(
+            rules.resolve(*spec.logical), leaf.shape, mesh)),
+        aps, L.param_specs(aps))
 
 
 # --------------------------------------------------------------------------

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
 import torch
@@ -40,6 +40,11 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params) -> (updates, new_state)
+    # each element's update reads only that element of the parameter, the
+    # gradient and the state (and scalars): a block of a leaf updates alone
+    # with the same bits (adamw, sgd; not the blockwise-quantized or the
+    # factored states)
+    elementwise: bool = False
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,
@@ -65,8 +70,13 @@ def _as_schedule(lr) -> Schedule:
 
 
 def global_norm(tree) -> torch.Tensor:
+    return norm_of(tree_lib.leaves(tree))
+
+
+def norm_of(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
+    """`global_norm` of the tensors `leaves` yields, read one at a time."""
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_lib.leaves(tree)))
+                          for x in leaves))
 
 
 def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -132,7 +142,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                          for j in range(3))
         return updates, {"m": m, "v": v, "step": step}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=True)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +294,7 @@ def sgd(lr, momentum: float = 0.9) -> Optimizer:
                                     mu, params)
         return updates, {"mu": mu, "step": step}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=True)
 
 
 def make_optimizer(name: str, lr, **kw) -> Optimizer:

@@ -1525,3 +1525,125 @@ def test_train_step_divisions_round_once_on_the_card(dev):
     amax = x["a"].abs().amax()
     assert torch.equal(sc["a"], torch.div(amax, torch.tensor(127.0))
                        + 1e-20)
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_placed_train_step_on_the_card_equals_unplaced(dev, optimizer,
+                                                      trainer_settings):
+    """starcoder2-3b smoke in bf16, 3 steps: the step with parameters,
+    state and batch placed on a (2, 2, 2) mesh of positions of the card
+    (`param_shardings` / `opt_shardings` / `input_specs`, under
+    `active_mesh`) equals the unplaced step on the card bit for bit
+    (adamw updates block by block, adafactor assembled)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import (Placed, active_mesh, place,
+                                             rules_for_mesh)
+    cfg = load_config("starcoder2-3b", smoke=True)
+    tc = TrainConfig(learning_rate=1e-3, optimizer=optimizer)
+    mesh = Mesh.repeat(dev, (2, 2, 2), ("pod", "data", "model"))
+    rules = rules_for_mesh(mesh)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 4, 32)).astype(np.int32)).to(dev)
+        for k in ("tokens", "labels")}
+    params0 = tfm.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    runs = []
+    for placed in (False, True):
+        with active_mesh(mesh, rules):
+            step, opt = S.make_train_step(cfg, tc,
+                                          rules=rules if placed else None)
+            p = tree_lib.tree_map(torch.clone, params0)
+            s = opt.init(p)
+            b = batch
+            if placed:
+                aps = tfm.abstract_params(cfg)
+                psh = S.param_shardings(cfg, mesh, rules)
+                p = place(p, psh)
+                s = place(s, S.opt_shardings(opt.init(aps), aps, psh, mesh,
+                                             rules))
+                specs = S.input_specs(cfg, ShapeConfig("c", 32, 8, "train",
+                                                       4), mesh, rules)
+                b = place(batch, {k: v.sharding for k, v in specs.items()})
+            metrics = []
+            for _ in range(3):
+                p, s, m = step(p, s, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+        if placed:      # one block a key: the positions share the card
+            assert all(len(reps) == 1 for x in tree_lib.leaves((p, s))
+                       for reps in x.tiles.values())
+        leaves = [x.full() if isinstance(x, Placed) else x
+                  for x in tree_lib.leaves((p, s))]
+        runs.append((metrics, leaves))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert a.device.type == dev.type
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))
+
+
+def test_pipeline_on_the_card_equals_the_sequential_loop(dev):
+    """`pipeline_apply` over a (4,) "pipe" mesh of positions of the card
+    (S = 4 tanh(h @ W) stages, M = 6 microbatches) equals the sequential
+    loop over each microbatch on the card bit for bit."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.pipeline import pipeline_apply
+    gen = torch.Generator(device=dev).manual_seed(0)
+    Ws = torch.randn((4, 256, 256), generator=gen, device=dev) / 16.0
+    x = torch.randn((6, 64, 256), generator=gen, device=dev)
+    got = pipeline_apply(lambda W, h: torch.tanh(h @ W), Ws, x,
+                         Mesh.repeat(dev, (4,), ("pipe",)))
+    assert got.device.type == dev.type
+    for m in range(6):
+        h = x[m]
+        for i in range(4):
+            h = torch.tanh(h @ Ws[i])
+        assert torch.equal(got[m], h), m
+
+
+def test_hat_place_on_the_card_equals_unplaced(dev, trainer_settings):
+    """The HAT meta step on a smoke episode placed over a (4,) "data" mesh
+    of positions of the card equals the unplaced meta step on the card
+    bit for bit, launching the same kernels."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs.omniglot_conv4 import get_smoke_config
+    from repro_torch.data.fsl import EpisodeSampler, OmniglotLike
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as t_train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.controller import apply_conv4
+    from repro_torch.models.sharding import Placed
+    from repro_torch.optim import adamw
+    fsl = get_smoke_config()
+    ds = OmniglotLike(n_classes=fsl.n_train_classes, image_size=fsl.image_size,
+                      seed=0)
+    ep = EpisodeSampler(ds, np.arange(fsl.n_train_classes), n_way=fsl.n_way,
+                        k_shot=fsl.k_shot, n_query=4, seed=1).episode(0)
+    arrays = {k: getattr(ep, k) for k in ("support_images", "support_labels",
+                                          "query_images", "query_labels")}
+    runs = []
+    for mesh in (None, Mesh.repeat(dev, (4,), ("data",))):
+        opt = adamw(1e-4)
+        _, meta, place_fn = S.make_hat_train_steps(
+            apply_conv4, t_train.hat_config(fsl), opt, n_way=fsl.n_way,
+            device=dev, mesh=mesh)
+        params = {"backbone": t_train.init_params(
+            fsl, fsl.n_train_classes, 0, 8, dev)["backbone"]}
+        state = opt.init(params)
+        placed = place_fn(arrays)
+        assert all(isinstance(v, Placed) for v in placed.values()) == (
+            mesh is not None)
+        _build.reset_launches()
+        params, state, loss = meta(params, state, placed,
+                                   t_train.step_key(0, 0))
+        torch.cuda.synchronize()
+        runs.append((float(loss), dict(_build.LAUNCHES),
+                     tree_lib.leaves((params, state))))
+    assert runs[0][0] == runs[1][0] and runs[0][1] == runs[1][1]
+    for a, b in zip(runs[0][2], runs[1][2]):
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8))

@@ -223,8 +223,8 @@ def test_unported_features_name_their_roadmap_item():
     `launch/mesh.Mesh` and refuses anything else, and
     `SearchRequest.axes` is ignored on an unsharded store, as the
     reference ignores it (tests/test_torch_sharded.py holds the sharded
-    searches against the JAX package); the LM half (A9b) names its item
-    in the trainer (tests/test_torch_train_entry.py)."""
+    searches against the JAX package); the LM half (A9b) is ported too
+    (tests/test_torch_sharding.py)."""
     jcfg, tcfg = _configs(8)
     st = MemoryStore.create(tcfg, device="cpu")
     eng = RetrievalEngine(tcfg.search)
@@ -471,7 +471,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
             "repro_torch.models.ssm", "repro_torch.models.transformer",
             "repro_torch.data.lm", "repro_torch.runtime.compression",
             "repro_torch.runtime.ft", "repro_torch.examples.train_llm",
-            "repro_torch.tree"} <= set(mods)
+            "repro_torch.tree", "repro_torch.models.sharding",
+            "repro_torch.runtime.pipeline", "repro_torch.core.memory",
+            "repro_torch.launch.mesh"} <= set(mods)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr

@@ -14,6 +14,7 @@ convolutions run in oneDNN here and in XLA there.
 import dataclasses
 import functools
 import os
+import signal
 
 import jax
 import jax.numpy as jnp
@@ -645,6 +646,15 @@ def test_train_hat_closes_the_loop_on_the_cpu(tmp_path, capsys,
                        search=t_train.hat_config(fsl).search)
     store = MemoryStore.restore(str(tmp_path / "store"), cfg, device="cpu")
     assert store.calibrated and int(store.size) == 6
-    # the LM path of the same entry point: a mesh is ROADMAP A9
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_train.main(["--model-parallel", "2"])
+    # the LM path of the same entry point runs on a (1, 1) host mesh (its
+    # preemption handler is put back after)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM,
+                                                 signal.SIGINT)}
+    try:
+        t_train.main(["--smoke", "--model-parallel", "2", "--device", "cpu",
+                      "--steps", "1", "--batch", "2", "--seq", "8",
+                      "--ckpt-dir", str(tmp_path / "lm")])
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    assert "first-10 mean" in capsys.readouterr().out

@@ -5,8 +5,9 @@ loss, applied 1, parameters changed), remat against none (the same bits),
 a run stopped through the preemption path and resumed against the
 straight run (the same bits), the restore of a checkpoint that the JAX
 package's `train` wrote (every leaf bit for bit, names, dtypes, step),
-the entry point's log lines against the reference's, and the refusals
-(no card and no --device; --model-parallel above 1)."""
+the entry point's log lines against the reference's, the refusal of a
+run with no card and no --device, and --model-parallel 2 on one
+device."""
 
 import functools
 import os
@@ -237,7 +238,17 @@ def test_no_card_and_no_device_raises(tmp_path, restore_process_state):
         t_train.train("starcoder2-3b", True, 1, 2, 16, str(tmp_path))
 
 
-def test_model_parallel_is_not_ported(tmp_path, restore_process_state):
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_train.main(["--smoke", "--model-parallel", "2", "--device", "cpu",
-                      "--ckpt-dir", str(tmp_path)])
+def test_model_parallel_is_not_ported(tmp_path, capsys,
+                                      restore_process_state):
+    """`--model-parallel 2` runs, as the reference's does: on one device
+    the host mesh is (1, 1) and the log lines equal `--model-parallel 1`'s
+    but for the step times (tests/test_torch_sharding.py holds the losses
+    bit for bit in both packages)."""
+    logs = []
+    for mp in ("2", "1"):
+        t_train.main(["--smoke", "--model-parallel", mp, "--device", "cpu",
+                      "--steps", "2", "--batch", "2", "--seq", "16",
+                      "--ckpt-dir", str(tmp_path / mp)])
+        logs.append([re.sub(r"\d+ms$", "", ln) for ln in
+                     capsys.readouterr().out.splitlines()])
+    assert logs[0] == logs[1] and logs[0][-1].startswith("first-10 mean")
