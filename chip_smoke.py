@@ -184,6 +184,28 @@ the seed, under the trainer's deterministic settings):
                 (8,) positions equals the unsharded two_phase (8
                 shortlist and 8 rescore launches).
 
+Then the analysis package (analysis/, launch/dryrun.py) on the card:
+
+ 13. [contracts] the contract registry's 45 cells (analysis/registry.py:
+                the reference's matrix of searches, writes and the
+                episodic forward) built on CUDA tensors, each call traced
+                and its 169 invariants checked; `hbm_buffer_bound` strict
+                (peak device bytes); the cells must launch every kernel,
+                and the `shortlist_fused` range must agree with the fused
+                launches and the dispatch rule; host syncs per route
+ 14. [dryrun]   starcoder2-3b's [lm-train] step (B 8 x 1,024) traced on
+                meta tensors: its peak and FLOPs beside the card's peak
+                and step time (printed, not gated); and the production
+                cell llama3-405b `train_4k` on the 256-position meta mesh
+                (`launch/dryrun.run_cell`, meta tensors only), run after
+                every timed phase so that its host time is in none of
+                them: status, trace seconds, state a position, dominant
+                term
+ 15. [vmem]     analysis/vmem.py's shared-memory model of the shortlist's
+                select blocks against ptxas: the static shared memory must
+                equal the kernels'; the plans' occupancy against the
+                registers a thread (printed)
+
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
 run. Then every kernel is held against its plain PyTorch version on the
@@ -227,31 +249,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): device
-# memory rate, float32 outside the tensor cores, bf16 tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TENSOR_OPS_PER_S = 989e12
-
-# Scalar operations of one noisy cell evaluation of the physics kernel,
-# counted by hand from the cell formula and kept fixed, so that the bound
-# reads the same whatever the kernel's implementation: two hash streams per
-# cell (one murmur finalizer of 8 ops each plus the coordinate xor / add:
-# 2 x 10), the uniform conversions (2 x 3), Box-Muller (log, mul, sqrt, cos,
-# 2 mul: 6), mismatch (2), noise fma + clip (4), exp argument + exp + sum
-# (3) and the dist sum (1); the per-string terms (the 4-coordinate
-# prefixes, read noise, division, thresholds) add ~3 per cell at 24 cells a
-# string.
-PHYSICS_OPS_PER_CELL = 2 * 10 + 2 * 3 + 6 + 2 + 4 + 3 + 1 + 3
-
-# Scalar operations of one cell of the episodic backward, counted by hand
-# from its formula (csrc/mcam_episode.cu) and kept fixed: the forward's 45
-# to recompute the cell's current, then the clip mask (2), the cell's
-# resistance term times the mask (1), its gradient a * e + g0 (2), the
-# sign of q - s (2), the two sums into dq and ds (2), and the string's
-# sigmoid terms over 8 thresholds and the current's derivative (~75 a
-# string) spread over its 24 cells (3).
-EPISODE_BACKWARD_OPS_PER_CELL = PHYSICS_OPS_PER_CELL + 2 + 1 + 2 + 2 + 2 + 3
+# The kernels' operations, bytes and bounds, and the H100's rates, come
+# from the package's one cost model (analysis/cost.py: kernel_cost).
 
 # backward kernel vs autograd through the plain forward: the same terms
 # summed in another order, so relative to the largest entry
@@ -404,6 +403,15 @@ REPS = 5                        # timed runs per measurement (median)
 PROFILER_SETTLE_S = 0.05
 # the block-table entry's passes, by a part of their kernels' names
 BLOCK_PASSES = ("group", "select", "merge")
+# the package's profiler ranges (kernels/shortlist.FUSED_TAG,
+# core/avss.LAYOUT_TAG, engine/router.ROUTER_TAG; analysis/contracts.py
+# reads them): a range has a device-side twin in a profile, which the
+# kernels' device times leave out
+RANGE_TAGS = ("shortlist_fused", "layout_support", "router_sketch")
+# [dryrun]: [lm-train]'s first model and batch, traced on meta tensors,
+# and the production cell run on the meta mesh of its 256 positions
+DRYRUN_TRAIN = ("starcoder2-3b", 8, 1024)
+DRYRUN_CELL = ("llama3-405b", "train_4k", False)
 
 
 def fail(msg: str) -> None:
@@ -552,7 +560,8 @@ def timers(torch) -> argparse.Namespace:
                     fn()
                     sync()
                     p.step()
-            seen = [e for e in p.key_averages() if part in e.key]
+            seen = [e for e in p.key_averages()
+                    if part in e.key and e.key not in RANGE_TAGS]
             if seen and not any(e.count % reps for e in seen):
                 if passes is None:
                     return sum(e.device_time_total for e in seen) / reps / 1e3
@@ -576,6 +585,7 @@ def timers(torch) -> argparse.Namespace:
 def run(args, torch) -> int:
     import numpy as np
 
+    from repro_torch.analysis.cost import kernel_cost
     from repro_torch.core import avss as avss_lib
     from repro_torch.core.avss import SearchConfig
     from repro_torch.core.memory import MemoryConfig
@@ -621,22 +631,21 @@ def run(args, torch) -> int:
     kernels = []
     launches = {k: 0 for k in _build.LAUNCHES}
 
-    def row(name, source, replaces, err, ms, plain_ms, bytes_, ops_,
-            ops_rate, library_ms, **extra):
-        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = ops_ / ops_rate * 1e3
+    def row(name, source, replaces, err, ms, plain_ms, cost, library_ms,
+            **extra):
+        """A kernel row; `cost` is kernel_cost(...) at this run's inputs."""
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms, **extra})
+            "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"],
+            "library_ms": library_ms, "ops": cost["ops"],
+            "bytes": cost["bytes"], **extra})
         log(f"[kernel] {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-            f"library {library_ms}, bound {max(t_bytes, t_ops):.4f} ms), "
-            f"max_abs_err {err}")
+            f"library {library_ms}, bound {cost['bound_ms']:.6f} ms by "
+            f"{cost['bound_by']}), max_abs_err {err}")
 
     timing.row = row
 
@@ -826,8 +835,8 @@ def run(args, torch) -> int:
         f"and ties on 16-bit fields, 96 words a row)")
     row("shortlist", "shortlist.cu", "src/repro/kernels/shortlist.py:210",
         err, event_ms(sl_kernel), event_ms(sl_plain),
-        packed.numel() * 4 + qw.numel() * 4 + n + 256 * 64 * 12,
-        256 * n * d, F32_OPS_PER_S, event_ms(sl_library),
+        kernel_cost("shortlist", b=256, n=n, d=d, k=64,
+                    row_words=packed.shape[1]), event_ms(sl_library),
         device_ms=device_ms(sl_kernel, "shortlist_"),
         descending_ms=adv_ms["descending"],
         descending_device_ms=adv_ms["descending_device"],
@@ -854,8 +863,7 @@ def run(args, torch) -> int:
     row("mcam_dist", "mcam_dist.cu", "src/repro/kernels/mcam_dist.py:32",
         err, event_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj)),
         event_ms(lambda: mcam_dist.lut_dist_matmul_plain(q1h, proj), reps=3),
-        (q1h.numel() + proj.numel()) * 2 + 256 * n * 4,
-        2 * 256 * n * 4 * d, BF16_TENSOR_OPS_PER_S,
+        kernel_cost("mcam_dist", b=256, n=n, k=4 * d),
         event_ms(lambda: torch.matmul(q1h_f, proj_f.T)),
         device_ms=device_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj),
                             "lut_dist_"),
@@ -891,11 +899,10 @@ def run(args, torch) -> int:
              f"agreement {agree}")
     if not torch.equal(kv, full.votes) or not torch.equal(kdist, full.dist):
         fail("mcam_search kernel != the full search's result")
-    cells = 16 * n * S * sl
     row("mcam_search", "mcam_search.cu",
         "src/repro/kernels/mcam_search.py:37", err, event_ms(ms_kernel),
-        event_ms(ms_plain, reps=3), ss.numel() + qs.numel() + 16 * n * 8
-        + w.numel() * 4, cells * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+        event_ms(ms_plain, reps=3),
+        kernel_cost("mcam_search", b=16, n=n, s=S, sl=sl), None,
         vote_agreement=agree, device_ms=device_ms(ms_kernel, "search_dense"),
         resources=resources.get("search_dense<24,0>"),
         shape=f"B=16 N={n} S={S} sl={sl} noisy")
@@ -925,9 +932,9 @@ def run(args, torch) -> int:
     uniq = int(torch.unique(rows).numel())
     row("mcam_rescore", "mcam_search.cu",
         "src/repro/kernels/mcam_search.py:37", err, event_ms(rs_kernel),
-        event_ms(rs_plain, reps=3), uniq * S * sl + qs256.numel()
-        + rows.numel() * 16 + rk.numel() * 4 + w.numel() * 4,
-        256 * 64 * S * sl * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+        event_ms(rs_plain, reps=3),
+        kernel_cost("mcam_rescore", b=256, k=64, s=S, sl=sl, uniq=uniq),
+        None,
         vote_agreement=agree_r, also_replaces="src/repro/kernels/ops.py:186",
         device_ms=device_ms(rs_kernel, "search_gathered"),
         resources=resources.get("search_gathered<24>"),
@@ -1011,11 +1018,20 @@ def run(args, torch) -> int:
     lm_mesh = run_lm_mesh(timing, args, card, store, queries, hat_episode,
                           launches)
     path_ms.update(lm_mesh.pop("phases_ms"))
+    torch.cuda.empty_cache()
+
+    # -- the analysis package on the card: contracts, dry run, vmem ----------
+    # (the dry run's traces come after every timed phase: their minutes of
+    # host work on meta tensors overlap none of the times above)
+    contracts = run_contracts(timing, launches)
+    path_ms.update(contracts.pop("phases_ms"))
+    dryrun = run_dryrun(timing, lm_train, card)
+    path_ms.update(dryrun.pop("phases_ms"))
+    vmem = run_vmem(timing, logs.get("shortlist", ""), n)
     bwd = hat["backward"]
     row("mcam_episode", "mcam_episode.cu",
         "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
-        bwd["max_abs_err"], bwd["ms"], bwd["plain_ms"], bwd["bytes"],
-        bwd["cells"] * EPISODE_BACKWARD_OPS_PER_CELL, F32_OPS_PER_S, None,
+        bwd["max_abs_err"], bwd["ms"], bwd["plain_ms"], bwd["cost"], None,
         device_ms=bwd["device_ms"],
         device_ms_in_step=bwd["device_ms_in_step"],
         max_rel_err=bwd["max_rel_err"],
@@ -1033,13 +1049,209 @@ def run(args, torch) -> int:
                     "lm_serve": lm_serve, "hat": hat,
                     "cub_serve": cub_serve, "cub": cub, "paper": paper,
                     "optim": optim, "lm_train": lm_train,
-                    "lm_mesh": lm_mesh, "card": card}))
+                    "lm_mesh": lm_mesh, "contracts": contracts,
+                    "dryrun": dryrun, "vmem": vmem, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_contracts(t, launches: dict) -> dict:
+    """[contracts]: the port's contract registry (analysis/registry.py)
+    on CUDA tensors: every cell built on the card, its call traced and
+    every invariant checked; `hbm_buffer_bound` is strict here (peak
+    device bytes over the call, `torch.cuda.max_memory_allocated`). The
+    cells must launch every hand-written kernel, and each cell's
+    `shortlist_fused` range must agree with the fused kernels' launches
+    (`_build.LAUNCHES`) as with the dispatch rule."""
+    torch = t.torch
+    from repro_torch.analysis import registry
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+    arts: dict = {}
+    t0 = time.perf_counter()
+    report = registry.run_cells(device=t.dev, artifacts=arts)
+    t.sync()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    for kname, c in counts.items():
+        launches[kname] += c
+    bad = [r for r in report["cells"] if r["status"] != "pass"]
+    if bad:
+        fail(f"[contracts] {len(bad)} invariant(s) broken on the card: "
+             + "; ".join(f"{r['entry']} {json.dumps(r['config'])} "
+                         f"[{r['invariant']}] {r['detail']}"
+                         for r in bad[:6]))
+    missing = [k for k, c in counts.items() if c < 1]
+    if missing:
+        fail(f"[contracts] the cells launched no {missing}: {counts}")
+    disagree = []
+    for key, art in arts.items():
+        if "expect_fused" in art:
+            fused = sum(art["trace"]["launch_counter"].get(k, 0)
+                        for k in ("shortlist", "shortlist_blocks"))
+            if (fused > 0) != art["expect_fused"]:
+                disagree.append(key)
+    if disagree:
+        fail(f"[contracts] fused launches disagree with the dispatch rule: "
+             f"{disagree[:4]}")
+    hbm = [r["hbm"] for r in report["cells"]
+           if r["invariant"] == "hbm_buffer_bound"]
+    syncs = {key: art["trace"]["host_syncs"] for key, art in arts.items()
+             if "trace" in art and art["trace"]["host_syncs"]}
+    s = report["summary"]
+    t.log(f"[contracts] {s['pass']} invariants pass over {len(arts)} cells "
+          f"on the card in {secs:.1f} s, launches {counts}; fused range == "
+          f"fused launches == dispatch rule in "
+          f"{sum('expect_fused' in a for a in arts.values())} cells; "
+          f"hbm peak / bound {[(h['measured_bytes'], h['bound_bytes']) for h in hbm]}"
+          f" (strict); host syncs by cell {syncs}")
+    return {"summary": s, "cells": len(arts), "launches": counts,
+            "hbm": hbm, "host_syncs": syncs,
+            "phases_ms": {"contracts": secs * 1e3}}
+
+
+def run_dryrun(t, lm_train: dict, card: str) -> dict:
+    """[dryrun]: analysis/cost.py's trace of [lm-train]'s first model's
+    step (DRYRUN_TRAIN, unplaced) on meta tensors, its peak and FLOPs
+    printed beside the card's peak memory and step time from [lm-train]
+    (not gated); then the record of DRYRUN_CELL on the meta mesh of the
+    production shape (256 positions), `launch/dryrun.run_cell` as the dry
+    run's command line calls it: status, seconds, the state a position
+    holds, the dominant roofline term."""
+    torch = t.torch
+    from repro_torch.analysis import cost as cost_lib
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer as tfm
+    arch, B, S = DRYRUN_TRAIN
+    shape = ShapeConfig("custom", S, B, "train")
+    cfg = steps_lib.adapt_config(load_config(arch), shape, 1)
+    mb = steps_lib.microbatch_for(cfg, shape)
+    step, optimizer = steps_lib.make_train_step(
+        cfg, TrainConfig(learning_rate=3e-4))
+    params = tfm.abstract_params(cfg)
+    state = optimizer.init(params)
+    batch = {k: torch.zeros((B // mb, mb, S), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    rec = cost_lib.traced_cost(step, params, state, batch)
+    trace_s = time.perf_counter() - t0
+    measured = lm_train.get(arch, {})
+    peak, step_ms = measured.get("peak_memory_bytes"), measured.get(
+        "step_ms")
+    rate = rec["flops"] / step_ms / 1e9 if step_ms else None
+    t.log(f"[dryrun] {arch} B {B} x {S} step traced on meta in "
+          f"{trace_s:.1f} s: peak {rec['peak_bytes'] / 1e9:.2f} GB "
+          f"(state {rec['argument_bytes'] / 1e9:.2f} + temp "
+          f"{rec['temp_bytes'] / 1e9:.2f}) against the card's "
+          f"{peak and round(peak / 1e9, 2)} GB in [lm-train]; "
+          f"{rec['flops'] / 1e12:.2f} TFLOP counted, "
+          f"{rate and round(rate, 1)} TFLOP/s at the card's {step_ms} ms a "
+          f"step; {sum(rec['op_census'].values())} ops, host syncs "
+          f"{rec['host_syncs']} ({card})")
+    from repro_torch.launch import dryrun as dryrun_lib
+    arch2, shape2, multi = DRYRUN_CELL
+    t0 = time.perf_counter()
+    cell = dryrun_lib.run_cell(arch2, shape2, multi)
+    cell_s = time.perf_counter() - t0
+    if cell["status"] != "ok":
+        fail(f"[dryrun] {arch2} {shape2}: {cell}")
+    t.log(f"[dryrun] {arch2} {shape2} on the {cell['mesh']} meta mesh "
+          f"({cell['chips']} positions): {cell['status']}, traced in "
+          f"{cell['compile_s']} s ({cell_s:.1f} s with the set-up);"
+          f" state a position {cell['state_bytes_per_device'] / 1e9:.3f} GB;"
+          f" FLOPs {cell['flops_total']:.4g} ({cell['flops_per_device']:.4g}"
+          f" a position, useful ratio {cell['useful_flops_ratio']:.3f}); "
+          f"collective bytes {cell['collective_bytes_per_device']:.4g}; "
+          f"dominant {cell['roofline']['dominant']} "
+          f"({cell['roofline']['bound_s']:.4g} s); host syncs "
+          f"{cell['host_syncs']}")
+    return {"train_trace": {
+                "arch": arch, "batch": B, "seq": S, "seconds": trace_s,
+                "flops": rec["flops"], "peak_bytes": rec["peak_bytes"],
+                "temp_bytes": rec["temp_bytes"],
+                "argument_bytes": rec["argument_bytes"],
+                "hbm_bytes": rec["hbm_bytes_read"]
+                + rec["hbm_bytes_written"], "host_syncs": rec["host_syncs"],
+                "card_peak_bytes": peak, "card_step_ms": step_ms},
+            "cell": cell, "cell_seconds": cell_s,
+            "phases_ms": {"dryrun_trace": trace_s * 1e3,
+                          "dryrun_cell": cell_s * 1e3}}
+
+
+def ptxas_entries(nvcc_log: str) -> dict[str, tuple[int, int]]:
+    """(registers, static shared bytes) of each kernel entry in an nvcc
+    -Xptxas -v log, by its mangled name."""
+    out, name = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = (int(m.group(1)), int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def run_vmem(t, nvcc_log: str, n: int) -> dict:
+    """[vmem]: analysis/vmem.py's model of the shortlist's select blocks
+    against ptxas: its static shared memory must equal the kernel's, and
+    the plans' occupancy is checked against the registers ptxas gives a
+    thread (printed, not gated), for the main path's, CUB's and the
+    block-table rows' plans."""
+    from repro_torch.analysis import vmem
+    entries = ptxas_entries(nvcc_log)
+    if not entries:
+        t.log("[vmem] no nvcc log of csrc/shortlist.cu in this run (its "
+              "library was built before): nothing to hold the model "
+              "against")
+        return {"rows": []}
+    select = [(k, v) for k, v in entries.items()
+              if "shortlist_select" in k and "blocks" not in k]
+    blocks = [(k, v) for k, v in entries.items()
+              if "shortlist_blocks_select" in k]
+    if not select or not blocks:
+        fail(f"[vmem] no select entries in the ptxas log: {list(entries)}")
+    rows = []
+    for name, est, found in (
+            ("select", vmem.shortlist_smem(256, n, 48, 64), select),
+            ("select_cub", vmem.shortlist_smem(CUB_SERVE_QUERIES, n, 480,
+                                               64), select),
+            ("select_k1024", vmem.shortlist_smem(256, n, 48, 1024), select),
+            ("blocks", vmem.blocks_smem(256, ROUTED_KERNEL_NPROBE,
+                                        ROUTED_SHARDS, n // ROUTED_SHARDS,
+                                        48, 64, True), blocks),
+            ("blocks_cub", vmem.blocks_smem(
+                256, ROUTED_KERNEL_NPROBE, ROUTED_SHARDS,
+                n // ROUTED_SHARDS, 480, 64, True), blocks)):
+        for entry, (regs, smem) in found:
+            check = vmem.validate_config(est, regs_per_thread=regs)
+            row = {"plan": name, "entry": entry,
+                   "model_static_bytes": est.static_bytes,
+                   "ptxas_static_bytes": smem, "registers": regs,
+                   "dynamic_bytes": est.dynamic_bytes,
+                   "ctas_per_sm": est.ctas_per_sm, "threads": est.threads,
+                   "fits": check.ok, "reason": check.reason}
+            rows.append(row)
+            t.log(f"[vmem] {name} {entry}: static smem model "
+                  f"{est.static_bytes} B, "
+                  f"ptxas {smem} B; dynamic {est.dynamic_bytes} B; "
+                  f"{est.ctas_per_sm} blocks an SM x {est.threads} threads "
+                  f"x {regs} registers = "
+                  f"{est.ctas_per_sm * est.threads * regs} of "
+                  f"{vmem.H100_SM_REGS}; fits {check.ok} {check.reason}")
+            if est.static_bytes != smem:
+                fail(f"[vmem] {name}: the model's static shared memory "
+                     f"{est.static_bytes} B != ptxas's {smem} B")
+    return {"rows": rows}
 
 
 def clustered(seed: int, n: int, d: int, nq: int, shots: int = 16):
@@ -1076,6 +1288,7 @@ def run_cub_serve(t, args, launches: dict) -> dict:
     kernels line."""
     import numpy as np
     torch, dev = t.torch, t.dev
+    from repro_torch.analysis.cost import kernel_cost
     from repro_torch.configs.cub_resnet12 import get_config
     from repro_torch.core import avss as avss_lib
     from repro_torch.core.avss import SearchConfig
@@ -1201,8 +1414,9 @@ def run_cub_serve(t, args, launches: dict) -> dict:
     pen = torch.where(valid, 0.0, shortlist.SHORTLIST_MASK_PENALTY)[None]
     t.row("shortlist_cub", "shortlist.cu",
           "src/repro/kernels/shortlist.py:210", err, t.event_ms(sl_kernel),
-          plain_ms, packed.numel() * 4 + qw.numel() * 4 + n + nq * 64 * 12,
-          nq * n * d, F32_OPS_PER_S, t.event_ms(lambda: torch.sort(
+          plain_ms, kernel_cost("shortlist", b=nq, n=n, d=d, k=64,
+                                row_words=packed.shape[1]),
+          t.event_ms(lambda: torch.sort(
               torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0]
               [:, :64]),
           device_ms=t.device_ms(sl_kernel, "shortlist_"),
@@ -1218,8 +1432,7 @@ def run_cub_serve(t, args, launches: dict) -> dict:
         lambda: mcam_dist.lut_dist_matmul_plain(q1h, proj))
     t.row("mcam_dist_cub", "mcam_dist.cu", "src/repro/kernels/mcam_dist.py:32",
           err, t.event_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj)),
-          plain_ms, (q1h.numel() + proj.numel()) * 2 + nq * n * 4,
-          2 * nq * n * 4 * d, BF16_TENSOR_OPS_PER_S,
+          plain_ms, kernel_cost("mcam_dist", b=nq, n=n, k=4 * d),
           t.event_ms(lambda: torch.matmul(q1h_f, proj_f.T)),
           device_ms=t.device_ms(lambda: mcam_dist.lut_dist_matmul(q1h, proj),
                                 "lut_dist_"),
@@ -1241,11 +1454,10 @@ def run_cub_serve(t, args, launches: dict) -> dict:
         lambda: mcam_search.mcam_search_plain(qs, ss, w, th, cs.mcam))
     if not (torch.equal(kv, full.votes) and torch.equal(kdist, full.dist)):
         fail("[cub-serve] mcam_search kernel != the full search's result")
-    cells = CUB_FULL_QUERIES * n * S * sl
     t.row("mcam_search_cub", "mcam_search.cu",
           "src/repro/kernels/mcam_search.py:37", err, t.event_ms(ms_kernel),
-          plain_ms, ss.numel() + qs.numel() + CUB_FULL_QUERIES * n * 8
-          + w.numel() * 4, cells * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+          plain_ms, kernel_cost("mcam_search", b=CUB_FULL_QUERIES, n=n, s=S,
+                                sl=sl), None,
           device_ms=t.device_ms(ms_kernel, "search_dense"),
           instance=mcam_search.search_instance(sl, qs, ss),
           shape=f"B={CUB_FULL_QUERIES} N={n} S={S} sl={sl} noisy")
@@ -1264,9 +1476,8 @@ def run_cub_serve(t, args, launches: dict) -> dict:
     uniq = int(torch.unique(rows).numel())
     t.row("mcam_rescore_cub", "mcam_search.cu",
           "src/repro/kernels/mcam_search.py:37", err, t.event_ms(rs_kernel),
-          plain_ms, uniq * S * sl + qsb.numel() + rows.numel() * 16
-          + rk.numel() * 4 + w.numel() * 4,
-          nq * 64 * S * sl * PHYSICS_OPS_PER_CELL, F32_OPS_PER_S, None,
+          plain_ms, kernel_cost("mcam_rescore", b=nq, k=64, s=S, sl=sl,
+                                uniq=uniq), None,
           also_replaces="src/repro/kernels/ops.py:186",
           device_ms=t.device_ms(rs_kernel, "search_gathered"),
           shape=f"B={nq} k=64 S={S} sl={sl} noisy, {uniq} distinct rows")
@@ -1700,6 +1911,7 @@ def blocks_row(t, name, call, adversarial=(), note="") -> None:
     visited blocks is masked, held bit for bit at k = 1, 64 and 1,024 and
     timed at the call's k."""
     torch = t.torch
+    from repro_torch.analysis.cost import kernel_cost
     from repro_torch.kernels import ops, shortlist
     (qw, sp, k), kw = call
     ids, base, valid = kw["ids"], kw["base"], kw["valid"]
@@ -1759,9 +1971,8 @@ def blocks_row(t, name, call, adversarial=(), note="") -> None:
     passes = t.device_ms(kernel, "shortlist_", passes=BLOCK_PASSES)
     t.row(name, "shortlist.cu", "src/repro/kernels/shortlist.py:210", err,
           t.event_ms(kernel), plain_ms,
-          visited * rows * (words * 4 + 1) + qw.numel() * 4
-          + ids.numel() * 8 + m * 8 + b * k * 12,
-          b * p * rows * d, F32_OPS_PER_S, library_ms,
+          kernel_cost("shortlist_blocks", b=b, d=d, p=p, m=m, rows=rows,
+                      row_words=words, k=k, visited=visited), library_ms,
           device_ms=passes and passes["total"], passes_ms=passes,
           plan=plan, visited_blocks=visited,
           also_replaces="jax.vmap of it, src/repro/engine/engine.py:318",
@@ -2256,6 +2467,7 @@ def run_lm_serve(t, args, launches: dict, card: str) -> dict:
 
     import numpy as np
     torch, dev, log = t.torch, t.dev, t.log
+    from repro_torch.analysis.cost import HBM_BYTES_PER_S
     from repro_torch.core.memory import MemoryConfig
     from repro_torch.engine import MemoryStore, RetrievalEngine
     from repro_torch.kernels import _build
@@ -2577,6 +2789,7 @@ def _train_bound(cfg, params, tokens: int) -> tuple[int, float]:
     routed experts' unchosen share (top_k / n_routed of them count) and
     an untied input embedding (a lookup, no product; a tied one is the
     output layer's matrix and counts once)."""
+    from repro_torch.analysis.cost import BF16_TENSOR_OPS_PER_S
     from repro_torch import tree as tree_lib
     names, leaves = tree_lib.flatten_with_names(params)
     n = sum(a.numel() for nm, a in zip(names, leaves)
@@ -3338,6 +3551,7 @@ def _episode_kernels(t, phase, eng, q_emb, s_emb, arrays, n_way, hat_cfg,
     against its plain version (`_check_backward`), then their times.
     Returns the backward's row fields and the forward's times."""
     torch = t.torch
+    from repro_torch.analysis.cost import kernel_cost
     from repro_torch.core.avss import class_mean_votes
     from repro_torch.core.hat import cross_entropy
     from repro_torch.kernels import mcam_episode, mcam_search
@@ -3382,8 +3596,7 @@ def _episode_kernels(t, phase, eng, q_emb, s_emb, arrays, n_way, hat_cfg,
             "max_abs_err": max(a["max_abs_err"] for a in agree.values()),
             "max_rel_err": max(a["max_rel_err"] for a in agree.values()),
             "cosine": min(a["cosine"] for a in agree.values()),
-            "bytes": q8.numel() + s8.numel() + 2 * gv.numel() * 4
-            + (q8.numel() + s8.numel()) * 4 + w.numel() * 4,
+            "cost": kernel_cost("mcam_episode", b=B, n=N, s=S, sl=sl),
             "tiling": mcam_episode.episode_tiling(B, N),
             "agreement": agree,
             "forward": {"ms": t.event_ms(fwd),
@@ -3409,7 +3622,8 @@ def _profiled(t, fn) -> tuple[list, float]:
             wall = (time.perf_counter() - t0) * 1e3
             pr.step()
     return ([e for e in pr.key_averages()
-             if not e.key.startswith("ProfilerStep")], wall)
+             if not e.key.startswith("ProfilerStep")
+             and e.key not in RANGE_TAGS], wall)
 
 
 def _profile_step(t, step_fn, *step_args) -> dict:
@@ -3752,8 +3966,7 @@ def run_cub(t, args, launches: dict) -> dict:
     agree = bwd.pop("agreement")
     t.row("mcam_episode_cub", "mcam_episode.cu",
           "src/repro/engine/engine.py:457 (no Pallas kernel: jax.grad of jnp)",
-          bwd["max_abs_err"], bwd["ms"], bwd["plain_ms"], bwd["bytes"],
-          bwd["cells"] * EPISODE_BACKWARD_OPS_PER_CELL, F32_OPS_PER_S, None,
+          bwd["max_abs_err"], bwd["ms"], bwd["plain_ms"], bwd["cost"], None,
           device_ms=bwd["device_ms"], max_rel_err=bwd["max_rel_err"],
           cosine=bwd["cosine"], tiling=bwd["tiling"],
           forward_ms=bwd["forward"]["ms"],

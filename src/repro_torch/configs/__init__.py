@@ -36,3 +36,13 @@ def load_config(arch: str, smoke: bool = False) -> ModelConfig:
     m = _module(arch)
     return m.get_smoke_config() if smoke else m.get_config()
 
+
+
+def supports_shape(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a (arch, shape) dry-run cell is runnable: a full-attention
+    arch does not run at 500k positions."""
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family in ("ssm", "hybrid")
+        if not sub_quadratic:
+            return False, "skipped(full-attention arch at 500k context)"
+    return True, ""

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch.core import mcam as mcam_lib
 from repro_torch.core.encodings import Encoding, make_encoding
 from repro_torch.core.mcam import MCAMConfig
+from repro_torch.kernels import _build
 
 Mode = str  # 'svss' | 'avss'
 
@@ -62,6 +63,10 @@ def strings_per_support(d: int, enc: Encoding,
 # ---------------------------------------------------------------------------
 
 
+#: the profiler range around `layout_support`
+LAYOUT_TAG = "layout_support"
+
+
 def _segment_dims(x: torch.Tensor, string_len: int) -> torch.Tensor:
     """(..., d) -> (..., n_seg, string_len), zero-padded."""
     d = x.shape[-1]
@@ -86,8 +91,12 @@ def layout_support(values: torch.Tensor, enc: Encoding,
                    ) -> torch.Tensor:
     """Quantized support values (N, d) -> string grid (N, n_seg, L,
     string_len). Padding dimensions store code 0 (zero mismatch against
-    query word 0). Write-time work: `MemoryStore.write` runs it once."""
-    return layout_support_words(enc.encode(values), string_len)
+    query word 0). Write-time work: `MemoryStore.write` runs it once. The
+    profiler range LAYOUT_TAG (the reference's `jax.named_scope`), open
+    while a trace or a profiler records, shows where a search lays
+    supports out at read time (analysis/contracts.py)."""
+    with _build.profiler_range(LAYOUT_TAG):
+        return layout_support_words(enc.encode(values), string_len)
 
 
 def layout_query(values: torch.Tensor, enc: Encoding, mode: Mode,

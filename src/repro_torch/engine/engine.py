@@ -256,7 +256,8 @@ class RetrievalEngine:
             return t.reshape((s, rows) + tuple(t.shape[1:]))
 
         table = BlockTable(proj=blocks(store.proj),
-                           proj_packed=blocks(store.proj_packed),
+                           proj_packed=(None if store.proj_packed is None
+                                        else blocks(store.proj_packed)),
                            s_grid=blocks(store.s_grid),
                            labels=blocks(store.labels),
                            pack_bits=store.pack_bits)

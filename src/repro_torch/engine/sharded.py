@@ -42,6 +42,7 @@ from repro_torch.core import avss as avss_lib
 from repro_torch.core.avss import SearchConfig
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import shortlist as shortlist_kernel
+from repro_torch.models.sharding import count_collective
 
 
 _NOT_ONE_TENSOR = ("a row-sharded field of a mesh store is not one tensor: "
@@ -87,7 +88,10 @@ class ShardedRows:
         return self.blocks[i]
 
     def full(self, device: torch.device | str) -> torch.Tensor:
-        """The global array on `device`: every block copied there."""
+        """The global array on `device`: every block copied there (the
+        blocks past the first count as "all-gather" bytes)."""
+        count_collective("all-gather", sum(
+            b.numel() * b.element_size() for b in self.blocks[1:]))
         return torch.cat([b.to(device) for b in self.blocks])
 
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]

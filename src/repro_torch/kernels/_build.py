@@ -12,10 +12,19 @@ tensor.
 `LAUNCHES` counts, per kernel name, the wrapper calls that launched the
 kernel (a plain int per name), so a run can show which kernels it went
 through.
+
+A wrapper given tensors off the card (`off_card`: the CPU, or the meta
+device, where only shapes exist) runs its plain version (`plain_route`).
+While
+analysis/cost.py traces a call (`TRACE`), every wrapper call reports the
+kernel the card launches for it, with the shapes its cost model
+(`analysis.cost.kernel_cost`) takes: off the card in place of the plain
+version's arithmetic, on the card beside the launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,9 +47,41 @@ LAUNCHES: dict[str, int] = {"shortlist": 0, "shortlist_blocks": 0,
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+#: the running trace of analysis/cost.py, or None
+TRACE: list = [None]
 
-def count_launch(name: str) -> None:
+
+def count_launch(name: str, shapes=None) -> None:
+    """One launch of kernel `name`; `shapes()` gives its cost model's
+    arguments to a running trace."""
     LAUNCHES[name] += 1
+    if TRACE[0] is not None:
+        TRACE[0].launched(name, shapes or dict)
+
+
+def profiler_range(name: str):
+    """The profiler range `name` (`torch.profiler.record_function`) while
+    analysis/cost.py traces a call or a profiler records, else no range:
+    outside them a range would cost two dispatcher calls a call on the
+    serving path and be seen by nothing."""
+    import torch
+    if TRACE[0] is None and not torch._C._autograd._profiler_enabled():
+        return contextlib.nullcontext()
+    return torch.profiler.record_function(name)
+
+
+def off_card(*tensors) -> bool:
+    """Every tensor on the CPU, or every one on the meta device."""
+    kinds = {t.device.type for t in tensors}
+    return kinds == {"cpu"} or kinds == {"meta"}
+
+
+def plain_route(name: str, shapes, plain):
+    """`plain()`, a wrapper's route off the card; under a trace it counts
+    as kernel `name` at `shapes()`, not as the plain arithmetic."""
+    if TRACE[0] is None:
+        return plain()
+    return TRACE[0].off_card(name, shapes, plain)
 
 
 def reset_launches() -> None:

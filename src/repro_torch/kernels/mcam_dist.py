@@ -55,16 +55,21 @@ def lut_dist_matmul_plain(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
 def lut_dist_matmul(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """(B, K) x (N, K) -> (B, N) float32. Both operands bf16 or both f32.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    kernel (or raises)."""
+    A CPU or meta tensor runs the plain version; a CUDA tensor launches
+    the kernel (or raises)."""
     if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1]:
         raise ValueError(f"lut_dist_matmul: shapes {tuple(q.shape)} and "
                          f"{tuple(s.shape)} do not contract")
     if q.dtype != s.dtype or q.dtype not in _DTYPES:
         raise TypeError(f"lut_dist_matmul: dtypes {q.dtype}, {s.dtype}; "
                         f"expected both bf16 or both f32")
-    if q.device.type == "cpu" and s.device.type == "cpu":
-        return lut_dist_matmul_plain(q, s)
+
+    def shapes():
+        return dict(b=q.shape[0], n=s.shape[0], k=q.shape[1],
+                    elem=q.element_size())
+    if _build.off_card(q, s):
+        return _build.plain_route("mcam_dist", shapes,
+                                  lambda: lut_dist_matmul_plain(q, s))
     if q.device.type != "cuda":
         raise ValueError(f"lut_dist_matmul: unsupported device {q.device}")
     _build.require_cuda("lut_dist_matmul", q, s)
@@ -82,5 +87,5 @@ def lut_dist_matmul(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         ctypes.c_int(N), ctypes.c_int(K), ctypes.c_int(route),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "mcam_dist_launch")
-    _build.count_launch("mcam_dist")
+    _build.count_launch("mcam_dist", shapes)
     return out

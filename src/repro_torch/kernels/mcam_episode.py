@@ -128,8 +128,8 @@ def episode_backward(q8: torch.Tensor, s8: torch.Tensor,
     g_votes, g_dist (B, N) float32 -> dq (B, S, sl), ds (N, S, sl)
     float32.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    backward kernel (or raises)."""
+    A CPU or meta tensor runs the plain version; a CUDA tensor launches
+    the backward kernel (or raises)."""
     if q8.dtype != torch.int8 or s8.dtype != torch.int8:
         raise TypeError("episode_backward: string grids must be int8")
     if q8.dim() != 3 or s8.dim() != 3 or q8.shape[1:] != s8.shape[1:]:
@@ -146,10 +146,14 @@ def episode_backward(q8: torch.Tensor, s8: torch.Tensor,
         raise ValueError(f"episode_backward: weights must be ({S},) float32")
     if thresholds.dtype != torch.float32 or thresholds.dim() != 1:
         raise ValueError("episode_backward: thresholds must be 1-D float32")
-    if q8.device.type == "cpu" and s8.device.type == "cpu":
-        return episode_backward_plain(q8, s8, g_votes, g_dist, weights,
-                                      thresholds, cfg, noisy=noisy,
-                                      qidx=qidx, stream=stream, tau=tau)
+
+    def shapes():
+        return dict(b=B, n=N, s=S, sl=sl)
+    if _build.off_card(q8, s8):
+        return _build.plain_route("mcam_episode", shapes, lambda: (
+            episode_backward_plain(q8, s8, g_votes, g_dist, weights,
+                                   thresholds, cfg, noisy=noisy, qidx=qidx,
+                                   stream=stream, tau=tau)))
     if s8.device.type != "cuda":
         raise ValueError(f"episode_backward: unsupported device {s8.device}")
     if not 1 <= sl <= MAX_GENERIC_SL:
@@ -186,7 +190,7 @@ def episode_backward(q8: torch.Tensor, s8: torch.Tensor,
         *search_kernel.stream_args(stream), ctypes.c_float(f32(tau)),
         _build.stream_ptr(dev))
     _build.check(lib, err, "mcam_episode_backward")
-    _build.count_launch("mcam_episode")
+    _build.count_launch("mcam_episode", shapes)
     return dq, ds
 
 
@@ -224,10 +228,14 @@ def episode_physics(q: torch.Tensor, s: torch.Tensor, weights: torch.Tensor,
     """Votes, dist (B, N) of q (B, S, sl) against s (N, S, sl), float grids
     of integer cell values in [0, 3], differentiable in both (see the
     module docstring). tau: the sense-amp STE's temperature."""
-    if q.device.type == "cpu" and s.device.type == "cpu":
-        return episode_physics_plain(q, s, weights, thresholds, cfg,
-                                     noisy=noisy, qidx=qidx, stream=stream,
-                                     tau=tau)
+    if _build.off_card(q, s):
+        # the card's forward is the dense search kernel; autograd
+        # differentiates the plain forward here
+        return _build.plain_route("mcam_search", lambda: dict(
+            b=q.shape[0], n=s.shape[0], s=s.shape[1], sl=s.shape[2]),
+            lambda: episode_physics_plain(q, s, weights, thresholds, cfg,
+                                          noisy=noisy, qidx=qidx,
+                                          stream=stream, tau=tau))
     if s.device.type != "cuda":
         raise ValueError(f"episode_physics: unsupported device {s.device}")
     qi = (torch.arange(q.shape[0], dtype=torch.int64, device=q.device)

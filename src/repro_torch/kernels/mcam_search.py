@@ -213,12 +213,17 @@ def mcam_search(q_strings: torch.Tensor, s_strings: torch.Tensor,
     per-query noise coordinates (default arange(B)). stream: a leading
     noise coordinate (a uint32 value; None: the serving coordinates).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the dense
-    kernel (or raises)."""
+    A CPU or meta tensor runs the plain version; a CUDA tensor launches
+    the dense kernel (or raises)."""
     _check_strings("mcam_search", q_strings, s_strings, weights, thresholds)
-    if s_strings.device.type == "cpu" and q_strings.device.type == "cpu":
-        return mcam_search_plain(q_strings, s_strings, weights, thresholds,
-                                 cfg, noisy=noisy, qidx=qidx, stream=stream)
+
+    def shapes():
+        return dict(b=q_strings.shape[0], n=s_strings.shape[0],
+                    s=s_strings.shape[1], sl=s_strings.shape[2])
+    if _build.off_card(q_strings, s_strings):
+        return _build.plain_route("mcam_search", shapes, lambda: (
+            mcam_search_plain(q_strings, s_strings, weights, thresholds,
+                              cfg, noisy=noisy, qidx=qidx, stream=stream)))
     if s_strings.device.type != "cuda":
         raise ValueError(f"mcam_search: unsupported device "
                          f"{s_strings.device}")
@@ -241,7 +246,7 @@ def mcam_search(q_strings: torch.Tensor, s_strings: torch.Tensor,
         *physics_args(cfg, noisy), *stream_args(stream),
         _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_dense")
-    _build.count_launch("mcam_search")
+    _build.count_launch("mcam_search", shapes)
     return votes, dist
 
 
@@ -256,14 +261,21 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
     (default arange(B)) -> votes (B, k) float32, and with `with_dist` also
     dist (B, k), the dense entry's dist of each pair (a tenant's `full`).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    gathered kernel (or raises)."""
+    A CPU or meta tensor runs the plain version; a CUDA tensor launches
+    the gathered kernel (or raises)."""
     _check_strings("mcam_rescore", q_strings, s_strings, weights, thresholds)
-    if s_strings.device.type == "cpu" and q_strings.device.type == "cpu":
-        return mcam_rescore_plain(q_strings, s_strings, rows, weights,
-                                  thresholds, cfg, noisy=noisy,
-                                  noise_rows=noise_rows, qidx=qidx,
-                                  with_dist=with_dist)
+
+    def shapes():
+        return dict(b=rows.shape[0], k=rows.shape[1], s=s_strings.shape[1],
+                    sl=s_strings.shape[2],
+                    uniq=None if rows.device.type == "meta"
+                    else int(torch.unique(rows).numel()))
+    if _build.off_card(q_strings, s_strings):
+        return _build.plain_route("mcam_rescore", shapes, lambda: (
+            mcam_rescore_plain(q_strings, s_strings, rows, weights,
+                               thresholds, cfg, noisy=noisy,
+                               noise_rows=noise_rows, qidx=qidx,
+                               with_dist=with_dist)))
     if s_strings.device.type != "cuda":
         raise ValueError(f"mcam_rescore: unsupported device "
                          f"{s_strings.device}")
@@ -296,7 +308,7 @@ def mcam_rescore(q_strings: torch.Tensor, s_strings: torch.Tensor,
                                                        s_strings)),
         *physics_args(cfg, noisy), _build.stream_ptr(s_strings.device))
     _build.check(lib, err, "mcam_search_gathered")
-    _build.count_launch("mcam_rescore")
+    _build.count_launch("mcam_rescore", shapes)
     return (votes, dist) if with_dist else votes
 
 

@@ -53,14 +53,23 @@ _SIGNATURES = {"shortlist_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
 # small enough that dist + penalty stays integer-exact in f32 (< 2**24).
 SHORTLIST_MASK_PENALTY = 2.0 ** 22
 
+#: the profiler range around both entries (the reference's
+#: `jax.named_scope("shortlist_fused")`), entered while a trace or a
+#: profiler records (`_build.profiler_range`): present iff the fused
+#: shortlist ran, which analysis/contracts.py holds against the dispatch
+#: rule
+FUSED_TAG = "shortlist_fused"
+
 _KIND_PACKED, _KIND_BF16, _KIND_F32 = 0, 1, 2
 _MERGE_KEYS = 2048      # keys per merge block (csrc/shortlist.cu MERGE_KEYS)
 MAX_K = _MERGE_KEYS // 2  # largest k the kernel takes
 _ROWS = 64              # rows per staged tile: 2 per lane
 _QW = 4                 # queries per warp
-# shared memory one H100 block may use, less the select pass's static
-# part (csrc/shortlist.cu SELECT_STATIC_SMEM: a query and a list a slot)
-_SMEM_MAX = 232448 - 4 * _QW * 12
+# the select pass's static shared memory (csrc/shortlist.cu
+# SELECT_STATIC_SMEM: a query and a list a slot), and what one H100 block
+# may use beside it
+_SELECT_STATIC = 4 * _QW * 12
+_SMEM_MAX = 232448 - _SELECT_STATIC
 _SM_SMEM = 233472       # shared memory of one H100 SM
 _SMS = 132              # SMs of an H100
 
@@ -124,9 +133,11 @@ def _select_block(queries: int, row_words: int, k: int
 
 def _slices(rows: int, k: int, warps: int, smem: int, tiles: int) -> int:
     """Rows a slice, so that `tiles` query tiles x the slices fill the SMs
-    once at the occupancy that shared memory allows, each slice at least
-    k rows (and one 64-row tile)."""
-    per_sm = min(2048 // (32 * warps), _SM_SMEM // (smem + 1024))
+    once at the occupancy that shared memory allows (a block's dynamic and
+    static shared memory and the runtime's 1 KB), each slice at least k
+    rows (and one 64-row tile)."""
+    per_sm = min(2048 // (32 * warps),
+                 _SM_SMEM // (smem + _SELECT_STATIC + 1024))
     slices = max(1, min(_cdiv(rows, max(_ROWS, k)), per_sm * _SMS // tiles))
     return _ROWS * _cdiv(_cdiv(rows, slices), _ROWS)
 
@@ -148,7 +159,8 @@ _BQ = 4 * _QW
 _DSTRIDE = 72
 _SLOTS = 32
 _CHUNK_MAX = 64
-_BLOCKS_SMEM_MAX = 232448 - _BQ * (4 + 8 + 4 + 4)
+_BLOCKS_STATIC = _BQ * (4 + 8 + 4 + 4)
+_BLOCKS_SMEM_MAX = 232448 - _BLOCKS_STATIC
 # the units a mix is spread over, in waves of the SMs at the plan's
 # occupancy: whole rows half a wave, so a query has fewer, longer lists
 # and every unit runs at once; rows staged in K-chunks (wider than
@@ -280,7 +292,8 @@ def shortlist_blocks_plan(b: int, p: int, m: int, rows: int, row_words: int,
                          f"rows leaves no shared memory for one pair tile")
     qb = warps * _QW
     alpha = _row_cost(row_words)
-    per_sm = min(2048 // (32 * warps), _SM_SMEM // (smem + 1024))
+    per_sm = min(2048 // (32 * warps),
+                 _SM_SMEM // (smem + _BLOCKS_STATIC + 1024))
     waves = _BLOCKS_WAVES if stages == 2 else _BLOCKS_WAVES_CHUNKED
     target = max(1, int(per_sm * _SMS * waves))
     typical = _cdiv(pairs, qb) + min(m + 1, pairs) // 2
@@ -430,13 +443,33 @@ def lut_shortlist(q_words: torch.Tensor, s_proj: torch.Tensor | None,
 
     valid: optional (N,) bool; masked rows carry SHORTLIST_MASK_PENALTY in
     their distance and rank after every valid row. Requires 0 < k <= N
-    (and k <= MAX_K on the card). A CPU tensor runs the plain version; a
-    CUDA tensor launches the kernel (or raises)."""
+    (and k <= MAX_K on the card). A CPU or meta tensor runs the plain
+    version; a CUDA tensor launches the kernel (or raises)."""
     n = _check_args(q_words, s_proj, k, packed, pack_bits)
     operand = packed if packed is not None else s_proj
-    if q_words.device.type == "cpu" and operand.device.type == "cpu":
-        return lut_shortlist_plain(q_words, s_proj, k, valid=valid,
-                                   packed=packed, pack_bits=pack_bits)
+    B, d = q_words.shape
+
+    def shapes():
+        return dict(b=B, n=n, d=d, k=k, masked=valid is not None,
+                    row_words=_row_words(d, s_proj, packed))
+    with _build.profiler_range(FUSED_TAG):
+        if _build.off_card(q_words, operand):
+            return _build.plain_route("shortlist", shapes, lambda: (
+                lut_shortlist_plain(q_words, s_proj, k, valid=valid,
+                                    packed=packed, pack_bits=pack_bits)))
+        return _shortlist_cuda(q_words, s_proj, k, valid, packed, pack_bits,
+                               n, shapes)
+
+
+def _row_words(d: int, s_proj, packed) -> int:
+    """32-bit words a row of the operand the kernel streams."""
+    if packed is not None:
+        return packed.shape[-1]
+    return d * s_proj.element_size()
+
+
+def _shortlist_cuda(q_words, s_proj, k, valid, packed, pack_bits, n,
+                    shapes):
     if q_words.device.type != "cuda":
         raise ValueError(f"lut_shortlist: unsupported device "
                          f"{q_words.device}")
@@ -471,7 +504,7 @@ def lut_shortlist(q_words: torch.Tensor, s_proj: torch.Tensor | None,
         _build.ptr(scratch_a), _build.ptr(scratch_b), _build.ptr(keys),
         _build.stream_ptr(q.device))
     _build.check(lib, err, "shortlist_launch")
-    _build.count_launch("shortlist")
+    _build.count_launch("shortlist", shapes)
     return split_keys(keys)
 
 
@@ -558,17 +591,35 @@ def lut_shortlist_blocks(q_words: torch.Tensor, s_proj: torch.Tensor | None,
     of the visited blocks (`jax.vmap` of lut_shortlist_pallas). Requires
     0 < k <= p * rows (k <= MAX_K on the card) and base + rows <= 2**32.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the
-    grouping, select and merge passes of csrc/shortlist.cu (or raises). An
+    A CPU or meta tensor runs the plain version; a CUDA tensor launches
+    the grouping, select and merge passes of csrc/shortlist.cu (or
+    raises). An
     id outside [0, M) reads nothing on the card (its lists hold the
     all-ones key) and raises in the plain version."""
     m, rows = _check_blocks(q_words, s_proj, k, base, ids, valid, packed,
                             pack_bits)
     operand = packed if packed is not None else s_proj
-    if q_words.device.type == "cpu" and operand.device.type == "cpu":
-        return lut_shortlist_blocks_plain(q_words, s_proj, k, base=base,
-                                          ids=ids, valid=valid, packed=packed,
-                                          pack_bits=pack_bits)
+
+    def shapes():
+        inside = ids[(ids >= 0) & (ids < m)]
+        return dict(b=ids.shape[0], d=q_words.shape[1], p=ids.shape[1], m=m,
+                    rows=rows, k=k, row_words=_row_words(
+                        q_words.shape[1], s_proj, packed),
+                    visited=None if ids.device.type == "meta"
+                    else int(torch.unique(inside).numel()))
+    with _build.profiler_range(FUSED_TAG):
+        if _build.off_card(q_words, operand):
+            return _build.plain_route("shortlist_blocks", shapes, lambda: (
+                lut_shortlist_blocks_plain(q_words, s_proj, k, base=base,
+                                           ids=ids, valid=valid,
+                                           packed=packed,
+                                           pack_bits=pack_bits)))
+        return _blocks_cuda(q_words, s_proj, k, base, ids, valid, packed,
+                            pack_bits, m, rows, shapes)
+
+
+def _blocks_cuda(q_words, s_proj, k, base, ids, valid, packed, pack_bits, m,
+                 rows, shapes):
     if q_words.device.type != "cuda":
         raise ValueError(f"lut_shortlist_blocks: unsupported device "
                          f"{q_words.device}")
@@ -612,5 +663,5 @@ def lut_shortlist_blocks(q_words: torch.Tensor, s_proj: torch.Tensor | None,
         _build.ptr(group), _build.ptr(bounds), _build.ptr(scratch_a),
         _build.ptr(scratch_b), _build.ptr(keys), _build.stream_ptr(dev))
     _build.check(lib, err, "shortlist_blocks_launch")
-    _build.count_launch("shortlist_blocks")
+    _build.count_launch("shortlist_blocks", shapes)
     return split_keys(keys)

@@ -55,11 +55,20 @@ class Mesh:
         return f"Mesh({self.shape}, devices={names})"
 
 
+def production_mesh_shape(multi_pod: bool = False
+                          ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axis names) of the production mesh: (16, 16) data x model
+    single pod; (2, 16, 16) pod x data x model for the 2-pod = 512-device
+    deployment."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """(16, 16) data x model single pod; (2, 16, 16) pod x data x model for
-    the 2-pod = 512-device deployment, over this host's CUDA devices."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The production mesh (`production_mesh_shape`) over this host's
+    CUDA devices; raises below 256 / 512 of them."""
+    shape, axes = production_mesh_shape(multi_pod)
     n = int(np.prod(shape))
     found = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if found < n:

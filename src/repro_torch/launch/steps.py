@@ -345,7 +345,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     a leaf updates block by block on the blocks' devices; otherwise the
     leaf, its gradient and state are assembled, updated and written back
     to their blocks, leaf by leaf. No second copy of the whole model is
-    made."""
+    made. The reference's `unroll_accum` (its dry run's cost calibration
+    unrolls the accumulation scan) has no counterpart: the accumulation
+    here is a Python loop over the microbatches."""
     optimizer = optimizer_for(cfg, tc)
 
     def train_step(params, opt_state, batch):

@@ -15,13 +15,17 @@ entry on the inputs that chip_smoke.py's searches give it:
   tenants      the tenant stack and its 256 queries of mixed tenants
   cub_nprobe8  the routed store at the CUB width (d = 480), nprobe 8
 
-and the one-table entry (`lut_shortlist`) on the two unsharded stores.
+and the one-table entry (`lut_shortlist`) on the two unsharded stores
+(its CUDA-event ms, the wrapper's host work included, and its
+torch.profiler device ms).
 Each block row holds the entry's result against its plain version bit for
 bit, and gives its CUDA-event ms and its torch.profiler device ms by pass
 (group, select, merge). With --variants (this checkout's package only)
 every block row the constant acts on is timed again under each value in
-VARIANTS of the host plan's tuning constants. One JSON object a line; the
-last line gives the card's name and power limit.
+VARIANTS of the host plan's tuning constants; a value whose select block
+the shared-memory model (analysis/vmem.py) puts over the H100's budget
+is rejected before it is timed. One JSON object a line; the last line
+gives the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -75,7 +79,8 @@ def main() -> int:
 
     t = smoke.timers(torch)
     _build.build()
-    calls, out = {}, {"src": str(args.src), "one_table_device_ms": {}}
+    calls, out = {}, {"src": str(args.src), "one_table_ms": {},
+                      "one_table_device_ms": {}}
     cub = get_config()
     for prefix, seed, d, cl in (("", args.seed, 48, 32),
                                 ("cub_", args.seed + 17, cub.embed_dim,
@@ -89,10 +94,13 @@ def main() -> int:
             x, torch.from_numpy(labels).to(t.dev))
         q = torch.from_numpy(queries).to(t.dev)
         qw = store.quantize_queries(q)
-        out["one_table_device_ms"][f"{prefix}shortlist"] = t.device_ms(
-            lambda: shortlist.lut_shortlist(
+        def one_table():
+            return shortlist.lut_shortlist(
                 qw, None, 64, valid=store.valid, packed=store.proj_packed,
-                pack_bits=8), "shortlist_")
+                pack_bits=8)
+        out["one_table_ms"][f"{prefix}shortlist"] = t.event_ms(one_table)
+        out["one_table_device_ms"][f"{prefix}shortlist"] = t.device_ms(
+            one_table, "shortlist_")
         rstore = store.shard(n_shards=smoke.ROUTED_SHARDS)
         eng = RetrievalEngine(cfg.search)
         for nprobe in (8,) if prefix else (8, 1):
@@ -130,6 +138,25 @@ def main() -> int:
     out["rows"] = {name: measure(name) for name in calls}
     for name, row in out["rows"].items():
         t.log(json.dumps({"row": name, **row}))
+    def over_budget(names) -> str:
+        """The vmem gate's reasons for the rows' plans under the current
+        constants ('' when every plan fits)."""
+        from repro_torch.analysis import vmem
+        reasons = []
+        for name in names:
+            (qw, sp, k), kw = calls[name]
+            table = kw.get("packed") if sp is None else sp
+            m, rows = table.shape[:2]
+            words = table.shape[2] if sp is None else (
+                table.shape[2] // (2 if sp.dtype == torch.bfloat16 else 1))
+            b, p = kw["ids"].shape
+            check = vmem.validate_config(vmem.blocks_smem(
+                b, p, m, rows, words, k,
+                sp is None and kw["pack_bits"] == 8))
+            if not check.ok:
+                reasons.append(f"{name}: {check.reason}")
+        return "; ".join(reasons)
+
     if args.variants:
         out["variants"] = {}
         for const, values in VARIANTS.items():
@@ -139,7 +166,9 @@ def main() -> int:
             for v in values:
                 setattr(shortlist, const, v)
                 try:
-                    res = {n: measure(n) for n in names}
+                    rejected = over_budget(names)
+                    res = ({"rejected": rejected} if rejected
+                           else {n: measure(n) for n in names})
                 except ValueError as e:     # the plan refuses the value
                     res = {"refused": str(e)}
                 finally:

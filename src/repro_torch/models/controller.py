@@ -45,7 +45,9 @@ def _group_norm(x: torch.Tensor, groups: int = 8,
 
 def _he_conv(rng: np.random.Generator, k: int, cin: int, cout: int) -> dict:
     """He-normal OIHW convolution weights and zero biases (numpy's draws)."""
-    w = rng.standard_normal((cout, cin, k, k)) * math.sqrt(2.0 / (k * k * cin))
+    # host ints: the He fan-in, in numpy before the weights are tensors
+    w = rng.standard_normal((cout, cin, k, k)) * math.sqrt(
+        2.0 / (k * k * cin))  # lint: allow=tensor-number-div
     return {"w": w, "b": np.zeros(cout)}
 
 

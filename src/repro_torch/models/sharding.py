@@ -25,6 +25,10 @@ as JAX's is), so a placed tensor is a layout of storage, not of work: a
 step assembles a leaf's blocks on the mesh's first device where it
 computes with it (`Placed.full`) and writes results back block by block.
 GSPMD's contract holds: every value equals the unplaced computation's.
+
+The copies between positions are counted (`COLLECTIVE_BYTES`) under the
+name of the collective JAX's partitioner would emit for them, so the
+dry run (launch/dryrun.py) can read a collective term.
 """
 
 from __future__ import annotations
@@ -37,6 +41,23 @@ import torch
 
 from repro_torch import tree as tree_lib
 from repro_torch.launch.mesh import Mesh
+
+
+#: the collective kinds of the reference's cost model
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter",
+                    "all-to-all", "collective-permute")
+
+#: Bytes copied between mesh positions (a reader takes differences):
+#: "all-gather" the blocks that the first position (the compute one)
+#: assembles from blocks other positions hold (`Placed.full`,
+#: `engine.sharded.ShardedRows.full`), "reduce-scatter" the bytes written
+#: back into other positions' blocks (`Placed.write`), "all-to-all" a
+#: re-layout's blocks (`Placed.replaced`). The other kinds stay 0.
+COLLECTIVE_BYTES: dict[str, int] = {k: 0 for k in COLLECTIVE_KINDS}
+
+
+def count_collective(kind: str, nbytes: int) -> None:
+    COLLECTIVE_BYTES[kind] += int(nbytes)
 
 
 def _entry(e):
@@ -149,6 +170,24 @@ class NamedSharding:
                 idx.append(slice(block * step, (block + 1) * step))
             out[pos] = tuple(idx)
         return out
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of the block each position holds (JAX's
+        `NamedSharding.shard_shape`): a split dim divided by its pieces."""
+        spec = tuple(self.spec) + (None,) * (len(shape) - len(self.spec))
+        out = []
+        for n, entry in zip(shape, spec):
+            pieces = 1 if entry is None else _split(self.mesh, entry)
+            if n % pieces:
+                raise ValueError(f"dim of {n} does not divide into {pieces} "
+                                 f"pieces ({self.spec})")
+            out.append(n // pieces)
+        return tuple(out)
+
+    def first_key(self, shape: Sequence[int]) -> tuple:
+        """The block key (`_key`) of the first mesh position's block."""
+        return tuple(None if n == m else (0, m) for n, m in
+                     zip(shape, self.shard_shape(shape)))
 
 
 def logical_sharding(mesh: Mesh, rules: Rules, *logical) -> NamedSharding:
@@ -337,10 +376,15 @@ class Placed:
     def full(self, device: torch.device | str | None = None
              ) -> torch.Tensor:
         """The global array on `device` (default: the compute device).
-        One block (a replicated leaf) is returned as it is, no copy."""
+        One block (a replicated leaf) is returned as it is, no copy. The
+        blocks the first position does not hold count as "all-gather"
+        bytes."""
         dev = self.device if device is None else torch.device(device)
         items = sorted(self.canonical().items(), key=lambda kv: tuple(
             -1 if k is None else k[0] for k in kv[0]))
+        mine = self.sharding.first_key(self.shape)
+        count_collective("all-gather", sum(
+            t.numel() * t.element_size() for k, t in items if k != mine))
         return _assemble(items, 0, dev)
 
     def with_canonical(self, blocks: dict[tuple, torch.Tensor]
@@ -357,8 +401,14 @@ class Placed:
                                     for k in self.tiles})
 
     def replaced(self, sharding: NamedSharding) -> "Placed":
-        """The same values under another layout (a copy)."""
-        return Placed.place(self.full(), sharding)
+        """The same values under another layout (a copy; the blocks of
+        positions but the first count as "all-to-all" bytes)."""
+        out = Placed.place(self.full(), sharding)
+        mine = sharding.first_key(self.shape)
+        count_collective("all-to-all", sum(
+            r.numel() * r.element_size() for k, reps in out.tiles.items()
+            for i, r in enumerate(reps) if k != mine or i))
+        return out
 
     def unbind(self, dim: int = 0) -> list["Placed"]:
         """The slices along an unsplit dim 0, each a Placed of views of
@@ -384,10 +434,15 @@ class Placed:
 
     @torch.no_grad()
     def write(self, full: torch.Tensor) -> None:
-        """Copy `full`'s slices into every block and replica, in place."""
+        """Copy `full`'s slices into every block and replica, in place;
+        the bytes of positions but the first count as "reduce-scatter"."""
+        mine = self.sharding.first_key(self.shape)
         for k, reps in self.tiles.items():
             part = full[_slices(k)]
-            for r in reps:
+            for i, r in enumerate(reps):
+                if k != mine or i:
+                    count_collective("reduce-scatter",
+                                     r.numel() * r.element_size())
                 if r.data_ptr() != part.data_ptr() or r.shape != part.shape:
                     r.copy_(part)
 

@@ -1647,3 +1647,26 @@ def test_hat_place_on_the_card_equals_unplaced(dev, trainer_settings):
     for a, b in zip(runs[0][2], runs[1][2]):
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_router_bucket_sums_on_the_card_equal_the_cpus(dev, tf32):
+    """The sketch's one-hot product of int32 octets in float32 is exact
+    on the card too, with TF32 products allowed or not, past one
+    product's 65,536 rows and with int32 sums that wrap."""
+    from repro_torch.engine import router
+    rng = np.random.default_rng(5)
+    for lo, hi in ((0, 97), (-(1 << 31), 1 << 31)):
+        values = torch.from_numpy(rng.integers(lo, hi, size=(70_000, 48))
+                                  .astype(np.int32))
+        labels = torch.from_numpy(rng.integers(-1, 4096, size=(70_000,))
+                                  .astype(np.int32))
+        want = router.bucket_sums(values, labels)
+        kept = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = router.bucket_sums(values.to(dev), labels.to(dev))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = kept
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])

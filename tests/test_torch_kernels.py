@@ -175,7 +175,8 @@ def test_shortlist_plan_fits_a_block_and_covers_every_row(b, n, row_words,
         # the main path: one wave of blocks over the 132 SMs at the
         # occupancy shared memory allows, and one merge round (32 slices x
         # 64 keys fill one 2,048-key merge block)
-        per_sm = min(2048 // (32 * plan.warps), 233472 // (plan.smem + 1024))
+        per_sm = min(2048 // (32 * plan.warps),
+                     233472 // (plan.smem + 192 + 1024))
         blocks = plan.slices * (b // (4 * plan.warps))
         assert 132 <= blocks <= per_sm * 132 and plan.slices * k <= 2048
 
@@ -224,7 +225,7 @@ def test_block_plan_fits_a_block_and_covers_every_row(b, p, m, rows,
                          + 16 * 72 * 4) <= 232448 - static
     assert plan.warps in (1, 2, 4) and plan.keys // 2 >= k
     assert plan.ctas_per_sm == min(2048 // (32 * plan.warps),
-                                   233472 // (plan.smem + 1024)) >= 1
+                                   233472 // (plan.smem + static + 1024)) >= 1
     assert plan.chunk % 8 == 0 and plan.chunk <= 64
     assert plan.stages == (2 if plan.chunk >= row_words else 3)
     qb = 4 * plan.warps
@@ -523,22 +524,34 @@ def test_rescore_shortlist_with_noise_coordinates_matches_reference():
 
 
 def test_kernel_wrappers_refuse_a_device_they_do_not_run_on():
-    """A tensor that is neither on the CPU nor on a CUDA device raises; no
-    wrapper quietly runs the plain version instead."""
+    """Tensors split between the CPU and another device, or on a device
+    that is neither the CPU nor a CUDA device, raise; no wrapper quietly
+    runs the plain version instead. Only on the meta device, where a
+    trace runs on shapes alone (analysis/cost.py), do the wrappers run
+    their plain versions -- for shapes, onto meta outputs."""
     meta = torch.empty(4, 3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
-        shortlist.lut_shortlist(meta, torch.empty(6, 12, device="meta"), 2)
+        shortlist.lut_shortlist(meta, torch.empty(6, 12), 2)
     with pytest.raises(ValueError, match="device"):
         mcam_dist.lut_dist_matmul(torch.empty(4, 8, device="meta"),
-                                  torch.empty(5, 8, device="meta"))
+                                  torch.empty(5, 8))
     g = torch.empty(2, 4, 24, dtype=torch.int8, device="meta")
+    gc = torch.zeros(2, 4, 24, dtype=torch.int8)
     w, th = torch.ones(4), torch.ones(8)
     cfg = t_avss.SearchConfig().mcam
     with pytest.raises(ValueError, match="device"):
-        mcam_search.mcam_search(g, g, w, th, cfg)
+        mcam_search.mcam_search(g, gc, w, th, cfg)
     with pytest.raises(ValueError, match="device"):
-        mcam_search.mcam_rescore(g, g, torch.zeros(2, 1, dtype=torch.int64),
+        mcam_search.mcam_rescore(gc, g, torch.zeros(2, 1, dtype=torch.int64),
                                  w, th, cfg)
+    # the meta device: shapes only
+    d, r = shortlist.lut_shortlist(meta, torch.empty(6, 12, device="meta"),
+                                   2)
+    assert d.device.type == r.device.type == "meta"
+    assert tuple(d.shape) == tuple(r.shape) == (4, 2)
+    out = mcam_dist.lut_dist_matmul(torch.empty(4, 8, device="meta"),
+                                    torch.empty(5, 8, device="meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (4, 5)
 
 
 def test_cuda_request_without_a_card_raises(monkeypatch):
