@@ -392,6 +392,11 @@ LM_MESH_ARCH = "starcoder2-3b"
 LM_MESH = ((2, 2, 2), ("pod", "data", "model"))
 LM_MESH_B, LM_MESH_S, LM_MESH_STEPS = 8, 1024, 3
 LM_MESH_TRAIN_STEPS = 2
+# the elastic restore: starcoder2-3b at full width cut to this depth, its
+# train state saved placed on LM_MESH and restored onto LM_RESTORE_MESH
+# (FSDP over every position: the rules shard no tensor axis)
+LM_RESTORE_LAYERS = 2
+LM_RESTORE_MESH = ((8,), ("data",))
 HAT_MESH = (4,)
 PIPE_STAGES, PIPE_MICRO, PIPE_ROWS, PIPE_D = 4, 6, 1024, 3072
 SHIM_MESH = (8,)
@@ -1539,7 +1544,10 @@ def run_sharded(t, store, support, labels, queries, exhaustive, full16,
     medians and a profiled call of each mode on the (8,) mesh beside the
     unsharded search's; `full` (B = 16) on the (8,) store equals the
     unsharded `full`; routed at SHARDED_NPROBE equals the logical
-    partition's routed search; the shard-local write of a ragged store
+    partition's routed search, and the same routed search of the (8,)
+    store without `proj_packed` (each shard streaming its wide bf16 rows)
+    equals the packed store's, timed and profiled beside it; the
+    shard-local write of a ragged store
     (SHARDED_WRITE_CAPACITY padded to a multiple of 8) in
     SHARDED_WRITE_BATCHES, the last wrapping past the ring's end across
     shard boundaries, equals the unsharded write in every leaf (its
@@ -1601,10 +1609,11 @@ def run_sharded(t, store, support, labels, queries, exhaustive, full16,
           f"{out['full']['mesh8']:.3f} ms, unsharded "
           f"{out['full']['unsharded']:.3f} ms, launches {counts}")
     logical = store.shard(n_shards=ms.n_shards)
+    routed = {}
     for mode in ("two_phase", "ideal"):
         req = SearchRequest(mode=mode, k=64, nprobe=SHARDED_NPROBE)
         _build.reset_launches()
-        res = engine.search(ms, queries, req)
+        res = routed[mode] = engine.search(ms, queries, req)
         t.sync()
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
         _count(launches, counts)
@@ -1622,6 +1631,40 @@ def run_sharded(t, store, support, labels, queries, exhaustive, full16,
         t.log(f"[sharded] routed {mode} nprobe={SHARDED_NPROBE} on the "
               f"(8,) store == the logical partition's: {ms_:.3f} ms "
               f"(logical partition {ms_logical:.3f} ms), launches {counts}")
+
+    # the routed search of the (8,) store without its packed projection:
+    # each shard's block-table entry streams the wide bf16 rows
+    unpacked = dataclasses.replace(ms, proj_packed=None)
+    for mode in ("two_phase", "ideal"):
+        req = SearchRequest(mode=mode, k=64, nprobe=SHARDED_NPROBE)
+        _build.reset_launches()
+        res = engine.search(unpacked, queries, req)
+        t.sync()
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        _count(launches, counts)
+        if not _equal_results(torch, res, routed[mode]):
+            fail(f"[sharded] routed {mode} nprobe={SHARDED_NPROBE} of the "
+                 f"unpacked (8,) store differs from the packed store's")
+        if not 0 < counts.get("shortlist_blocks", 0) <= ms.n_shards:
+            fail(f"[sharded] routed unpacked {mode}: launches {counts}")
+        row = {"launches": counts}
+        for name, st in (("unpacked", unpacked), ("packed", ms)):
+            prof = _profile_search(t, lambda st=st: engine.search(
+                st, queries, req))
+            row[name] = {"ms": t.host_ms(lambda st=st: engine.search(
+                st, queries, req)), **{k: prof[k] for k in (
+                    "device_ms", "idle_share", "kernel_launches",
+                    "top_kernels")}}
+        phases[f"sharded_routed_unpacked_{mode}"] = row["unpacked"]["ms"]
+        out[f"routed_unpacked_{mode}"] = row
+        up, pk = row["unpacked"], row["packed"]
+        t.log(f"[sharded] routed {mode} nprobe={SHARDED_NPROBE} on the "
+              f"(8,) store without proj_packed == the packed store's: "
+              f"{up['ms']:.3f} ms (device {up['device_ms']:.3f}, "
+              f"{up['kernel_launches']} launches), packed {pk['ms']:.3f} ms "
+              f"(device {pk['device_ms']:.3f}, {pk['kernel_launches']} "
+              f"launches); wrapper launches {counts}")
+    del unpacked
 
     # the shard-local write-through of a ragged store
     cfg = dataclasses.replace(store.cfg, capacity=SHARDED_WRITE_CAPACITY)
@@ -3037,7 +3080,8 @@ def run_lm_mesh(t, args, card: str, store, queries, hat_episode: dict,
     bit (losses, grad norms, every parameter and state leaf's checksums);
     each side's step ms, one profiled step (idle share, launches), peak
     memory, and the placed side's bytes per position against its leaves'.
-    (2) `train(model_parallel=2)` for LM_MESH_TRAIN_STEPS steps equals
+    (1b) The elastic restore (`_lm_elastic_restore`). (2)
+    `train(model_parallel=2)` for LM_MESH_TRAIN_STEPS steps equals
     `model_parallel=1` bit for bit (one card: a (1, 1) host mesh). (3)
     The Omniglot meta step of [hat]'s episode placed over a (4,) "data"
     mesh equals the unplaced step bit for bit. (4) `pipeline_apply` of
@@ -3176,6 +3220,13 @@ def run_lm_mesh(t, args, card: str, store, queries, hat_episode: dict,
             f" ({card})")
     phases_ms["lm_mesh_step_placed"] = b["step_ms"]
     phases_ms["lm_mesh_step_unplaced"] = a["step_ms"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (1b) elastic restore: saved on (2, 2, 2), restored onto (8,) ------
+    out["elastic_restore"] = _lm_elastic_restore(t, args, card)
+    phases_ms["lm_mesh_ckpt_save"] = out["elastic_restore"]["save_ms"]
+    phases_ms["lm_mesh_ckpt_restore"] = out["elastic_restore"]["restore_ms"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3323,6 +3374,114 @@ def run_lm_mesh(t, args, card: str, store, queries, hat_episode: dict,
         f"shards) ({card})")
     phases_ms["lm_mesh"] = (time.perf_counter() - t0_phase) * 1e3
     out["phases_ms"] = phases_ms
+    return out
+
+
+def _lm_elastic_restore(t, args, card: str) -> dict:
+    """starcoder2-3b at full width cut to LM_RESTORE_LAYERS layers: one
+    step placed on LM_MESH, then its train state (bf16 parameters and
+    the optimizer's float32 state, 3.43 GB) saved as one checkpoint tile
+    a block to a
+    temporary directory, restored onto LM_RESTORE_MESH with `shardings=`
+    (each leaf assembled on the host, then placed) and the directory
+    removed. The restored leaves must equal the saved ones, and the next
+    step on them (under the new mesh's rules) must equal the next step of
+    the state that was never saved, loss and every leaf bit for bit ->
+    {save_ms, restore_ms, bytes, tiles, loss, ...}."""
+    import tempfile
+
+    import numpy as np
+    torch, dev = t.torch, t.dev
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import load_config
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.data.lm import LMDataConfig, SyntheticLM
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.sharding import (Rules, active_mesh, place,
+                                             rules_for_mesh)
+
+    B, S = LM_MESH_B, LM_MESH_S
+    shape = ShapeConfig("custom", S, B, "train")
+    cfg = steps_lib.adapt_config(dataclasses.replace(
+        load_config(LM_MESH_ARCH, smoke=LM_SMOKE),
+        n_layers=LM_RESTORE_LAYERS), shape, 1)
+    tc = TrainConfig(learning_rate=1e-3 if LM_SMOKE else 3e-4)
+    data = SyntheticLM(LMDataConfig(S, B, cfg.vocab_size))
+    batches = [train_lib.make_batch(cfg, shape, data, step, 1, B, dev)
+               for step in range(2)]
+    aps = tfm.abstract_params(cfg)
+    src, dst = Mesh.repeat(dev, *LM_MESH), Mesh.repeat(dev, *LM_RESTORE_MESH)
+    layouts = {"saved": (src, rules_for_mesh(src)),
+               "restored": (dst, Rules(tensor=(), expert=()))}
+
+    def shardings(name, optimizer):
+        mesh, rules = layouts[name]
+        psh = steps_lib.param_shardings(cfg, mesh, rules)
+        specs = steps_lib.input_specs(cfg, shape, mesh, rules)
+        return ({"params": psh, "opt": steps_lib.opt_shardings(
+                    optimizer.init(aps), aps, psh, mesh, rules)},
+                {k: v.sharding for k, v in specs.items()})
+
+    mesh, rules = layouts["saved"]
+    with active_mesh(mesh, rules):
+        step_fn, optimizer = steps_lib.make_train_step(cfg, tc, rules=rules)
+        sh, bsh = shardings("saved", optimizer)
+        params = place(tfm.init(torch.Generator(device=dev).manual_seed(
+            args.seed), cfg), sh["params"])
+        state = {"params": params,
+                 "opt": place(optimizer.init(params), sh["opt"])}
+        state["params"], state["opt"], _ = step_fn(
+            state["params"], state["opt"], place(batches[0], bsh))
+        saved = _checksums(torch, state)
+        with tempfile.TemporaryDirectory() as tmp:
+            t.sync()
+            t0 = time.perf_counter()
+            ckpt.save(tmp, 1, state)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            files = list((Path(tmp) / "step_0000000001").glob("*.npy"))
+            nbytes = sum(f.stat().st_size for f in files)
+            dst_sh, dst_bsh = shardings("restored", optimizer)
+            t0 = time.perf_counter()
+            back = ckpt.restore(tmp, state, shardings=dst_sh)
+            t.sync()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+        p_, o_, m = step_fn(state["params"], state["opt"],
+                            place(batches[1], bsh))
+        want = {"loss": float(m["loss"]), "sums": _checksums(torch, (p_, o_))}
+    del state, params, p_, o_, m
+    restored = _checksums(torch, back)
+    mesh, rules = layouts["restored"]
+    with active_mesh(mesh, rules):
+        step_fn, _ = steps_lib.make_train_step(cfg, tc, rules=rules)
+        p_, o_, m = step_fn(back["params"], back["opt"],
+                            place(batches[1], dst_bsh))
+        got = {"loss": float(m["loss"]), "sums": _checksums(torch, (p_, o_))}
+    del back, p_, o_, m
+    if restored != saved:
+        bad = [i for i, (a, b) in enumerate(zip(saved, restored)) if a != b]
+        fail(f"[lm-mesh restore] restored leaves {bad[:8]} differ from the "
+             f"saved ones")
+    if got != want or not math.isfinite(got["loss"]):
+        fail(f"[lm-mesh restore] the next step on the restored state differs"
+             f" from the never-saved state's: loss {got['loss']} vs "
+             f"{want['loss']}, leaves equal: {got['sums'] == want['sums']}")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "batch": B, "seq": S,
+           "saved_on": list(LM_MESH[0]), "restored_on":
+           list(LM_RESTORE_MESH[0]), "tiles": len(files), "bytes": nbytes,
+           "leaves": len(saved), "save_ms": save_ms,
+           "restore_ms": restore_ms, "next_loss": got["loss"],
+           "bit_for_bit": True}
+    t.log(f"[lm-mesh restore] {cfg.name} cut to {cfg.n_layers} layers: the "
+          f"train state ({len(saved)} leaves, {nbytes / 1e9:.3f} GB in "
+          f"{len(files)} tiles) saved placed on {LM_MESH[0]} in "
+          f"{save_ms:.1f} ms, restored onto {LM_RESTORE_MESH[0]} "
+          f"{LM_RESTORE_MESH[1]} positions in {restore_ms:.1f} ms (warm "
+          f"page cache); equal leaves, and the next step (loss "
+          f"{got['loss']:.6f}) equals the never-saved state's bit for bit "
+          f"({card})")
     return out
 
 

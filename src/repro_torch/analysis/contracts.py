@@ -25,6 +25,10 @@ Checkers return the offending lines -- empty means the invariant holds.
 The registry runner (analysis/registry.py) walks every cell through the
 `check_*` functions; tests call the `assert_*` wrappers over the same
 functions.
+
+No counterpart, by design: `F64_TYPE_TAG` and `matched_lines`, which
+read HLO text, and the `hlo` argument of every `check_*` / `assert_*`
+(each takes a trace record).
 """
 
 from __future__ import annotations

@@ -43,6 +43,13 @@ Three parts:
 
 The rates are an NVIDIA H100 SXM's, the card of `CARD`, from NVIDIA's
 data sheet (dense).
+
+No counterpart, by design (the names that read compiled HLO or XLA's
+analyses): `DTYPE_BYTES`, `CENSUS_OPS`, `MEMORY_STATS`, `shape_bytes`,
+`parse_collectives`, `hlo_op_census`, `compiled_cost`, `hbm_rw_bytes`,
+`compiled_memory`, `temp_bytes`, `peak_bytes_of`,
+`scan_trip_count_totals`, and `roofline_metrics`' `compiled` argument
+(it takes a trace record).
 """
 
 from __future__ import annotations

@@ -30,6 +30,12 @@ that occupancy against the SM's 64 K registers. Its consumer is
 `launch/time_blocks.py --variants` (the counterpart of the reference's
 `benchmarks/autotune_shortlist.py`, which is not ported), which rejects
 an over-budget variant before timing it.
+
+No counterpart, by design (the TPU's names): `TPU_VMEM_BYTES`,
+`SORT_LIVE_PAIRS`, `VmemEstimate`, `shortlist_vmem`, and
+`validate_config`'s Pallas tile arguments (`tile_b`, `tile_n`, `k`,
+`width`, `k_pad`, `pack_bits`, `q_dtype_bytes`, `masked`, `use_network`,
+`budget_bytes`); it takes a plan of `kernels/shortlist.py`.
 """
 
 from __future__ import annotations

@@ -6,11 +6,13 @@ package restores in the other:
 
     <directory>/step_%010d/leaf%05d.0.npy   an unsharded leaf, one tile
     <directory>/step_%010d/leaf%05d.<start0>_<start1>....npy
-                                            a row-sharded leaf (a mesh
-                                            store's `ShardedRows`): one
-                                            tile a shard, keyed by its
-                                            global start; replicas are
-                                            one block, written once
+                                            a sharded leaf (a mesh
+                                            store's `ShardedRows`, or a
+                                            `models/sharding.Placed`
+                                            tensor): one tile a block,
+                                            keyed by its global start;
+                                            replicas are one block,
+                                            written once
     <directory>/step_%010d/manifest.json    {"step", "leaves": [{"name",
                                              "shape", "dtype"}, ...]}
 
@@ -22,7 +24,10 @@ complete. bfloat16 leaves are stored as numpy's 2-byte void records (what
 `np.save` writes for JAX's bfloat16) with the manifest dtype "bfloat16",
 and read back by their raw 16 bits: the card's machine has no `ml_dtypes`.
 Restore assembles a leaf of several tiles, written by either package,
-into the global array.
+into the global array. With `shardings=` (a tree of
+`models/sharding.NamedSharding`) each leaf is then placed on any mesh,
+one block a position on the position's device: an elastic restore, as
+the reference's `jax.make_array_from_callback` is.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.models.sharding import Placed
 
 
 def _leaf_id(i: int) -> str:
@@ -51,10 +57,14 @@ def _dtype_name(leaf) -> str:
 
 
 def _tiles(leaf) -> list[tuple[str, object]]:
-    """(file key, part) of each tile of a leaf: a row-sharded leaf's
-    non-empty blocks (its `tiles()`) keyed by their global start, as the
-    reference keys a sharded array's addressable shards; any other leaf
-    whole, as tile "0"."""
+    """(file key, part) of each tile of a leaf: a placed tensor's blocks
+    (each once, its first replica) and a row-sharded leaf's non-empty
+    blocks (its `tiles()`), keyed by their global start as the reference
+    keys a sharded array's addressable shards ("0" for a 0-d leaf); any
+    other leaf whole, as tile "0"."""
+    if isinstance(leaf, Placed):
+        return [("_".join(str(0 if k is None else k[0]) for k in key)
+                 or "0", part) for key, part in leaf.canonical().items()]
     tiled = getattr(leaf, "tiles", None)
     if tiled is None:
         return [("0", leaf)]
@@ -154,11 +164,20 @@ def _read_leaf(d: str, i: int, info: dict) -> torch.Tensor:
 
 
 def restore(directory: str, target, *, step: int | None = None,
-            device: torch.device | str | None = None):
+            shardings=None, device: torch.device | str | None = None):
     """A tree of `target`'s structure read from the checkpoint of `step`
     (default: the latest). Leaves are matched by name and take the dtype
-    and shape the manifest records; they land on `device`, else on the
-    device of the target's leaf where that is a tensor, else on the CPU."""
+    and shape the manifest records. Each is assembled once on the host
+    from its tiles; with `shardings` (a tree of target's structure whose
+    leaves are `models/sharding.NamedSharding`s, or None for a leaf left
+    whole) it is placed on that sharding's mesh (`Placed.place`): an
+    elastic restore onto any mesh, whatever layout wrote the checkpoint.
+    Otherwise it lands on `device`, else on the device of the target's
+    leaf where that is a tensor, else on the CPU. `shardings` and
+    `device` exclude each other."""
+    if shardings is not None and device is not None:
+        raise ValueError("ckpt.restore: pass shardings= or device=, not "
+                         "both")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -168,12 +187,17 @@ def restore(directory: str, target, *, step: int | None = None,
         manifest = json.load(f)
     by_name = {m["name"]: i for i, m in enumerate(manifest["leaves"])}
     names, leaves = tree_lib.flatten_with_names(target)
+    placing = (tree_lib.nodes_at(target, shardings) if shardings is not None
+               else [None] * len(leaves))
     out = []
-    for name, leaf in zip(names, leaves):
+    for name, leaf, sharding in zip(names, leaves, placing):
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name}")
         i = by_name[name]
         t = _read_leaf(d, i, manifest["leaves"][i])
+        if sharding is not None:
+            out.append(Placed.place(t, sharding))
+            continue
         dev = device if device is not None else (
             leaf.device if isinstance(leaf, torch.Tensor) else "cpu")
         out.append(t.to(dev))
@@ -206,6 +230,9 @@ class CheckpointManager:
     def latest_step(self) -> int | None:
         return latest_step(self.directory)
 
-    def restore(self, target, step: int | None = None,
+    def restore(self, target, shardings=None, step: int | None = None,
                 device: torch.device | str | None = None):
-        return restore(self.directory, target, step=step, device=device)
+        """`restore` of this directory, in the reference's argument
+        order (target, shardings, step)."""
+        return restore(self.directory, target, step=step,
+                       shardings=shardings, device=device)

@@ -166,6 +166,21 @@ def _search_one_query(q_grid: torch.Tensor, s_grid: torch.Tensor, qidx,
                                thresholds)
 
 
+def search_quantized(q_values: torch.Tensor, s_values: torch.Tensor,
+                     cfg: SearchConfig) -> dict[str, torch.Tensor]:
+    """The full MCAM search of raw words, the historical API:
+    `RetrievalEngine(cfg).full(q_values, s_values)`, on the supports'
+    device (a CUDA tensor launches the dense entry of csrc/mcam_search.cu,
+    a CPU tensor runs its plain version).
+
+    q_values: (B, d) ints -- in [0, 4) for AVSS, [0, enc.levels) for SVSS.
+    s_values: (N, d) ints in [0, enc.levels).
+    Returns {votes (B, N), dist (B, N) (the ideal digital distance),
+    iterations (a Python int)}."""
+    from repro_torch.engine import RetrievalEngine
+    return RetrievalEngine(cfg).full(q_values, s_values)
+
+
 # ---------------------------------------------------------------------------
 # Prediction heads.
 # ---------------------------------------------------------------------------

@@ -13,11 +13,25 @@ the hand-written CUDA kernels:
 Every backend gives the same results (integer-exact distances, the same
 counter-hash noise). On a CPU store each kernel wrapper runs its plain
 version, so the backend still selects the same route.
+
+No counterpart: the reference's `KERNEL_BACKENDS`, which nothing reads.
 """
 
 from __future__ import annotations
 
 BACKENDS = ("ref", "pallas", "mxu", "fused")
+
+
+def kernels_available() -> bool:
+    """True when the kernel package (`repro_torch.kernels.ops`) imports,
+    as the reference's says of its Pallas package. It does not look for
+    a GPU (the wrappers build and launch their kernels on a CUDA tensor
+    at first use) and switches nothing."""
+    try:
+        from repro_torch.kernels import ops  # noqa: F401
+        return True
+    except ImportError:
+        return False
 
 
 def resolve_backend(backend: str = "auto", use_kernel: str = "auto") -> str:

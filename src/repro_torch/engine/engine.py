@@ -346,7 +346,9 @@ class RetrievalEngine:
         their batch positions as noise coordinates; the shards'
         candidates (distance, global row, label and vote, k_loc = min(k,
         rows) each) merge on the first shard's device by a stable sort on
-        distance, the unvisited shards' slots at +inf."""
+        distance, the unvisited shards' slots at +inf. A store without
+        `proj_packed` streams each shard's wide projection, as the
+        logical partition does."""
         s, dev0, B = store.n_shards, store.device, q.shape[0]
         rows = store.capacity // s
         k = min(req.k, ids.shape[1] * rows)
@@ -360,7 +362,8 @@ class RetrievalEngine:
                 continue
             table = BlockTable(
                 proj=store.proj.block(i)[None],
-                proj_packed=store.proj_packed.block(i)[None],
+                proj_packed=(None if store.proj_packed is None
+                             else store.proj_packed.block(i)[None]),
                 s_grid=store.s_grid.block(i)[None],
                 labels=store.labels.block(i)[None],
                 pack_bits=store.pack_bits)

@@ -29,6 +29,10 @@ keeps (distance, row) order, so no global candidate is lost; the gather
 stacks shards in global row order, so a stable sort by distance is the
 (distance, global row) order; the rescore feeds GLOBAL rows to the noise
 counters; and adding f32 zeros to the one owning shard's vote is exact.
+
+`sharded_ideal_search` takes the query words `q_values` where the
+reference takes their one-hot rows `q_onehot` and the encoding `enc`: it
+builds the one-hot rows itself, on each shard's device.
 """
 
 from __future__ import annotations

@@ -235,19 +235,25 @@ class MemoryStore:
     def from_state(cls, state: dict, cfg: MemoryConfig,
                    device: torch.device | str | None = None
                    ) -> "MemoryStore":
-        """Adopt a state dict (`to_state()`'s keys). proj_packed and the
-        router sketch are integer functions of (values, proj, labels),
-        rebuilt here exactly. The store is marked calibrated: the state's
-        (lo, hi) is its calibration."""
+        """Adopt a state dict (`to_state()`'s keys). A dict from an old
+        checkpoint may lack the write-time `s_grid`: it is laid out from
+        `values`, as `write` lays it out, so searches stay the same.
+        proj_packed and the router sketch are integer functions of
+        (values, proj, labels), rebuilt here exactly; a `proj_packed` the
+        dict carries is recomputed to the same bits (the reference adopts
+        it). The store is marked calibrated: the state's (lo, hi) is its
+        calibration."""
         dev = resolve_device(device)
         leaf = {k: torch.as_tensor(v).to(device=dev, dtype=_LEAF_DTYPES[k])
-                for k, v in state.items()}
+                for k, v in state.items() if v is not None}
         values, labels = leaf["values"], leaf["labels"]
+        s_grid = leaf.get("s_grid")
+        s_grid = _layout(values, cfg) if s_grid is None else s_grid
         sk_sums, sk_counts = router_lib.build_sketch(values, labels, 1)
         return cls(values=values, proj=leaf["proj"],
                    proj_packed=kernel_ops.pack_projection(leaf["proj"],
                                                           cfg.search.enc),
-                   s_grid=leaf["s_grid"].contiguous(), labels=labels,
+                   s_grid=s_grid.contiguous(), labels=labels,
                    size=leaf["size"], lo=leaf["lo"], hi=leaf["hi"],
                    sketch_sums=sk_sums, sketch_counts=sk_counts, cfg=cfg,
                    calibrated=True)

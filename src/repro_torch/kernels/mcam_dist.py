@@ -8,6 +8,10 @@ is `csrc/mcam_dist.cu` (bf16: wgmma on the tensor cores, fed by TMA or,
 for a depth TMA cannot describe, by plain loads; f32: SIMT FMA);
 `lut_dist_matmul_plain` is its plain version. Both are exact for
 integer-valued operands (f32 sums below 2**24).
+
+No counterpart, by design: `lut_dist_matmul`'s Pallas knobs `tile_m`,
+`tile_n`, `tile_k` and `interpret` (its operands are `q`, `s` here,
+`q_onehot`, `s_proj` there).
 """
 
 from __future__ import annotations

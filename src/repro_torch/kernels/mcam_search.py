@@ -18,6 +18,10 @@ resistances in cell order and divide once, as the kernel does: on the card
 the two agree bit for bit. Each entry has a compile-time instance for
 strings of `SPECIALISED_SL` cells and a generic one; `search_instance`
 picks it by shape.
+
+No counterpart, by design (the Pallas kernel's knobs): `DEFAULT_TILE_B`,
+`DEFAULT_TILE_N` and `mcam_search_pallas` with its `tile_*` and
+`interpret` arguments; `search_instance` picks the CUDA instance.
 """
 
 from __future__ import annotations

@@ -10,6 +10,12 @@
       gathered): phase 2 of two_phase, with no (B, k, S, sl) intermediates.
   lut_shortlist(q_values, s_values, enc, k)
       fused ideal distance + exact top-k (csrc/shortlist.cu).
+  two_phase_search(q_values, s_values, cfg, k)
+      the historical two-phase API over raw words: an anonymous store
+      searched by RetrievalEngine on the `mxu` backend.
+
+No counterpart, by design: `mcam_search_tile_b` / `mcam_search_tile_n`,
+the Pallas string search's tile sizes.
 """
 
 from __future__ import annotations
@@ -201,3 +207,23 @@ def lut_shortlist(q_values: torch.Tensor, s_values: torch.Tensor | None,
         else proj.to(dtype)
     return shortlist_kernel.lut_shortlist(q_values, sp.contiguous(), k,
                                           valid=valid)
+
+
+def two_phase_search(q_values: torch.Tensor, s_values: torch.Tensor, cfg,
+                     k: int = 64) -> dict[str, torch.Tensor]:
+    """Shortlist + exact noisy rescore of raw words, the historical API.
+    cfg: a `core.avss.SearchConfig` (avss). The supports are programmed
+    into an anonymous `MemoryStore` (labels 0) on `s_values`' device and
+    searched through `RetrievalEngine.search` on the `mxu` backend: on a
+    CUDA tensor phase 1 launches csrc/mcam_dist.cu (csrc/shortlist.cu from
+    `fused_min_rows` rows on) and phase 2 the gathered entry of
+    csrc/mcam_search.cu; on a CPU tensor their plain versions run.
+    Returns {votes, dist, indices (B, min(k, N)), iterations}."""
+    from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+    s = torch.as_tensor(s_values)
+    store = MemoryStore.from_quantized(
+        s, torch.zeros(s.shape[0], dtype=torch.int32), cfg, device=s.device)
+    res = RetrievalEngine(cfg, backend="mxu").search(
+        store, q_values, SearchRequest(mode="two_phase", k=k))
+    return {"votes": res.votes, "dist": res.dist, "indices": res.indices,
+            "iterations": res.iterations}

@@ -11,6 +11,10 @@ Semantics contract, per query b, support n, string s of S, cell of sl:
     I         = sl / R * (1 + sigma_read * hash_normal(b, string_id; seed+RD))
     votes    += weights[s] * #(I > thresholds)
     dist     += weights[s] * sum_cell m
+
+No counterpart, by design: `mcam_search_ref`'s `query_chunk`, the batch
+size of the reference's `lax.map` over queries; here the plain version
+loops over queries one at a time.
 """
 
 from __future__ import annotations

@@ -30,6 +30,10 @@ stages rows in K-chunks, sums 8-bit fields on the tensor cores (mma.sync)
 and selects under a bound each query shares through global memory
 (`shortlist_blocks_plan` cuts it; `lut_shortlist_blocks_plain` is its
 plain version).
+
+No counterpart, by design (the Pallas kernel's knobs): `DEFAULT_TILE_B`,
+`DEFAULT_TILE_N`, `LANE` and `lut_shortlist_pallas` with its `tile_*`
+and `interpret` arguments; the plans above size the CUDA kernel.
 """
 
 from __future__ import annotations

@@ -51,6 +51,11 @@ The record keeps the reference's keys; where the port differs:
                      term NVLink 4 at 450 GB/s a direction on meshes of up
                      to 8 cards, 50 GB/s a card beyond (one NDR400 NIC a
                      card)
+
+No counterpart, by design: `ICI_BW` (the TPU's interconnect rate; the
+collective term here uses NVLink's, analysis/cost.py) and
+`parse_collectives` (which reads partitioned HLO; the trace counts the
+bytes that cross positions instead).
 """
 
 from __future__ import annotations

@@ -23,7 +23,12 @@ reads it: level 1 shards the embeddings by vocab only
 `_decode_stream`), 3 gives decode its own rules (`rules_for`), 4 makes
 the norm multiply in the compute dtype (`layers.apply_norm`) and 6 turns
 attention chunking off for training at <= 4k positions
-(`adapt_config`)."""
+(`adapt_config`).
+
+`make_train_step` has no `unroll_accum`: the reference's switch between a
+`lax.scan` and an unrolled loop over microbatches has no meaning in an
+eager step, whose accumulation is a Python loop already.
+"""
 
 from __future__ import annotations
 

@@ -82,14 +82,14 @@ def _mlstm_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v, li, lf, o
 
 
-def mlstm_state_init(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def mlstm_state_init(cfg: ModelConfig, batch: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> dict:
     H = cfg.n_heads
     dh = 2 * cfg.d_model // H
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"C": torch.zeros((batch, H, dh, dh), **f32),
-            "n": torch.zeros((batch, H, dh), **f32),
-            "m": torch.full((batch, H), -1e30, **f32)}
+    kw = dict(dtype=dtype, device=device)
+    return {"C": torch.zeros((batch, H, dh, dh), **kw),
+            "n": torch.zeros((batch, H, dh), **kw),
+            "m": torch.full((batch, H), -1e30, **kw)}
 
 
 def mlstm_apply_seq(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -188,11 +188,11 @@ def slstm_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def slstm_state_init(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def slstm_state_init(cfg: ModelConfig, batch: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> dict:
     H = cfg.n_heads
     dh = cfg.d_model // H
-    z = torch.zeros((batch, H, dh), dtype=torch.float32, device=device)
+    z = torch.zeros((batch, H, dh), dtype=dtype, device=device)
     return {"c": z, "n": z + 1e-6, "h": z,
             "m": torch.full_like(z, -1e30)}
 
@@ -273,12 +273,12 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def mamba_state_init(cfg: ModelConfig, batch: int,
-                     device: torch.device) -> dict:
+def mamba_state_init(cfg: ModelConfig, batch: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> dict:
     di, _, ds, dc = _mamba_dims(cfg)
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"h": torch.zeros((batch, di, ds), **f32),
-            "conv": torch.zeros((batch, dc - 1, di), **f32)}
+    kw = dict(dtype=dtype, device=device)
+    return {"h": torch.zeros((batch, di, ds), **kw),
+            "conv": torch.zeros((batch, dc - 1, di), **kw)}
 
 
 def _mamba_ssm_inputs(p: dict, xz: torch.Tensor, cfg: ModelConfig):

@@ -5,8 +5,10 @@ searches to the same bits. Everything here is exact: leaves are integers
 or stored floats, and a search of two stores with equal leaves is the same
 computation."""
 
+import dataclasses
 import json
 import os
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from repro.checkpoint import ckpt as jckpt
+from repro.core import memory as jmem
 from repro.core.avss import SearchConfig as JSearchConfig
 from repro.core.memory import MemoryConfig as JMemoryConfig
 from repro.engine import MemoryStore as JStore
@@ -23,9 +26,12 @@ from repro.engine import RetrievalEngine as JEngine
 from repro.engine import SearchRequest as JRequest
 from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import ckpt
+from repro_torch.core import memory as mem
 from repro_torch.core.avss import SearchConfig
 from repro_torch.core.memory import MemoryConfig
 from repro_torch.engine import MemoryStore, RetrievalEngine, SearchRequest
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.sharding import P, NamedSharding, Placed, place
 
 torch.set_num_threads(1)
 
@@ -148,6 +154,94 @@ def test_checkpoint_manager_keeps_the_newest_and_skips_partial_steps(
         ckpt.restore(str(tmp_path / "none"), {"s": 0})
 
 
+def _words(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits as numpy (bf16 as its 16-bit words)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _assert_placed(got, want: torch.Tensor, sharding) -> None:
+    """`got` is `want` placed by `sharding`: the same dtype and bits, and
+    every mesh position's block the slice its index map names, on that
+    position's device."""
+    assert isinstance(got, Placed) and got.sharding == sharding
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(_words(got.full("cpu")), _words(want))
+    mesh = sharding.mesh
+    for pos, idx in sharding.devices_indices_map(want.shape).items():
+        block = got.block(pos)
+        assert block.device == mesh.devices[pos], pos
+        np.testing.assert_array_equal(_words(block), _words(want[idx]))
+
+
+def _elastic_tree():
+    rng = np.random.default_rng(5)
+    return {"params": {"w": torch.arange(64, dtype=torch.float32
+                                         ).reshape(16, 4),
+                       "b": torch.tensor(rng.standard_normal(8),
+                                         dtype=torch.float32)},
+            "opt": {"m": torch.tensor(rng.standard_normal((16, 8)),
+                                      dtype=torch.bfloat16)},
+            "step": torch.tensor(7, dtype=torch.int32)}
+
+
+def _shardings(mesh, w, b, m):
+    return {"params": {"w": NamedSharding(mesh, w),
+                       "b": NamedSharding(mesh, b)},
+            "opt": {"m": NamedSharding(mesh, m)},
+            "step": NamedSharding(mesh, P())}
+
+
+@pytest.mark.parametrize("shape,names,specs", [
+    ((8,), ("data",), (P("data", None), P("data"), P(None, "data"))),
+    ((2, 2, 2), ("pod", "data", "model"),
+     (P(("pod", "data"), "model"), P(("pod", "data", "model")),
+      P("model", ("pod", "data"))))], ids=["8", "2x2x2"])
+def test_elastic_restore_onto_another_mesh(tmp_path, shape, names, specs):
+    """A tree placed on a (4,) mesh saves one tile a block (replicas
+    once) and restores onto a mesh of another shape and other specs, bit
+    for bit, each block on its position's device; the manager takes the
+    reference's argument order (target, shardings, step)."""
+    tree = _elastic_tree()
+    m4 = Mesh.repeat("cpu", (4,), ("data",))
+    ckpt.save(str(tmp_path), 3, place(tree, _shardings(
+        m4, P("data"), P(), P(None, "data"))))
+    files = sorted(os.listdir(tmp_path / "step_0000000003"))
+    assert files == ["leaf00000.0_0.npy", "leaf00000.0_2.npy",  # opt//m
+                     "leaf00000.0_4.npy", "leaf00000.0_6.npy",
+                     "leaf00001.0.npy",                # params//b, once
+                     "leaf00002.0_0.npy", "leaf00002.12_0.npy",  # params//w
+                     "leaf00002.4_0.npy", "leaf00002.8_0.npy",
+                     "leaf00003.0.npy", "manifest.json"]        # step
+    target = tree_lib.tree_map(lambda t: 0, tree)
+    sh = _shardings(Mesh.repeat("cpu", shape, names), *specs)
+    for got in (ckpt.restore(str(tmp_path), target, shardings=sh),
+                ckpt.CheckpointManager(str(tmp_path)).restore(target, sh, 3)):
+        for g, w, s_ in zip(tree_lib.leaves(got), tree_lib.leaves(tree),
+                            tree_lib.leaves(sh)):
+            _assert_placed(g, w, s_)
+    with pytest.raises(ValueError, match="not both"):
+        ckpt.restore(str(tmp_path), target, shardings=sh, device="cpu")
+
+
+def test_reference_checkpoint_restores_onto_a_port_mesh(tmp_path):
+    """The tree the reference's test_elastic_restore_onto_sharding saves
+    (f32 normals, an f32 range, bf16 ones, an int32 step), written by the
+    reference unsharded, restores onto a (4, 2) mesh of the port."""
+    jtree = {"params": {"w": jax.random.normal(jax.random.PRNGKey(0),
+                                               (16, 8)),
+                        "b": jnp.arange(8, dtype=jnp.float32)},
+             "opt": {"m": jnp.ones((16, 8), jnp.bfloat16)},
+             "step": jnp.int32(7)}
+    jckpt.save(str(tmp_path), 5, jtree)
+    mesh = Mesh.repeat("cpu", (4, 2), ("data", "model"))
+    sh = _shardings(mesh, P("data", "model"), P("model"), P(None, "data"))
+    target = {"params": {"w": 0, "b": 0}, "opt": {"m": 0}, "step": 0}
+    got = ckpt.restore(str(tmp_path), target, shardings=sh)
+    for g, w, s_ in zip(tree_lib.leaves(got), jax.tree_util.tree_leaves(
+            jtree), tree_lib.leaves(sh)):
+        _assert_placed(g, tree_lib.tensor_of(np.asarray(w), "cpu"), s_)
+
+
 # -- stores across the packages ------------------------------------------------
 
 
@@ -263,3 +357,46 @@ def test_store_round_trip_in_the_port(tmp_path):
     assert back.residency == ts.residency == "device"
     assert back.mesh is ts.mesh is None and back.axes == ts.axes == ()
     _same_results(_port_results(back, tcfg, q), _port_results(ts, tcfg, q))
+
+
+# -- state dicts without the write-time layout (old checkpoints) ---------------
+
+
+@pytest.mark.parametrize("route", ["from_state", "shims"])
+def test_state_without_s_grid_is_laid_out_from_values(route):
+    """A 16-row MTMC store's state without `s_grid` (a dict from an old
+    checkpoint) is adopted by both packages, through `from_state` and
+    through the `core.memory` shims: the port lays out the reference's
+    s_grid (and the store's own) and its `full` search equals the
+    reference's bit for bit (the reference on its `ref` backend, C.R1)."""
+    jcfg, tcfg = _configs(16)
+    jcfg = dataclasses.replace(jcfg, search=dataclasses.replace(
+        jcfg.search, use_kernel="ref"))
+    x, lab, q = _data(6, n=16)
+    ts = MemoryStore.create(tcfg, device="cpu").calibrate(x).write(x, lab)
+    state = {k: v for k, v in ts.to_state().items() if k != "s_grid"}
+    jstate = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+              if v.dtype == torch.bfloat16 else jnp.asarray(v.numpy())
+              for k, v in state.items()}
+    if route == "from_state":
+        back = MemoryStore.from_state(state, tcfg, "cpu")
+        jback = JStore.from_state(jstate, jcfg)
+        assert torch.equal(back.s_grid, ts.s_grid)
+        np.testing.assert_array_equal(back.s_grid.numpy(),
+                                      np.asarray(jback.s_grid))
+        got = RetrievalEngine(tcfg.search).search(
+            back, q, SearchRequest(mode="full")).asdict()
+        want = jax.jit(lambda st, a: JEngine(jcfg.search).search(
+            st, a, JRequest(mode="full")))(jback, jnp.asarray(q)).asdict()
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got = mem.search(state, q, tcfg)
+            want = jax.jit(lambda st, a: jmem.search(st, a, jcfg))(
+                jstate, jnp.asarray(q))
+    for f in ("votes", "dist", "labels"):
+        np.testing.assert_array_equal(got[f].numpy(), np.asarray(want[f]),
+                                      err_msg=f)
+    orig = RetrievalEngine(tcfg.search).search(ts, q,
+                                               SearchRequest(mode="full"))
+    assert torch.equal(got["votes"], orig.votes)

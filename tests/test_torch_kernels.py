@@ -594,3 +594,51 @@ def test_episode_tiling_covers_every_query_and_row(B, N):
     assert chunks == 0 or (chunks - 1) * per < B      # the last is not empty
     if (B, N) == (800, 2000):
         assert (tiles, chunks, per) == (63, 7, 115)
+
+
+# -- the legacy raw-word search wrappers ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def legacy_words():
+    """64 support rows and 8 queries of d = 48 words (MTMC CL = 8), the
+    geometry of the reference's test_two_phase_matches_full_search."""
+    rng = np.random.default_rng(11)
+    levels = t_enc.make_encoding("mtmc", 8).levels
+    return (rng.integers(0, 4, size=(8, 48)).astype(np.int32),
+            rng.integers(0, levels, size=(64, 48)).astype(np.int32))
+
+
+def test_search_quantized_equals_the_reference(legacy_words):
+    """`core.avss.search_quantized` (the dense string search of raw words)
+    equals the reference's bit for bit in votes and dist, with the same
+    iteration count; the reference runs its `ref` backend (C.R1)."""
+    q, s = legacy_words
+    jcfg = j_avss.SearchConfig("mtmc", cl=8, mode="avss", use_kernel="ref")
+    want = jax.jit(lambda a, b: j_avss.search_quantized(a, b, jcfg))(
+        jnp.asarray(q), jnp.asarray(s))
+    got = t_avss.search_quantized(torch.from_numpy(q), torch.from_numpy(s),
+                                  t_avss.SearchConfig("mtmc", cl=8,
+                                                      mode="avss"))
+    for f in ("votes", "dist"):
+        assert got[f].shape == (8, 64), f
+        np.testing.assert_array_equal(_np(got[f]), _np(want[f]), err_msg=f)
+    assert got["iterations"] == int(want["iterations"])
+
+
+@pytest.mark.parametrize("k", [64, 24])
+def test_two_phase_search_equals_the_reference(legacy_words, k):
+    """`kernels.ops.two_phase_search` (an anonymous store searched on the
+    `mxu` backend) equals the reference's bit for bit in votes, dist and
+    indices, at k = N (every row rescored) and k < N."""
+    q, s = legacy_words
+    jcfg = j_avss.SearchConfig("mtmc", cl=8, mode="avss", use_kernel="ref")
+    want = jax.jit(lambda a, b: j_ops.two_phase_search(a, b, jcfg, k=k))(
+        jnp.asarray(q), jnp.asarray(s))
+    got = t_ops.two_phase_search(torch.from_numpy(q), torch.from_numpy(s),
+                                 t_avss.SearchConfig("mtmc", cl=8,
+                                                     mode="avss"), k=k)
+    for f in ("votes", "dist", "indices"):
+        assert got[f].shape == (8, k), f
+        np.testing.assert_array_equal(_np(got[f]), _np(want[f]), err_msg=f)
+    assert got["iterations"] == int(want["iterations"])

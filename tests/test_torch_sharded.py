@@ -15,6 +15,7 @@ runs the reference's own sharded store on 8 forced host devices, and
 its checkpoints cross with the port's both ways.
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -327,6 +328,7 @@ def test_mesh_builders_and_sharded_fields_refuse_tensor_reads():
 
 
 _REFERENCE = """
+    import dataclasses
     import sys
     import jax, jax.numpy as jnp, numpy as np
     from repro.checkpoint import ckpt
@@ -353,6 +355,24 @@ _REFERENCE = """
             s, q, SearchRequest(mode=mode, k=16)))(st, jnp.asarray(d["q"]))
         for f in ("votes", "dist", "indices", "labels"):
             res[mode + "." + f] = np.asarray(getattr(r, f))
+    # the routed search of a 64-row mesh store with and without its packed
+    # projection: on a mesh of Auto axes (JAX 0.9's default, Explicit,
+    # refuses the router's gather of the sharded sketch)
+    auto = jax.make_mesh((8,), ("data",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+    small = MemoryStore.from_quantized(
+        jnp.asarray(d["routed_values"]), jnp.asarray(d["routed_labels"]),
+        search).shard(auto, ("data",))
+    routed = jax.jit(lambda stores, q: {
+        (form, mode): RetrievalEngine(search).search(
+            st_, q, SearchRequest(mode=mode, k=8, nprobe=2))
+        for form, st_ in stores.items() for mode in ("two_phase", "ideal")})(
+        {"packed": small,
+         "unpacked": dataclasses.replace(small, proj_packed=None)},
+        jnp.asarray(d["routed_q"]))
+    for (form, mode), r in routed.items():
+        for f in ("votes", "dist", "indices", "labels"):
+            res[f"routed.{form}.{mode}.{f}"] = np.asarray(getattr(r, f))
     # MemoryStore.save of a mesh store raises on this JAX (ROADMAP R8):
     # its sharded leaves go through the tiled writer itself
     ckpt.save(ref_dir, 0, st.to_state())
@@ -366,15 +386,24 @@ _REFERENCE = """
 """
 
 
-def test_reference_sharded_store_and_tiled_checkpoints_both_ways(tmp_path):
-    """The reference's own mesh store on 8 forced host devices (capacity
-    104, 13 rows a shard; 90 rows, then 40 wrapping past the ring's end),
-    written through its write-through and searched, equals the port's
-    mesh store leaf by leaf and result by result; the reference's tiled
-    checkpoint of its sharded leaves restores in the port, and the port's
-    tiled save of a ragged mesh store (capacity 100 padded to 104: 8
-    tiles a row leaf keyed by global start, the last cut to 9 rows)
-    restores in the reference."""
+def _routed_data():
+    """A 64-row store's words (every fourth class masked) and 5 query
+    words: the data of test_torch_contracts.py's routed unpacked search."""
+    rng = np.random.default_rng(1)
+    values = rng.integers(0, _cfgs()[1].enc.levels, size=(64, DIM))
+    labels = np.arange(64) % 9
+    labels[labels % 4 == 0] = -1
+    return values, labels, rng.integers(0, 4, size=(5, DIM))
+
+
+@pytest.fixture(scope="module")
+def reference_run(tmp_path_factory):
+    """One subprocess of the reference on 8 forced host devices, over the
+    inputs of the tests below: the port's mesh stores (capacity 100 and
+    104) written and the capacity-100 one saved first, since the
+    reference restores it. Returns the port's stores, configs, mesh and
+    queries, the reference's arrays and its checkpoint directory."""
+    tmp_path = tmp_path_factory.mktemp("reference_run")
     jsc, tsc = _cfgs()
     cfgs = {c: MemoryConfig(capacity=c, dim=24, search=tsc)
             for c in (100, 104)}
@@ -388,13 +417,10 @@ def test_reference_sharded_store_and_tiled_checkpoints_both_ways(tmp_path):
     q = x[95:101] + 0.25
     port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
     ms[100].save(str(port_dir))
-    step = port_dir / "step_0000000000"
-    leaves = sorted(os.listdir(step))
-    assert sum(f.startswith("leaf00001.") for f in leaves) == 8   # labels
-    assert "leaf00004.91_0_0_0.npy" in leaves       # s_grid's last tile
-    assert np.load(step / "leaf00001.91.npy").shape == (9,)   # 100 - 91
     out = str(tmp_path / "ref_out")
-    np.savez(out + ".in.npz", x=x, labs=labs, q=q, sample=sample)
+    rv, rl, rq = _routed_data()
+    np.savez(out + ".in.npz", x=x, labs=labs, q=q, sample=sample,
+             routed_values=rv, routed_labels=rl, routed_q=rq)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
@@ -403,7 +429,29 @@ def test_reference_sharded_store_and_tiled_checkpoints_both_ways(tmp_path):
          str(port_dir), str(ref_dir)],
         capture_output=True, text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    ref = np.load(out + ".npz")
+    return dict(ms=ms, cfgs=cfgs, tsc=tsc, mesh=mesh, axes=axes, q=q,
+                ref=dict(np.load(out + ".npz")), port_dir=port_dir,
+                ref_dir=ref_dir)
+
+
+def test_reference_sharded_store_and_tiled_checkpoints_both_ways(
+        reference_run):
+    """The reference's own mesh store on 8 forced host devices (capacity
+    104, 13 rows a shard; 90 rows, then 40 wrapping past the ring's end),
+    written through its write-through and searched, equals the port's
+    mesh store leaf by leaf and result by result; the reference's tiled
+    checkpoint of its sharded leaves restores in the port, and the port's
+    tiled save of a ragged mesh store (capacity 100 padded to 104: 8
+    tiles a row leaf keyed by global start, the last cut to 9 rows)
+    restores in the reference."""
+    run = reference_run
+    ms, cfgs, tsc, ref = run["ms"], run["cfgs"], run["tsc"], run["ref"]
+    mesh, axes, q = run["mesh"], run["axes"], run["q"]
+    step = run["port_dir"] / "step_0000000000"
+    leaves = sorted(os.listdir(step))
+    assert sum(f.startswith("leaf00001.") for f in leaves) == 8   # labels
+    assert "leaf00004.91_0_0_0.npy" in leaves       # s_grid's last tile
+    assert np.load(step / "leaf00001.91.npy").shape == (9,)   # 100 - 91
     for f in SHARDED + ("size",):
         got = getattr(ms[104], f)
         got = got.full("cpu") if isinstance(got, ShardedRows) else got
@@ -422,6 +470,7 @@ def test_reference_sharded_store_and_tiled_checkpoints_both_ways(tmp_path):
         got = got.float() if f == "proj" else got
         np.testing.assert_array_equal(got.numpy(), ref[f"port_ckpt.{f}"],
                                       err_msg=f)
+    ref_dir = run["ref_dir"]
     restored = MemoryStore.restore(str(ref_dir), cfgs[104], device="cpu")
     assert len([f for f in os.listdir(ref_dir / "step_0000000000")
                 if f.startswith("leaf00006.")]) == 8            # values
@@ -429,3 +478,27 @@ def test_reference_sharded_store_and_tiled_checkpoints_both_ways(tmp_path):
     for f in SHARDED:
         assert torch.equal(getattr(again, f).full("cpu"),
                            getattr(ms[104], f).full("cpu")), f
+
+
+@pytest.mark.parametrize("mode", ["two_phase", "ideal"])
+def test_routed_search_of_a_mesh_store_streams_the_unpacked_table(
+        reference_run, mode):
+    """A 64-row store on an (8,) mesh without its packed projection routes
+    (nprobe 2, k 8) through each shard's wide projection: equal to the
+    port's packed mesh store's routed search, and to the reference's mesh
+    store's, packed and not, on 8 forced host devices."""
+    ref, tsc, mesh = reference_run["ref"], reference_run["tsc"], \
+        reference_run["mesh"]
+    values, labels, q = _routed_data()
+    store = MemoryStore.from_quantized(values, labels, tsc,
+                                       device="cpu").shard(mesh)
+    unpacked = dataclasses.replace(store, proj_packed=None)
+    req = SearchRequest(mode=mode, k=8, nprobe=2)
+    got = RetrievalEngine(tsc).search(unpacked, q, req)
+    packed = RetrievalEngine(tsc).search(store, q, req)
+    for f in LEAVES:
+        assert torch.equal(getattr(got, f), getattr(packed, f)), f
+        for form in ("packed", "unpacked"):
+            np.testing.assert_array_equal(
+                getattr(got, f).numpy(), ref[f"routed.{form}.{mode}.{f}"],
+                err_msg=f"{form}: {f}")

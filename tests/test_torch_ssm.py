@@ -134,6 +134,26 @@ def test_block_init_and_state_match_reference(name):
         np.testing.assert_array_equal(ts[k].numpy(), np.asarray(js[k]), k)
 
 
+@pytest.mark.parametrize("name", list(BLOCKS))
+def test_state_init_takes_the_reference_dtype(name):
+    """`*_state_init(..., dtype=torch.bfloat16)` builds the reference's
+    `dtype=jnp.bfloat16` state: the same leaves, shapes and dtypes, and
+    the same bf16 words (the -1e30 stabilisers and sLSTM's 1e-6 fill
+    rounded once to bf16)."""
+    arch, _, state_init = BLOCKS[name][:3]
+    jc, tc = j_load_config(arch, True), load_config(arch, True)
+    js = getattr(JS, state_init)(jc, 2, dtype=jnp.bfloat16)
+    ts = getattr(TS, state_init)(tc, 2, "cpu", dtype=torch.bfloat16)
+    assert sorted(ts) == sorted(js)
+    for k, a in js.items():
+        a = np.asarray(a)
+        assert a.dtype.name == "bfloat16", k
+        assert ts[k].dtype == torch.bfloat16, k
+        assert tuple(ts[k].shape) == a.shape, k
+        np.testing.assert_array_equal(ts[k].view(torch.int16).numpy(),
+                                      a.view(np.int16), err_msg=k)
+
+
 @pytest.mark.parametrize("name,S,chunk", [("mlstm", 8, 64), ("mlstm", 12, 4),
                                           ("slstm", 8, None),
                                           ("mamba", 8, None)],
