@@ -4,10 +4,12 @@
     python3 chip_smoke.py [--capacity 65536] [--seed 0]
 
 Builds the four CUDA kernel sources of `src/repro_torch/csrc/` (one nvcc
-per source, all started together; ptxas's registers / shared memory / spills
-and the count of wgmma (HGMMA) instructions in the LUT product's SASS are
-printed), checks on all 2**32 hash words that the physics kernel's
-cheaper arithmetic forms equal the plain version's bit for bit, then
+per source, all started together; ptxas's registers / shared memory / spills,
+the count of wgmma (HGMMA) instructions in the LUT product's SASS and of
+mma.sync (IMMA) ones in each of the shortlist's two select kernels are
+printed, and a one-table select without IMMA fails), checks on all 2**32
+hash words that the physics kernel's cheaper arithmetic forms equal the
+plain version's bit for bit, then
 drives the port's main path through
 the entry points a user calls, at the paper's Omniglot geometry (d = 48,
 MTMC CL = 32, 24-cell strings: 64 strings per support) and a many-class
@@ -204,16 +206,18 @@ Then the analysis package (analysis/, launch/dryrun.py) on the card:
  15. [vmem]     analysis/vmem.py's shared-memory model of the shortlist's
                 select blocks against ptxas: the static shared memory must
                 equal the kernels'; the plans' occupancy against the
-                registers a thread (printed)
+                registers a thread (printed); the one-table select at d =
+                480 must run 2 or more blocks an SM
 
 Each path runs once with the launch counters zeroed just before it and
 read just after; a kernel of the path that was not launched fails the
 run. Then every kernel is held against its plain PyTorch version on the
 same inputs on the card, bit for bit (the shortlist also on three
-adversarial stores of the same size: rows in
-descending distance, where every row beats the running k-th key, all
-rows tied, and all rows masked), the two_phase votes of every
-shortlisted row are held against the full
+adversarial stores of the same size, of 8-bit fields at d = 48 and d =
+480 (the tensor-core select): rows in descending distance, where every
+row beats the running k-th key, all rows tied, and all rows masked; the
+first two also of 16-bit fields at d = 48, the block-table route), the
+two_phase votes of every shortlisted row are held against the full
 search's votes of that row, and a small store searched on the CPU (plain
 versions) is held against the same store on the card.
 
@@ -431,15 +435,24 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_count(lib: Path, opcode: str) -> int | None:
-    """Instructions of `opcode` in a built library's SASS (cuobjdump), or
-    None where the toolkit has no cuobjdump."""
+def sass_count(lib: Path, opcode: str, function: str = "",
+               without: str = "\0") -> int | None:
+    """Instructions of `opcode` in a built library's SASS (cuobjdump), in
+    the functions whose mangled name holds `function` and not `without`,
+    or None where the toolkit has no cuobjdump."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     if not tool.exists():
         return None
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=120).stdout
-    return sum(opcode in line for line in out.splitlines())
+    count, inside = 0, not function
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = function in m.group(1) and without not in m.group(1)
+        elif inside:
+            count += opcode in line
+    return count
 
 
 def kernel_resources(nvcc_log: str) -> dict[str, str]:
@@ -624,8 +637,14 @@ def run(args, torch) -> int:
             log(f"[ptxas {name}] {line}")
     hgmma = sass_count(_build.library_path("mcam_dist"), "HGMMA")
     log(f"[sass] mcam_dist: {hgmma} HGMMA instructions")
-    imma = sass_count(_build.library_path("shortlist"), "IMMA")
-    log(f"[sass] shortlist: {imma} IMMA instructions")
+    imma = {name: sass_count(_build.library_path("shortlist"), "IMMA", fn,
+                             without)
+            for name, fn, without in (
+                ("one-table select", "shortlist_select", "blocks"),
+                ("block-table select", "shortlist_blocks_select", "\0"))}
+    log(f"[sass] shortlist IMMA (mma.sync) instructions: {imma}")
+    if imma["one-table select"] == 0:
+        fail("[sass] the one-table select runs no tensor-core instruction")
     resources = {}
     for src in ("mcam_search", "mcam_episode"):
         found = kernel_resources(logs.get(src, ""))
@@ -799,53 +818,25 @@ def run(args, torch) -> int:
         dist = torch.matmul(q1h_f, proj_f.T) + pen
         return torch.sort(dist, dim=1, stable=True)[0][:, :64]
 
-    # adversarial stores at the same N and queries, bit for bit: every
-    # LUT column of a row holds one value per dimension, so a row's
-    # distance is the same for every query. Descending distance makes
-    # every row beat the running k-th key (the selection's worst case,
-    # timed); all rows tied or all masked admit no row after the first k.
-    def uniform_store(per_row):
-        per_dim = (per_row // d)[:, None].repeat(1, 4 * d)
-        per_dim[:, :4] += (per_row % d)[:, None]
-        dp = 2 * d                               # 16-bit fields, 2 a word
-        words = per_dim[:, :dp] | (per_dim[:, dp:] << 16)
-        return torch.where(words >= 2**31, words - 2**32, words).to(
-            torch.int32)
-    rows_desc = torch.arange(n - 1, -1, -1, device=dev) * 3
-    adversarial = {
-        "descending": (uniform_store(rows_desc), 16, valid),
-        "ties": (uniform_store(torch.full_like(rows_desc, 5 * d)), 16,
-                 valid),
-        "masked": (packed, 8, torch.zeros_like(valid))}
-    adv_ms = {}
-    for name, (words, bits, vmask) in adversarial.items():
-        for kk in (1, 64, 1024):
-            a = shortlist.lut_shortlist(qw, None, kk, valid=vmask,
-                                        packed=words, pack_bits=bits)
-            sync()
-            b = shortlist.lut_shortlist_plain(qw, None, kk, valid=vmask,
-                                              packed=words, pack_bits=bits)
-            sync()
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-                fail(f"shortlist kernel != plain on the {name} store "
-                     f"(k={kk})")
-        adv_ms[name] = event_ms(lambda: shortlist.lut_shortlist(
-            qw, None, 64, valid=vmask, packed=words, pack_bits=bits))
-        adv_ms[f"{name}_device"] = device_ms(lambda: shortlist.lut_shortlist(
-            qw, None, 64, valid=vmask, packed=words, pack_bits=bits),
-            "shortlist_")
-    log(f"[shortlist] adversarial stores equal the plain version for k = "
-        f"1, 64, 1024; k=64 kernel ms: "
-        f"{ {k_: v and round(v, 4) for k_, v in adv_ms.items()} } (descending "
-        f"and ties on 16-bit fields, 96 words a row)")
+    # adversarial stores at the same N and queries, bit for bit: 8-bit
+    # fields (the tensor-core select) and 16-bit fields (the block-table
+    # route), descending, all tied and all masked
+    adv8 = adversarial_stores(timing, shortlist, qw, valid, packed, d,
+                              "[shortlist]")
+    per_row16 = torch.arange(n - 1, -1, -1, device=dev) * 3
+    adv16 = adversarial_stores(timing, shortlist, qw, valid, None, d,
+                               "[shortlist 16-bit]", bits=16, stores={
+                                   "descending": per_row16,
+                                   "ties": torch.full_like(per_row16,
+                                                           5 * d)})
+    plan = shortlist.shortlist_plan(256, n, packed.shape[1], 64)
     row("shortlist", "shortlist.cu", "src/repro/kernels/shortlist.py:210",
         err, event_ms(sl_kernel), event_ms(sl_plain),
         kernel_cost("shortlist", b=256, n=n, d=d, k=64,
-                    row_words=packed.shape[1]), event_ms(sl_library),
-        device_ms=device_ms(sl_kernel, "shortlist_"),
-        descending_ms=adv_ms["descending"],
-        descending_device_ms=adv_ms["descending_device"],
-        ties_ms=adv_ms["ties"], masked_ms=adv_ms["masked"],
+                    row_words=packed.shape[1], bits=8),
+        event_ms(sl_library), device_ms=device_ms(sl_kernel, "shortlist_"),
+        plan=plan_fields(plan), **adv8,
+        **{f"bits16_{k_}": v for k_, v in adv16.items()},
         shape=f"B=256 N={n} d={d} packed 8-bit k=64")
 
     # -- LUT product kernel vs plain -----------------------------------------
@@ -1210,8 +1201,9 @@ def run_vmem(t, nvcc_log: str, n: int) -> dict:
     """[vmem]: analysis/vmem.py's model of the shortlist's select blocks
     against ptxas: its static shared memory must equal the kernel's, and
     the plans' occupancy is checked against the registers ptxas gives a
-    thread (printed, not gated), for the main path's, CUB's and the
-    block-table rows' plans."""
+    thread (printed, not gated), for the main path's, CUB's, k = 1,024's
+    and the block-table rows' plans. The one-table select at d = 480 must
+    run 2 or more blocks an SM, by shared memory and by registers."""
     from repro_torch.analysis import vmem
     entries = ptxas_entries(nvcc_log)
     if not entries:
@@ -1256,6 +1248,13 @@ def run_vmem(t, nvcc_log: str, n: int) -> dict:
             if est.static_bytes != smem:
                 fail(f"[vmem] {name}: the model's static shared memory "
                      f"{est.static_bytes} B != ptxas's {smem} B")
+            by_regs = vmem.H100_SM_REGS // (est.threads * regs)
+            row["ctas_by_registers"] = by_regs
+            if name == "select_cub" and min(est.ctas_per_sm, by_regs) < 2:
+                fail(f"[vmem] the one-table select at d = 480 runs "
+                     f"{min(est.ctas_per_sm, by_regs)} block(s) an SM "
+                     f"(shared memory {est.ctas_per_sm}, registers "
+                     f"{by_regs}); the design needs 2")
     return {"rows": rows}
 
 
@@ -1402,7 +1401,8 @@ def run_cub_serve(t, args, launches: dict) -> dict:
                  f"by {err}")
         return err, plain_ms, got
 
-    # phase 1: the shortlist, 480-word rows staged in windows of words
+    # phase 1: the shortlist, 480-word rows streamed in K-chunks beside the
+    # masks through the tensor-core select
     qw = store.quantize_queries(queries)
     valid, packed = store.valid, store.proj_packed
     nq = CUB_SERVE_QUERIES
@@ -1414,20 +1414,22 @@ def run_cub_serve(t, args, launches: dict) -> dict:
     err, plain_ms, _ = held("shortlist", sl_kernel, lambda: (
         shortlist.lut_shortlist_plain(qw, None, 64, valid=valid,
                                       packed=packed, pack_bits=8)))
+    adv8 = adversarial_stores(t, shortlist, qw, valid, packed, d,
+                              "[cub-serve shortlist]")
     q1h_f = ops.query_onehot(qw, torch.float32)
     proj_f = store.proj.float()
     pen = torch.where(valid, 0.0, shortlist.SHORTLIST_MASK_PENALTY)[None]
     t.row("shortlist_cub", "shortlist.cu",
           "src/repro/kernels/shortlist.py:210", err, t.event_ms(sl_kernel),
           plain_ms, kernel_cost("shortlist", b=nq, n=n, d=d, k=64,
-                                row_words=packed.shape[1]),
+                                row_words=packed.shape[1], bits=8),
           t.event_ms(lambda: torch.sort(
               torch.matmul(q1h_f, proj_f.T) + pen, dim=1, stable=True)[0]
               [:, :64]),
           device_ms=t.device_ms(sl_kernel, "shortlist_"),
-          window=plan.window, row_words=packed.shape[1],
+          plan=plan_fields(plan), row_words=packed.shape[1], **adv8,
           shape=f"B={nq} N={n} d={d} packed 8-bit ({packed.shape[1]} words "
-                f"a row, staged {plan.window} at a time) k=64")
+                f"a row, K-chunks of {plan.chunk}) k=64")
 
     # the LUT product at K = 4d = 1,920
     q1h = ops.query_onehot(qw, torch.bfloat16)
@@ -1913,6 +1915,68 @@ def pack_fields(torch, proj, bits: int):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def uniform_table(torch, per_row, d: int, bits: int):
+    """(N, words) int32 words of `bits`-bit packed fields whose every LUT
+    column of a dimension holds one value, so that a row's distance is
+    per_row (N,) whatever the query: per_row spread over the d
+    dimensions, each share within a field."""
+    share = (per_row // d)[:, None] + (torch.arange(d, device=per_row.device)
+                                       [None] < (per_row % d)[:, None])
+    if int(share.max()) >= 2**bits:
+        fail(f"uniform table: shares reach {int(share.max())}")
+    return pack_fields(torch, share.repeat_interleave(4, dim=1), bits)
+
+
+def plan_fields(plan) -> dict:
+    """The one-table select's plan as a kernel row prints it."""
+    return {"query_tile": plan.queries, "row_tile": 64,
+            "k_chunk_words": plan.chunk, "stages": plan.stages,
+            "blocks_an_sm": plan.ctas_per_sm, "slices": plan.slices,
+            "smem": plan.smem}
+
+
+def adversarial_stores(t, shortlist, qw, valid, packed, d: int, tag: str,
+                       bits: int = 8, stores: dict | None = None) -> dict:
+    """The shortlist wrapper on adversarial stores of N rows of `bits`-bit
+    fields, each held against the plain version bit for bit at k = 1, 64
+    and 1,024 and timed at k = 64 (`<store>_ms`, `<store>_device_ms`):
+    rows in descending distance (every row beats the running k-th key: the
+    selection's worst case; at 8 bits, distances 255 d (N - 1 - n) / N,
+    tied in runs where 255 d < N), all rows tied (no row after the first k
+    beats it), and, where `packed` is given, its rows all masked. `stores`
+    gives per-row distances in place of the first two."""
+    torch = t.torch
+    n = valid.shape[0]
+    if stores is None:
+        desc = torch.arange(n - 1, -1, -1, device=t.dev) * 255 * d // n
+        stores = {"descending": desc,
+                  "ties": torch.full_like(desc, 5 * d)}
+    tables = {name: (uniform_table(torch, per_row, d, bits), valid)
+              for name, per_row in stores.items()}
+    if packed is not None:
+        tables["masked"] = (packed, torch.zeros_like(valid))
+    out = {}
+    for name, (words, vmask) in tables.items():
+        def call(kk, fn=shortlist.lut_shortlist):
+            return fn(qw, None, kk, valid=vmask, packed=words,
+                      pack_bits=bits)
+        for kk in (1, 64, 1024):
+            a = call(kk)
+            t.sync()
+            b = call(kk, shortlist.lut_shortlist_plain)
+            t.sync()
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail(f"{tag} shortlist kernel != plain on the {name} store "
+                     f"(k={kk})")
+        out[f"{name}_ms"] = t.event_ms(lambda: call(64))
+        out[f"{name}_device_ms"] = t.device_ms(lambda: call(64),
+                                               "shortlist_")
+    t.log(f"{tag} adversarial stores of {bits}-bit fields ({words.shape[1]} "
+          f"words a row) equal the plain version for k = 1, 64, 1024; k=64 "
+          f"ms: { {k_: v and round(v, 4) for k_, v in out.items()} }")
+    return out
+
+
 def descending_table(torch, m, rows, d, bits, dev):
     """An adversarial table (m, rows, words): every row a fixed distance
     for every query (each LUT column of a dimension holds its share), in
@@ -1921,12 +1985,7 @@ def descending_table(torch, m, rows, d, bits, dev):
     n = m * rows
     per_row = torch.arange(n - 1, -1, -1, device=dev) * (3 if bits > 8
                                                           else 1)
-    share = (per_row // d)[:, None] + (torch.arange(d, device=dev)[None]
-                                       < (per_row % d)[:, None])
-    if int(share.max()) >= 2**bits:
-        fail(f"descending table: shares reach {int(share.max())}")
-    return pack_fields(torch, share.repeat_interleave(4, dim=1), bits
-                       ).reshape(m, rows, -1)
+    return uniform_table(torch, per_row, d, bits).reshape(m, rows, -1)
 
 
 def blocks_units(shortlist, ids, m: int, rows: int, row_words: int, k: int,

@@ -76,6 +76,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: bf16 tensor cores, dense, FLOP/s
 BF16_TENSOR_OPS_PER_S = 989e12
+#: int8 tensor cores, dense, ops/s
+INT8_TENSOR_OPS_PER_S = 1979e12
 #: NVLink 4 a direction, bytes/s, on a mesh of up to NVLINK_GPUS cards
 NVLINK_BYTES_PER_S = 450e9
 NVLINK_GPUS = 8
@@ -119,6 +121,12 @@ def collective_bytes_per_s(chips: int) -> float:
 # -- the hand-written kernels ----------------------------------------------
 
 
+def _lut_rate(bits: int) -> float:
+    """The tensor-core rate of a one-hot LUT product whose entries are
+    `bits` wide: int8 for packed fields of 8 bits or fewer, else bf16."""
+    return INT8_TENSOR_OPS_PER_S if bits <= 8 else BF16_TENSOR_OPS_PER_S
+
+
 def kernel_cost(name: str, **s) -> dict[str, Any]:
     """Operations, bytes (each input read once, each output written once)
     and the H100 bound of one launch of kernel `name` (a key of
@@ -126,10 +134,14 @@ def kernel_cost(name: str, **s) -> dict[str, Any]:
 
       shortlist         b queries, n rows, d dims, k, row_words (32-bit
                         words a row of the streamed operand), masked (a
-                        row mask is read; default True): b n d LUT adds
+                        row mask is read; default True), bits (of a LUT
+                        entry; default 8): the one-hot product, 2 b n 4d
+                        multiply-adds, at the int8 tensor-core rate for
+                        fields of 8 bits or fewer, else the bf16 one
       shortlist_blocks  b, d, p visits a query, m blocks of `rows` rows,
-                        row_words, k, visited (blocks some query visits,
-                        read once; default min(m, b p)): b p rows d adds
+                        row_words, k, bits, visited (blocks some query
+                        visits, read once; default min(m, b p)): 2 b p
+                        rows 4d, at the same rates
       mcam_dist         b x k by n x k, elem bytes an operand element
                         (default 2, bf16 on the tensor cores): 2 b n k
       mcam_search       b queries, n supports, s strings of sl cells:
@@ -146,7 +158,8 @@ def kernel_cost(name: str, **s) -> dict[str, Any]:
         written = b * k * 12
         nbytes = (n * s["row_words"] * 4 + b * d * 4
                   + (n if s.get("masked", True) else 0) + written)
-        ops = b * n * d
+        ops = 2 * b * n * 4 * d
+        rate = _lut_rate(s.get("bits", 8))
     elif name == "shortlist_blocks":
         b, p, m, rows, k = s["b"], s["p"], s["m"], s["rows"], s["k"]
         visited = s.get("visited")
@@ -154,7 +167,8 @@ def kernel_cost(name: str, **s) -> dict[str, Any]:
         written = b * k * 12
         nbytes = (visited * rows * (s["row_words"] * 4 + 1)
                   + b * s["d"] * 4 + b * p * 8 + m * 8 + written)
-        ops = b * p * rows * s["d"]
+        ops = 2 * b * p * rows * 4 * s["d"]
+        rate = _lut_rate(s.get("bits", 8))
     elif name == "mcam_dist":
         b, n, k, elem = s["b"], s["n"], s["k"], s.get("elem", 2)
         written = b * n * 4

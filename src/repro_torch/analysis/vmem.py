@@ -3,11 +3,15 @@
 
 On Hopper the shortlist (`csrc/shortlist.cu`) keeps its working set in
 shared memory, sized on the host by the plans of `kernels/shortlist.py`:
-a one-table select block of `warps` warps of 4 queries holds
+a one-table select block (8-bit fields on the tensor cores) of `warps`
+warps of 16 queries holds
 
-    keys     warps x 4 x keys x 8 B    each query's top-k and candidates
-    masks    warps x 4 x ceil(window / 4) x 16 B   its one-hot mask words
-    stages   2 x 64 x stage_stride(window) x 4 B   two staged row tiles
+    keys     warps x 16 x keys x 4 B   each query's top-k and candidates
+             (32-bit compact keys)
+    masks    warps x 16 x blocks_stride(chunk) x 4 B, once for a whole
+             row (chunk >= row words), else once a ring slot: the
+             queries' one-hot mask words of the staged K-chunk
+    stages   stages x 64 x blocks_stride(chunk) x 4 B   the ring's rows
 
 and a block-table select block (one unit: up to 16 (query, visit) pairs)
 
@@ -16,12 +20,13 @@ and a block-table select block (one unit: up to 16 (query, visit) pairs)
     stages   stages x 64 x blocks_stride(chunk) x 4 B   the K-chunk ring
     tile     16 x 72 x 4 B (mma only)   the tensor cores' distance tile
 
-plus each kernel's static shared memory (`SELECT_STATIC_SMEM`,
+plus each kernel's static shared memory (none for the one-table select;
 `BLOCKS_STATIC_SMEM` of csrc/shortlist.cu). `shortlist_smem` and
 `blocks_smem` are these closed forms, with the plans' own choice of
-warps, window, keys, chunk and stages; they equal the plans exactly
+warps, keys, chunk and stages; they equal the plans exactly
 (tests/test_torch_vmem.py), and the static part equals what ptxas
-reports (chip_smoke.py's `[vmem]` lines).
+reports (chip_smoke.py's `[vmem]` lines, which also hold the one-table
+select at d = 480 to 2 blocks an SM).
 
 `validate_config` is the static gate: a plan's total against one
 block's 227 KB and the blocks an SM runs at the plan's occupancy against
@@ -54,9 +59,9 @@ H100_SM_REGS = 64 * 1024
 H100_SM_THREADS = 2048
 #: shared memory the runtime reserves a block, bytes
 BLOCK_RESERVED_SMEM = 1024
-#: static shared memory of the select kernels (csrc/shortlist.cu): a
-#: query slot's query and list (4 + 8 B); a pair slot's query, list,
-#: bound slot and shared-bound flag (4 + 8 + 4 + 4 B)
+#: static shared memory of the select kernels (csrc/shortlist.cu): none
+#: for the one-table select; a pair slot's query, list, bound slot and
+#: shared-bound flag (4 + 8 + 4 + 4 B) for the block-table select
 SELECT_STATIC_SMEM = sl._SELECT_STATIC
 BLOCKS_STATIC_SMEM = sl._BLOCKS_STATIC
 
@@ -69,7 +74,7 @@ class SmemEstimate:
     entry: str                 # "select" | "blocks_select"
     warps: int
     keys: int
-    window: int                # words staged a row (the K-chunk, blocks)
+    chunk: int                 # words of a staged K-chunk of a row
     stages: int
     key_bytes: int
     mask_bytes: int
@@ -107,35 +112,50 @@ def _occupancy(warps: int, total: int) -> int:
                H100_SM_SMEM // (total + BLOCK_RESERVED_SMEM))
 
 
-def _select_parts(warps: int, keys: int, window: int) -> tuple[int, ...]:
-    stride = 4 * (_cdiv(window, 4) | 1)
-    return (warps * sl._QW * keys * 8,
-            warps * sl._QW * _cdiv(window, 4) * 16,
-            2 * sl._ROWS * stride * 4)
+def _stride(words: int) -> int:
+    """Words a staged row or mask takes (csrc/shortlist.cu
+    blocks_stride)."""
+    return 8 * _cdiv(words, 8) + 4
+
+
+def _select_parts(warps: int, keys: int, row_words: int, chunk: int,
+                  stages: int) -> tuple[int, ...]:
+    queries = warps * sl._TQ
+    stride = _stride(chunk)
+    whole = chunk >= row_words
+    return (queries * keys * 4,
+            queries * stride * 4 * (1 if whole else stages),
+            stages * sl._ROWS * stride * 4)
 
 
 def shortlist_smem(b: int, n: int, row_words: int, k: int,
-                   warps: int | None = None,
-                   window: int | None = None) -> SmemEstimate:
+                   warps: int | None = None, chunk: int | None = None,
+                   stages: int | None = None) -> SmemEstimate:
     """The one-table select block of `shortlist_plan(b, n, row_words, k)`
-    (its warps and window unless given): keys = max(128, 2 pow2(k)); up
-    to 4 warps of 4 queries while the block fits, whole rows staged when
-    they fit, else windows halved (a multiple of 4 words)."""
+    (its warps, chunk and stages unless given): keys = max(128, 2
+    pow2(k)); a row of up to the plan's _WHOLE_MAX words staged whole
+    (padded to 8 words) with the masks resident, a wider one in K-chunks
+    of _ONE_CHUNK words through _ONE_STAGES slots; up to 4 warps of 16
+    queries, no more than the queries fill, while the block fits."""
     keys = max(128, 2 * (1 << (k - 1).bit_length()))
+    if chunk is None:
+        chunk = (8 * _cdiv(row_words, 8) if row_words <= sl._WHOLE_MAX
+                 else sl._ONE_CHUNK)
+    stages = sl._ONE_STAGES if stages is None else stages
     budget = H100_BLOCK_SMEM - SELECT_STATIC_SMEM
-    if warps is None or window is None:
-        for w in range(min(4, _cdiv(b, sl._QW)), 0, -1):
-            win = row_words
-            while win > 4 and sum(_select_parts(w, keys, win)) > budget:
-                win = 4 * (win // 8)
-            if sum(_select_parts(w, keys, win)) <= budget:
-                break
-        warps = w if warps is None else warps
-        window = win if window is None else window
-    key_b, mask_b, stage_b = _select_parts(warps, keys, window)
+    if warps is None:
+        most = min(4, _cdiv(b, sl._TQ))
+        warps = next((w for w in (4, 2, 1) if w <= most and sum(
+            _select_parts(w, keys, row_words, chunk, stages)) <= budget),
+            None)
+        if warps is None:
+            raise ValueError(f"shortlist_smem: k={k} leaves no one-table "
+                             f"select block")
+    key_b, mask_b, stage_b = _select_parts(warps, keys, row_words, chunk,
+                                           stages)
     dynamic = key_b + mask_b + stage_b
     return SmemEstimate(
-        entry="select", warps=warps, keys=keys, window=window, stages=2,
+        entry="select", warps=warps, keys=keys, chunk=chunk, stages=stages,
         key_bytes=key_b, mask_bytes=mask_b, stage_bytes=stage_b,
         tile_bytes=0, dynamic_bytes=dynamic,
         static_bytes=SELECT_STATIC_SMEM,
@@ -145,11 +165,9 @@ def shortlist_smem(b: int, n: int, row_words: int, k: int,
 
 def _blocks_parts(warps: int, keys: int, row_words: int, chunk: int,
                   stages: int, mma: bool) -> tuple[int, ...]:
-    def stride(words: int) -> int:
-        return 8 * _cdiv(words, 8) + 4
     return (warps * sl._QW * keys * 8,
-            (sl._BQ if mma else warps * sl._QW) * stride(row_words) * 4,
-            stages * sl._ROWS * stride(chunk) * 4,
+            (sl._BQ if mma else warps * sl._QW) * _stride(row_words) * 4,
+            stages * sl._ROWS * _stride(chunk) * 4,
             sl._BQ * sl._DSTRIDE * 4 if mma else 0)
 
 
@@ -177,7 +195,7 @@ def blocks_smem(b: int, p: int, m: int, rows: int, row_words: int, k: int,
     key_b, mask_b, stage_b, tile_b = parts
     dynamic = sum(parts)
     return SmemEstimate(
-        entry="blocks_select", warps=warps, keys=keys, window=chunk,
+        entry="blocks_select", warps=warps, keys=keys, chunk=chunk,
         stages=stages, key_bytes=key_b, mask_bytes=mask_b,
         stage_bytes=stage_b, tile_bytes=tile_b, dynamic_bytes=dynamic,
         static_bytes=BLOCKS_STATIC_SMEM,

@@ -14,55 +14,63 @@
 // (uint64(dist) << 32 | row) and any exact selection gives the same
 // arrays.
 //
-// What bounds it on an H100: issued instructions and shared-memory
-// latency, not bytes. At the main path's shapes (B = 256, N = 65,536,
-// d = 48, packed 8-bit fields: 48 int32 words a row) the kernel reads
-// >= 12.6 MB of packed operand (~4 us at 3.35 TB/s) and sums
-// B * N * d = 805 M fields. Written as a gather, each field costs a load
-// of its (word, shift), a load of the word, a shift, a mask and an add;
-// here the one-hot query becomes a mask in the operand's own packed layout
-// and a row's distance is a dot product of words, 4 fields per __dp4a,
-// plus ~8 instructions per (query, row) for the key and its test against
-// the running threshold, and the sorts of the candidates.
+// What bounds it on an H100. The one-table entry on the main path (B =
+// 256 queries, N = 65,536 rows, k = 64, 8-bit packed fields: 48 words a
+// row at d = 48, 480 at CUB's d = 480) reads the operand once (12.6 / 126
+// MB, 3.8 / 37.7 us at 3.35 TB/s) and does 2 B N 4d one-hot
+// multiply-adds (6.4 / 64 G, 3.3 / 32.6 us at the int8 tensor-core peak):
+// bytes bound, by a little. On top of that comes the selection: B N keys
+// tested against a running threshold, and the sorts of the few that pass.
 //
-// Design. The TPU kernel walks N sequentially and folds each tile into a
-// running top-k buffer; blocks on the GPU run in no order, so this is two
-// passes:
-//   select: one block per (tile of QW x W queries, slice of rows), W <= 4
-//     warps of QW = 4 queries each. The block stages its slice ROWS = 64
-//     rows at a time in shared memory (cp.async, 16 bytes where the rows
-//     allow it, double-buffered), the row stride a multiple of 4 words with
-//     an odd quarter so that 16-byte loads of 32 rows hit every bank group.
-//     Lane l of every warp takes rows l and l + 32: one 16-byte load of 4
-//     words of each, then for each of the warp's queries one broadcast
-//     16-byte load of the query's 4 mask words and the dot products
-//     (__dp4a for 4- and 8-bit fields, __dp2a_lo for 16-bit, an integer
-//     multiply-add for 32-bit, an exact f32 FMA for bf16 / f32 words). A
-//     row longer than the staging room is staged in windows of words, the
-//     masks rebuilt per window. Each query keeps, in shared memory, its
-//     sorted top-k and a candidate buffer, and in a register the running
-//     threshold: the k-th smallest key seen so far. A row whose key is
-//     below it is appended to the buffer (__ballot_sync + __popc give each
-//     lane its slot); when the buffer would overflow, the warp sorts
-//     top-k + buffer (P keys: in registers with __shfl_xor_sync up to 256,
-//     bitonic in shared memory above), keeps the first k and tightens the
-//     threshold. Only candidates are ever sorted, never the whole slice.
-//     Each block writes one sorted top-k per query for its slice to a
-//     (B, slices, k) scratch.
-//   merge: rounds of one block per (query, group of MERGE_KEYS / k lists)
-//     that sort the group's keys and keep the k smallest, until one list
-//     remains.
-// The operand may be the packed int32 words (4/8/16/32-bit fields,
-// column m of a word holds projection columns {w * dp + m}) or the
-// unpacked bf16 / f32 projection, all read as 32-bit words. Sums are
-// exact in any order (integers below 2**24).
+// The one-table entry, for 8-bit packed fields (every MTMC and CUB store):
+//   masks: one thread a (query, word) writes the query's one-hot mask in
+//     the operand's own byte order to a (B, mw) scratch, once a call: byte
+//     f of word w is 1 where the query selects column f row_words + w (mw:
+//     row_words rounded up to the MMA's 8 words, the rest 0).
+//   select: one block of `warps` <= 4 warps per (tile of 16 warps
+//     queries, slice of rows); each warp owns 16 queries, the MMA's M.
+//     Rows are staged 64 at a time through a cp.async ring of `stages`: a
+//     row of up to 64 words whole, with the block's masks staged once
+//     beside the ring; a wider row in K-chunks of `chunk` words, each
+//     stage carrying the 64 rows' chunk and the block's masks of the same
+//     words, so shared memory does not grow with the row width. The
+//     products are mma.sync m16n8k32 u8 x u8 -> s32, exact since every sum
+//     is below 2**24: A the warp's 16 mask rows (ldmatrix), B the staged
+//     rows (8 n-tiles of 8), the next k-step's fragments loaded under this
+//     one's products. A lane ends a tile holding 2 queries x 16 rows of
+//     distances in registers, and the selection reads them there, on
+//     32-bit compact keys: the penalty bit, the distance (at most 255 d,
+//     below the penalty 2**22) and the row within the slice, in the order
+//     of the (distance, row) keys; the plan keeps a slice's rows within
+//     the bits left. Each query keeps, in shared memory, its sorted H = P
+//     / 2 >= max(k, 64) smallest keys and H candidate slots, and in its
+//     quad's registers its k-th key. A lane counts its keys below that key
+//     and the quad sums the counts; a list whose candidates would
+//     overflow is folded first (the warp sorts the candidates and merges
+//     them into the sorted half), and the counts are taken again under
+//     its tighter k-th key; a tile's 64 rows always fit after a fold. Then
+//     each lane writes its candidates at its quad's prefix. Only
+//     candidates are ever sorted. Each block writes one sorted list of k
+//     (distance, row) keys per query for its slice to a (B, slices, k)
+//     scratch.
+//   merge: the merge rounds both entries share (shortlist_merge, below),
+//     each query with all its slices' lists.
+//   Shared memory of a select block (kernels/shortlist.py::shortlist_plan
+//   and analysis/vmem.py model it): 16 warps P 4 bytes of lists, and
+//   stages x (64 + 16 warps for K-chunked rows) x blocks_stride(chunk) x 4
+//   bytes of ring, plus 16 warps x blocks_stride(chunk) x 4 bytes of
+//   resident masks for whole rows; no static shared memory. On the main
+//   path (B = 256, k = 64: 4 warps, P = 128) that is 72,704 bytes at d =
+//   48 and 69,632 at d = 480 (K-chunks of 32 words, 2 stages): 3 blocks
+//   an SM (__launch_bounds__ holds the registers to it), and the plan cuts
+//   94 slices of 704 rows, so the 376 blocks are one wave and the 4 query
+//   tiles of a slice read its rows from L2. At k = 1,024 a block of one
+//   warp holds 16 lists of 2,048 keys (128 KB).
 //
-// Shared memory per select block (the wrapper's plan, kernels/shortlist.py
-// ::shortlist_plan): QW W (P * 8 + mask stride * 4) + 2 * 64 * stride * 4
-// bytes, P = max(128, 2 * pow2(k)). On the main path (W = 4, P = 128,
-// mask stride 48, stride 52) that is 45 KB: 4 blocks (16 warps) an SM,
-// and the plan cuts 32 slices so that the 512 blocks are one wave and one
-// merge round. At k = 1,024 (P = 2,048) the plan drops to fewer warps.
+// Other operand kinds (4-, 16- and 32-bit packed fields, bf16 and f32)
+// go to the block-table entry below as one block of N rows that every
+// query visits (base 0, ids all 0): the same keys. The wrapper routes
+// them, and 8-bit fields too where 255 d reaches the penalty.
 //
 // The block-table entry (shortlist_blocks_launch) computes the same thing
 // for every query over its own list of row blocks: the routed search's
@@ -72,8 +80,7 @@
 // table of M blocks of `rows` rows, key bases base (M,), and visit lists
 // ids (B, p); the key of row r of block m is (dist << 32) | (base[m] + r),
 // so with ids ascending in base the key order is JAX's (distance, position
-// in the concatenation) order. It has kernels of its own, so the one-table
-// entry above keeps its code path:
+// in the concatenation) order. Its kernels:
 //   group: one block of 1,024 threads counts the (query, visit) pairs of
 //     each table block, scans the counts and lays out work units --
 //     (table block, first pair, up to BQ = 16 pairs, row range) -- and the
@@ -102,8 +109,12 @@
 //     n-tile) sums each row's fields exactly (int32, every sum < 2**24);
 //     the warps split the 64 rows of a tile, the next k-step's fragments
 //     load under this one's products, and the 16 x 64 distances go through
-//     shared memory to the selection. Other operand kinds keep the
-//     CUDA-core dot products of the one-table entry, over K-chunks.
+//     shared memory to the selection. Other operand kinds take CUDA-core
+//     dot products over the K-chunks: lane l takes rows l and l + 32,
+//     one 16-byte load of each and one broadcast 16-byte load of a
+//     pair's mask words per 4 words (__dp4a for 4- and 8-bit fields,
+//     __dp2a_lo for 16-bit, an integer multiply-add for 32-bit, an
+//     exact f32 FMA for bf16 / f32 words).
 //     Selection: each warp keeps 4 pairs' lists (lanes over rows) as
 //     above, but a list's sorted half is folded with its candidate half by
 //     sorting the candidates and one bitonic merge (half the shuffles of
@@ -128,12 +139,13 @@
 // visited blocks (each staged once per unit that visits it).
 //
 // Work left for the selection: with rows in random order about
-// k (1 + ln(R / k)) of a slice's R rows beat the running threshold (~285
-// of 2,048 per query on the main path), a few more since the threshold
-// tightens only at each sort. The worst case is rows in descending
-// distance: every row is a candidate, and the warp sorts P keys for every
-// P - k rows. All rows tied is the best case: after the first k rows no
-// key is below the threshold. Every order gives the same exact result.
+// k (1 + ln(R / k)) of a list's R rows beat its running threshold (~240
+// of a one-table slice's 1,024 per query on the main path), a few more
+// since the threshold tightens only at each fold. The worst case is rows
+// in descending distance: every row is a candidate, and every tile
+// folds every list. All rows tied is the best case: after the first k
+// rows no key is below the threshold. Every order gives the same exact
+// result.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -148,7 +160,8 @@ constexpr int ROWS = 32 * RPL;       // rows per staged tile
 constexpr int MERGE_THREADS = 256;
 constexpr int MERGE_KEYS = 2048;     // keys per merge block
 constexpr int MAX_K = MERGE_KEYS / 2;
-constexpr int QW = 4;                // queries per warp
+constexpr int QW = 4;                // pairs per warp, block-table select
+constexpr int TQ = 16;               // queries per warp, one-table select
 constexpr int MAX_WARPS = 4;         // warps per select block
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory of one block
 constexpr unsigned long long PAD_KEY = ~0ull;
@@ -166,8 +179,6 @@ constexpr int CHUNK_MAX = 64;
 // static shared memory of a block-table select block: per pair slot its
 // query, list, bound slot and whether its query keeps a shared bound
 constexpr int BLOCKS_STATIC_SMEM = BQ * (4 + 8 + 4 + 4);
-// static shared memory of a select block: each query slot's query and list
-constexpr int SELECT_STATIC_SMEM = MAX_WARPS * QW * (4 + 8);
 
 enum Kind { kPacked = 0, kBf16 = 1, kF32 = 2 };
 
@@ -189,19 +200,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-// Words per staged row: a multiple of 4 (16-byte loads) whose quarter is
-// odd, so the 8 lanes of each quarter-warp phase read 8 different 16-byte
-// bank groups.
-__host__ __device__ __forceinline__ int stage_stride(int window) {
-  const int q = (window + 3) / 4;
-  return 4 * (q | 1);
-}
-
-// Words per query's mask row: the window rounded up to 16 bytes.
-__host__ __device__ __forceinline__ int mask_stride(int window) {
-  return 4 * ((window + 3) / 4);
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
@@ -209,18 +207,17 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Ascending bitonic sort of n (a power of two) keys in shared memory by
 // `threads` threads; `sync` is the barrier that orders the stages.
-template <typename Sync>
-__device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int n,
-                                             int tid, int threads,
-                                             Sync sync) {
+template <typename K, typename Sync>
+__device__ __forceinline__ void bitonic_sort(K* keys, int n, int tid,
+                                             int threads, Sync sync) {
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int i = tid; i < n / 2; i += threads) {
         const int lo = 2 * i - (i & (stride - 1));
         const int hi = lo + stride;
         const bool asc = (lo & size) == 0;
-        const unsigned long long a = keys[lo];
-        const unsigned long long b = keys[hi];
+        const K a = keys[lo];
+        const K b = keys[hi];
         if ((a > b) == asc) {
           keys[lo] = b;
           keys[hi] = a;
@@ -234,9 +231,8 @@ __device__ __forceinline__ void bitonic_sort(unsigned long long* keys, int n,
 // Ascending bitonic sort of 32 * L keys held by one warp in registers,
 // key i * 32 + lane in x[i] of `lane`: partners in other lanes by
 // __shfl_xor_sync, partners in the same lane by register swaps.
-template <int L>
-__device__ __forceinline__ void warp_sort(unsigned long long (&x)[L],
-                                          int lane) {
+template <int L, typename K>
+__device__ __forceinline__ void warp_sort(K (&x)[L], int lane) {
 #pragma unroll
   for (int size = 2; size <= 32 * L; size <<= 1) {
 #pragma unroll
@@ -247,8 +243,8 @@ __device__ __forceinline__ void warp_sort(unsigned long long (&x)[L],
           const int i2 = i ^ (j >> 5);
           if (i2 > i) {
             const bool asc = ((i * 32 + lane) & size) == 0;
-            const unsigned long long a = x[i];
-            const unsigned long long b = x[i2];
+            const K a = x[i];
+            const K b = x[i2];
             if ((a > b) == asc) {
               x[i] = b;
               x[i2] = a;
@@ -259,40 +255,12 @@ __device__ __forceinline__ void warp_sort(unsigned long long (&x)[L],
         const bool lower = (lane & j) == 0;
 #pragma unroll
         for (int i = 0; i < L; ++i) {
-          const unsigned long long y = __shfl_xor_sync(FULL, x[i], j);
+          const K y = __shfl_xor_sync(FULL, x[i], j);
           const bool asc = ((i * 32 + lane) & size) == 0;
           x[i] = (lower == asc) ? min(x[i], y) : max(x[i], y);
         }
       }
     }
-  }
-}
-
-template <int L>
-__device__ __forceinline__ void warp_sort_smem(unsigned long long* keys,
-                                               int lane) {
-  unsigned long long x[L];
-#pragma unroll
-  for (int i = 0; i < L; ++i) x[i] = keys[i * 32 + lane];
-  warp_sort<L>(x, lane);
-#pragma unroll
-  for (int i = 0; i < L; ++i) keys[i * 32 + lane] = x[i];
-  __syncwarp();
-}
-
-// One warp folds its candidate buffer keys[k, k + count) into its sorted
-// top-k keys[0, k): pad the rest of the P slots, sort, keep the first k.
-// Up to 256 keys are sorted in registers, more in shared memory.
-__device__ __noinline__ void refold(unsigned long long* keys, int k,
-                                    int P, int count, int lane) {
-  for (int j = k + count + lane; j < P; j += 32) keys[j] = PAD_KEY;
-  __syncwarp();
-  if (P == 128) {
-    warp_sort_smem<4>(keys, lane);
-  } else if (P == 256) {
-    warp_sort_smem<8>(keys, lane);
-  } else {
-    bitonic_sort(keys, P, lane, 32, [] { __syncwarp(); });
   }
 }
 
@@ -343,319 +311,6 @@ __device__ __forceinline__ void dot_chunk(Acc<KIND>& acc, const uint4& v,
   dot_word<KIND, BITS>(acc, v.y, m.y);
   dot_word<KIND, BITS>(acc, v.z, m.z);
   dot_word<KIND, BITS>(acc, v.w, m.w);
-}
-
-// One table of N rows for every query; block x is (query tile x % q_tiles,
-// slice x / q_tiles).
-template <int KIND, int BITS>
-__global__ void __launch_bounds__(MAX_WARPS * 32)
-shortlist_select(const int* __restrict__ qw, const uint32_t* __restrict__ op,
-                 int row_words, const uint8_t* __restrict__ valid,
-                 int B, int N, int d, int k, int P, int slice_rows,
-                 int window, int n_slices,
-                 unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long smem[];
-  __shared__ int s_query[MAX_WARPS * QW];        // query of a slot, or -1
-  __shared__ long long s_list[MAX_WARPS * QW];   // its list's first key
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int qb = warps * QW;                  // queries per block
-  const int mstride = mask_stride(window);
-  const int stride = stage_stride(window);
-  unsigned long long* keys = smem + warp * QW * P;           // warps*QW*P
-  uint32_t* masks = reinterpret_cast<uint32_t*>(smem + qb * P);
-  uint32_t* stage = masks + qb * mstride;                    // 2*ROWS*stride
-
-  // the block's rows [n_begin, n_end) and the query and output list of
-  // each query slot
-  const int q_tiles = (B + qb - 1) / qb;
-  const int b0 = (blockIdx.x % q_tiles) * qb;  // query tiles fastest: a
-  const int slice = blockIdx.x / q_tiles;      // slice is re-read from L2
-  const int n_begin = slice * slice_rows;
-  const int n_end = min(N, n_begin + slice_rows);
-  for (int qi = threadIdx.x; qi < qb; qi += blockDim.x) {
-    const int b = b0 + qi;
-    s_query[qi] = b < B ? b : -1;
-    s_list[qi] = ((long long)b * n_slices + slice) * k;
-  }
-  const bool vec = row_words % 4 == 0 && window % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(op) & 15) == 0;
-
-  // zero the staging buffers once: the padding words past a window are
-  // never copied, and a float mask word of 0 must not meet a NaN there
-  for (int e = threadIdx.x; e < 2 * ROWS * stride; e += blockDim.x) {
-    stage[e] = 0u;
-  }
-  for (int e = lane; e < QW * P; e += 32) keys[e] = PAD_KEY;
-  __syncthreads();  // zeros and query slots before the first use
-
-  // masks of words [w0, w0 + window) for the block's queries
-  auto build_masks = [&](int w0) {
-    for (int e = threadIdx.x; e < qb * mstride; e += blockDim.x) {
-      masks[e] = 0u;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < qb * d; e += blockDim.x) {
-      const int qi = e / d;
-      const int dim = e - qi * d;
-      const int b = s_query[qi];
-      if (b < 0) continue;
-      const int qv = min(max(qw[(size_t)b * d + dim], 0), 3);
-      const int col = 4 * dim + qv;
-      int word, field;
-      if (KIND == kPacked) {
-        word = col % row_words;
-        field = col / row_words;
-      } else if (KIND == kBf16) {
-        word = col >> 1;
-        field = col & 1;
-      } else {
-        word = col;
-        field = 0;
-      }
-      word -= w0;
-      if (word >= 0 && word < window) {
-        atomicOr(&masks[qi * mstride + word], mask_flag<KIND, BITS>(field));
-      }
-    }
-    __syncthreads();
-  };
-
-  const int n_row_tiles = (n_end - n_begin + ROWS - 1) / ROWS;
-  const int n_win = (row_words + window - 1) / window;
-  const int n_stages = n_row_tiles * n_win;
-
-  // stage s = (tile s / n_win, window s % n_win) into buffer s & 1: each
-  // warp copies whole rows, its lanes along the row
-  auto issue = [&](int s) {
-    const int r0 = n_begin + (s / n_win) * ROWS;
-    const int w0 = (s % n_win) * window;
-    const int ww = min(window, row_words - w0);
-    uint32_t* buf = stage + (s & 1) * ROWS * stride;
-    for (int r = warp; r < ROWS && r0 + r < n_end; r += warps) {
-      const uint32_t* src = op + (size_t)(r0 + r) * row_words + w0;
-      if (vec) {
-        for (int j = lane; j < ww / 4; j += 32) {
-          cp_async16(buf + r * stride + 4 * j, src + 4 * j);
-        }
-      } else {
-        for (int j = lane; j < ww; j += 32) cp_async4(buf + r * stride + j,
-                                                      src + j);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const bool active = s_query[warp * QW] >= 0;  // slots fill in order
-  bool q_on[QW];
-  const int cap = P - k;  // candidate slots per query
-  unsigned long long thr[QW];
-  int count[QW];
-  Acc<KIND> acc[RPL][QW];
-#pragma unroll
-  for (int q = 0; q < QW; ++q) {
-    q_on[q] = s_query[warp * QW + q] >= 0;
-    thr[q] = PAD_KEY;
-    count[q] = 0;
-  }
-
-  if (n_win == 1) build_masks(0);
-  if (n_stages > 0) issue(0);
-  for (int s = 0; s < n_stages; ++s) {
-    if (s + 1 < n_stages) {
-      issue(s + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int w = s % n_win;
-    if (n_win > 1) build_masks(w * window);
-    if (active) {
-      if (w == 0) {
-#pragma unroll
-        for (int j = 0; j < RPL; ++j)
-#pragma unroll
-          for (int q = 0; q < QW; ++q) acc[j][q] = 0;
-      }
-      // lane l takes rows l and l + 32 of the tile: each mask load (a
-      // broadcast) serves RPL rows
-      const uint32_t* tile = stage + (s & 1) * ROWS * stride;
-      const uint4* mq = reinterpret_cast<const uint4*>(
-          masks + warp * QW * mstride);
-      const int chunks = (min(window, row_words - w * window) + 3) / 4;
-      for (int c = 0; c < chunks; ++c) {
-        uint4 v[RPL];
-#pragma unroll
-        for (int j = 0; j < RPL; ++j) {
-          v[j] = reinterpret_cast<const uint4*>(
-              tile + (j * 32 + lane) * stride)[c];
-        }
-#pragma unroll
-        for (int q = 0; q < QW; ++q) {
-          const uint4 m = mq[q * (mstride / 4) + c];
-#pragma unroll
-          for (int j = 0; j < RPL; ++j) dot_chunk<KIND, BITS>(acc[j][q], v[j], m);
-        }
-      }
-      if (w == n_win - 1) {
-#pragma unroll
-        for (int j = 0; j < RPL; ++j) {
-          const int n = n_begin + (s / n_win) * ROWS + j * 32 + lane;
-          const float pen =
-              (valid != nullptr && n < n_end && valid[n] == 0)
-                  ? MASK_PENALTY
-                  : 0.f;
-#pragma unroll
-          for (int q = 0; q < QW; ++q) {
-            const float dist =
-                (KIND == kPacked
-                     ? static_cast<float>(static_cast<int>(acc[j][q]))
-                     : static_cast<float>(acc[j][q])) + pen;
-            const unsigned long long key =
-                n < n_end && q_on[q]
-                    ? (static_cast<unsigned long long>(__float2uint_rz(dist))
-                       << 32) | static_cast<unsigned int>(n)
-                    : PAD_KEY;
-            bool pass = key < thr[q];
-            unsigned m = __ballot_sync(FULL, pass);
-            if (m != 0u) {
-              unsigned long long* kq = keys + q * P;
-              if (count[q] + __popc(m) > cap) {
-                refold(kq, k, P, count[q], lane);
-                thr[q] = kq[k - 1];
-                count[q] = 0;
-                pass = key < thr[q];
-                m = __ballot_sync(FULL, pass);
-              }
-              if (pass) {
-                kq[k + count[q] + __popc(m & ((1u << lane) - 1u))] = key;
-              }
-              count[q] += __popc(m);
-              __syncwarp();
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // the buffer (and masks) are refilled next
-  }
-
-  if (active) {
-#pragma unroll
-    for (int q = 0; q < QW; ++q) {
-      unsigned long long* kq = keys + q * P;
-      if (count[q] > 0) refold(kq, k, P, count[q], lane);
-      if (q_on[q]) {
-        unsigned long long* dst = out + s_list[warp * QW + q];
-        for (int j = lane; j < k; j += 32) dst[j] = kq[j];
-      }
-    }
-  }
-}
-
-// One merge round: lists (B, m_in, k) sorted -> (B, m_out, k) sorted, each
-// output list the k smallest keys of `group` consecutive input lists,
-// sorted in n (a power of two >= min(group, m_in) * k) keys.
-__global__ void __launch_bounds__(MERGE_THREADS)
-shortlist_merge(const unsigned long long* __restrict__ in,
-                unsigned long long* __restrict__ out, int m_in, int m_out,
-                int k, int group, int n) {
-  __shared__ unsigned long long keys[MERGE_KEYS];
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int first = g * group;
-  for (int j = threadIdx.x; j < n; j += MERGE_THREADS) {
-    const int list = first + j / k;
-    keys[j] = (j < group * k && list < m_in)
-        ? in[((size_t)b * m_in + list) * k + j % k]
-        : PAD_KEY;
-  }
-  __syncthreads();
-  bitonic_sort(keys, n, threadIdx.x, MERGE_THREADS,
-               [] { __syncthreads(); });
-  unsigned long long* dst = out + ((size_t)b * m_out + g) * k;
-  for (int j = threadIdx.x; j < k; j += MERGE_THREADS) dst[j] = keys[j];
-}
-
-int select_smem(int warps, int P, int window) {
-  return warps * QW * (P * 8 + mask_stride(window) * 4) +
-         2 * ROWS * stage_stride(window) * 4;
-}
-
-template <int KIND, int BITS>
-int launch_select(const int* qw, const uint32_t* op, int row_words,
-                  const uint8_t* valid, int B, int N, int d, int k, int warps,
-                  int P, int slice_rows, int window, int n_slices,
-                  long long grid_tiles, unsigned long long* out,
-                  cudaStream_t st) {
-  const int smem = select_smem(warps, P, window);
-  cudaError_t err = cudaFuncSetAttribute(
-      shortlist_select<KIND, BITS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks = grid_tiles * n_slices;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  shortlist_select<KIND, BITS>
-      <<<static_cast<unsigned>(blocks), warps * 32, smem, st>>>(
-          qw, op, row_words, valid, B, N, d, k, P, slice_rows, window,
-          n_slices, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int select_any(int kind, int bits, const int* qw, const uint32_t* op,
-               int row_words, const uint8_t* valid, int B, int N, int d,
-               int k, int warps, int P, int slice_rows, int window,
-               int n_slices, long long grid_tiles, unsigned long long* out,
-               cudaStream_t st) {
-#define SELECT(KIND, BITS)                                                  \
-  launch_select<KIND, BITS>(qw, op, row_words, valid, B, N, d, k, warps, P, \
-                            slice_rows, window, n_slices, grid_tiles, out,  \
-                            st)
-  if (kind == kBf16) return SELECT(kBf16, 16);
-  if (kind == kF32) return SELECT(kF32, 32);
-  if (kind == kPacked && bits == 4) return SELECT(kPacked, 4);
-  if (kind == kPacked && bits == 8) return SELECT(kPacked, 8);
-  if (kind == kPacked && bits == 16) return SELECT(kPacked, 16);
-  if (kind == kPacked && bits == 32) return SELECT(kPacked, 32);
-#undef SELECT
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Merge rounds: each query's m sorted lists of k keys in `a` -> its k
-// smallest in out (B, k), ping-ponging between a and bscr.
-int merge_lists(unsigned long long* a, unsigned long long* bscr,
-                unsigned long long* out, int B, int m, int k,
-                cudaStream_t st) {
-  const int group = MERGE_KEYS / k;
-  unsigned long long* src = a;
-  while (m > 1) {
-    const int m_out = (m + group - 1) / group;
-    const int lists = group < m ? group : m;
-    int n = 1;
-    while (n < lists * k) n <<= 1;
-    unsigned long long* dst = m_out == 1 ? out : (src == a ? bscr : a);
-    shortlist_merge<<<dim3(m_out, B), MERGE_THREADS, 0, st>>>(
-        src, dst, m, m_out, k, group, n);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    m = m_out;
-    src = dst;
-  }
-  return 0;
-}
-
-// The one-table select pass's plan: a merge round folds
-// MERGE_KEYS / k >= 2 lists into one, so k <= MAX_K; the select pass needs
-// at least 32 candidate slots.
-bool plan_ok(int k, int rows, int warps, int slice_rows, int window,
-             int row_words, int P) {
-  return !(k < 1 || k > MAX_K || warps < 1 || warps > MAX_WARPS ||
-           slice_rows < ROWS || slice_rows % ROWS != 0 || window < 1 ||
-           window > row_words || rows < 1 || P < k + 32 ||
-           (P & (P - 1)) != 0 ||
-           select_smem(warps, P, window) + SELECT_STATIC_SMEM > SMEM_MAX);
 }
 
 // ---------------------------------------------------------------------------
@@ -728,9 +383,8 @@ __device__ __forceinline__ unsigned long long ld_relaxed(
 
 // Ascending bitonic merge of a bitonic sequence of 32 * L keys held as in
 // warp_sort.
-template <int L>
-__device__ __forceinline__ void warp_clean(unsigned long long (&x)[L],
-                                           int lane) {
+template <int L, typename K>
+__device__ __forceinline__ void warp_clean(K (&x)[L], int lane) {
 #pragma unroll
   for (int j = 16 * L; j > 0; j >>= 1) {
     if (j >= 32) {
@@ -738,8 +392,8 @@ __device__ __forceinline__ void warp_clean(unsigned long long (&x)[L],
       for (int i = 0; i < L; ++i) {
         const int i2 = i ^ (j >> 5);
         if (i2 > i) {
-          const unsigned long long a = x[i];
-          const unsigned long long b = x[i2];
+          const K a = x[i];
+          const K b = x[i2];
           x[i] = min(a, b);
           x[i2] = max(a, b);
         }
@@ -748,7 +402,7 @@ __device__ __forceinline__ void warp_clean(unsigned long long (&x)[L],
       const bool lower = (lane & j) == 0;
 #pragma unroll
       for (int i = 0; i < L; ++i) {
-        const unsigned long long y = __shfl_xor_sync(FULL, x[i], j);
+        const K y = __shfl_xor_sync(FULL, x[i], j);
         x[i] = lower ? min(x[i], y) : max(x[i], y);
       }
     }
@@ -758,10 +412,9 @@ __device__ __forceinline__ void warp_clean(unsigned long long (&x)[L],
 // keys[0, 32 L) sorted, keys[32 L, 64 L) candidates: sort the candidates,
 // take the elementwise minimum with them reversed (a bitonic sequence that
 // holds the 32 L smallest of both) and merge it.
-template <int L>
-__device__ __forceinline__ void fold_regs(unsigned long long* keys,
-                                          int lane) {
-  unsigned long long x[L], y[L];
+template <int L, typename K>
+__device__ __forceinline__ void fold_regs(K* keys, int lane) {
+  K x[L], y[L];
 #pragma unroll
   for (int i = 0; i < L; ++i) {
     x[i] = keys[i * 32 + lane];
@@ -779,10 +432,12 @@ __device__ __forceinline__ void fold_regs(unsigned long long* keys,
 }
 
 // One warp folds its candidates keys[H, H + count) into its sorted half
-// keys[0, H): the H smallest of both, sorted, in keys[0, H).
-__device__ __noinline__ void fold_half(unsigned long long* keys, int H,
-                                       int count, int lane) {
-  for (int j = H + count + lane; j < 2 * H; j += 32) keys[j] = PAD_KEY;
+// keys[0, H): the H smallest of both, sorted, in keys[0, H). K is the key
+// type: 64-bit (distance, row) keys, or the one-table select's 32-bit
+// compact ones; the all-ones key pads.
+template <typename K>
+__device__ __noinline__ void fold_half(K* keys, int H, int count, int lane) {
+  for (int j = H + count + lane; j < 2 * H; j += 32) keys[j] = ~K(0);
   __syncwarp();
   if (H == 64) {
     fold_regs<2>(keys, lane);
@@ -791,6 +446,338 @@ __device__ __noinline__ void fold_half(unsigned long long* keys, int H,
   } else {
     bitonic_sort(keys, 2 * H, lane, 32, [] { __syncwarp(); });
   }
+}
+
+// ---------------------------------------------------------------------------
+// The one-table entry: 8-bit packed fields, products on the tensor cores.
+// ---------------------------------------------------------------------------
+
+// The (B, mw) one-hot masks, one thread a word: byte f of word w of query
+// b is 1 where b selects column f row_words + w of the packed operand;
+// words at or past row_words are 0.
+__global__ void shortlist_masks(const int* __restrict__ qw, int B, int d,
+                                int row_words, int mw,
+                                uint32_t* __restrict__ masks) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)B * mw) return;
+  const int b = static_cast<int>(e / mw);
+  const int w = static_cast<int>(e - (long long)b * mw);
+  uint32_t m = 0u;
+  if (w < row_words) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const long long col = (long long)f * row_words + w;
+      if (col < 4LL * d) {
+        const int qv = min(max(qw[(size_t)b * d + (col >> 2)], 0), 3);
+        if (qv == static_cast<int>(col & 3)) m |= 1u << (8 * f);
+      }
+    }
+  }
+  masks[e] = m;
+}
+
+// Dynamic shared memory of a one-table select block: P 32-bit keys a
+// query; a ring of `stages` slots of 64 staged rows (with the block's
+// masks of the same words for K-chunked rows); whole rows' masks once
+// beside the ring.
+__host__ __device__ __forceinline__ int select_smem(int warps, int P,
+                                                    int row_words, int chunk,
+                                                    int stages) {
+  const int qb = warps * TQ;
+  const bool whole = chunk >= row_words;
+  return qb * P * 4 + 4 * blocks_stride(chunk) *
+                          (stages * (ROWS + (whole ? 0 : qb)) +
+                           (whole ? qb : 0));
+}
+
+// Bits of a row's index within a slice of slice_rows rows.
+__host__ __device__ __forceinline__ int row_bits(int slice_rows) {
+  int b = 0;
+  while ((1 << b) < slice_rows) ++b;
+  return b;
+}
+
+// One table of N rows for every query, 8-bit packed fields. Block x is
+// (query tile x % q_tiles, slice x / q_tiles): the query tiles of a slice
+// run together and read its rows from L2 once the first has loaded them.
+__global__ void __launch_bounds__(MAX_WARPS * 32, 3)
+shortlist_select(const uint32_t* __restrict__ masks, int mw,
+                 const uint32_t* __restrict__ op, int row_words,
+                 const uint8_t* __restrict__ valid, int B, int N, int k,
+                 int P, int chunk, int stages, int slice_rows, int n_slices,
+                 unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned long long smem[];
+  constexpr uint32_t PAD = 0xFFFFFFFFu;  // the compact all-ones key
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // the lane's query slots g, g + 8 of its warp
+  const int t = lane & 3;   // and rows 2 t, 2 t + 1 of each n-tile
+  const int qb = warps * TQ;
+  const int H = P / 2;      // sorted keys a list; as many candidates
+  const int rb = row_bits(slice_rows);
+  const bool whole = chunk >= row_words;
+  const int stride = blocks_stride(chunk);
+  const int stage_words = stride * (ROWS + (whole ? 0 : qb));
+  uint32_t* keys = reinterpret_cast<uint32_t*>(smem) + warp * TQ * P;
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) + qb * P;
+  uint32_t* mres = ring + stages * stage_words;  // whole rows' masks
+
+  const int q_tiles = (B + qb - 1) / qb;
+  const int b0 = (blockIdx.x % q_tiles) * qb;
+  const int slice = blockIdx.x / q_tiles;
+  const int q_here = min(qb, B - b0);
+  const int n_begin = slice * slice_rows;
+  const int n_end = min(N, n_begin + slice_rows);
+  const int n_kc = whole ? 1 : (row_words + chunk - 1) / chunk;
+  const int n_st = (n_end - n_begin + ROWS - 1) / ROWS * n_kc;
+  const bool vec = row_words % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(op) & 15) == 0;
+
+  // stage s = (tile s / n_kc, K-chunk s % n_kc) into ring slot s % stages;
+  // the masks' words are whole k-steps (0 past the row)
+  auto issue = [&](int s) {
+    if (s < n_st) {
+      const int r0 = n_begin + (s / n_kc) * ROWS;
+      const int w0 = (s % n_kc) * chunk;
+      const int ww = min(chunk, row_words - w0);
+      const int r_here = min(ROWS, n_end - r0);
+      uint32_t* buf = ring + (s % stages) * stage_words;
+      if (vec) {
+        const int segs = ww / 4;
+        for (int e = threadIdx.x; e < r_here * segs; e += blockDim.x) {
+          const int r = e / segs;
+          const int j = e - r * segs;
+          cp_async16(buf + r * stride + 4 * j,
+                     op + (size_t)(r0 + r) * row_words + w0 + 4 * j);
+        }
+      } else {
+        for (int e = threadIdx.x; e < r_here * ww; e += blockDim.x) {
+          const int r = e / ww;
+          const int j = e - r * ww;
+          cp_async4(buf + r * stride + j,
+                    op + (size_t)(r0 + r) * row_words + w0 + j);
+        }
+      }
+      if (!whole) {
+        const int segs = (ww + 7) / 8 * 2;
+        uint32_t* mb = buf + ROWS * stride;
+        for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
+          const int qi = e / segs;
+          const int j = e - qi * segs;
+          cp_async16(mb + qi * stride + 4 * j,
+                     masks + (size_t)(b0 + qi) * mw + w0 + 4 * j);
+        }
+      }
+    }
+    cp_async_commit();  // an empty group past the last stage
+  };
+  if (whole) {  // the block's masks, once, in the first stage's group
+    const int segs = mw / 4;
+    for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
+      const int qi = e / segs;
+      const int j = e - qi * segs;
+      cp_async16(mres + qi * stride + 4 * j,
+                 masks + (size_t)(b0 + qi) * mw + 4 * j);
+    }
+  }
+  for (int s = 0; s < stages - 1; ++s) issue(s);
+  for (int e = lane; e < TQ * P; e += 32) keys[e] = PAD;
+
+  const bool active = warp * TQ < q_here;  // slots fill in order
+  uint32_t own[2];  // the k-th key of slot g + 8 i's list
+  int count[2];     // its candidates
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    own[i] = warp * TQ + g + 8 * i < q_here ? PAD : 0u;  // else none
+    count[i] = 0;
+  }
+  int acc[8][4];      // slots g, g + 8 x rows 2 t, 2 t + 1 of n-tile j
+  unsigned pen = 0u;  // bit 2 j + h: row 8 j + 2 t + h of the tile masked
+  // A: lanes 0-15 mask rows 0-15 words 0-3, lanes 16-31 words 4-7; B: two
+  // n-tiles' rows, words 0-3 and 4-7
+  const int a_off = (warp * TQ + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride +
+                    4 * (lane >> 4);
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * stride +
+                    4 * ((lane >> 3) & 1);
+
+  for (int s = 0; s < n_st; ++s) {
+    if (stages == 2) {
+      cp_async_wait<0>();
+    } else if (stages == 3) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<2>();
+    }
+    __syncthreads();  // stage s (and the masks) for every warp; the slot
+    issue(s + stages - 1);  // refilled here was last read in stage s - 1
+    if (!active) continue;
+    const int tile = s / n_kc;
+    const int kc = s - tile * n_kc;
+    const int r0 = n_begin + tile * ROWS;
+    const uint32_t* buf = ring + (s % stages) * stage_words;
+    if (kc == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+      pen = 0u;
+      if (valid != nullptr) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int n = r0 + 8 * j + 2 * t + h;
+            if (n < n_end && valid[n] == 0) pen |= 1u << (2 * j + h);
+          }
+      }
+    }
+    const uint32_t* a_ptr = (whole ? mres : buf + ROWS * stride) + a_off;
+    const uint32_t* b_ptr = buf + b_off;
+    const int ksteps = (min(chunk, row_words - kc * chunk) + 7) / 8;
+    uint32_t a[2][4], bf[2][4][4];
+    auto load = [&](int ks, int slot) {
+      ldsm_x4(a[slot], a_ptr + 8 * ks);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ldsm_x4(bf[slot][i], b_ptr + 16 * i * stride + 8 * ks);
+      }
+    };
+    load(0, 0);
+    for (int ks = 0; ks < ksteps; ks += 2) {
+      if (ks + 1 < ksteps) load(ks + 1, 1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        mma_u8(acc[2 * i], a[0], bf[0][i][0], bf[0][i][1]);
+        mma_u8(acc[2 * i + 1], a[0], bf[0][i][2], bf[0][i][3]);
+      }
+      if (ks + 1 < ksteps) {
+        if (ks + 2 < ksteps) load(ks + 2, 0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_u8(acc[2 * i], a[1], bf[1][i][0], bf[1][i][1]);
+          mma_u8(acc[2 * i + 1], a[1], bf[1][i][2], bf[1][i][3]);
+        }
+      }
+    }
+    if (kc != n_kc - 1) continue;
+
+    // the tile's selection, on the accumulators: the compact key of slot
+    // g + 8 i and row 8 j + 2 t + h
+#define TILE_KEY(j, i, h)                                                   \
+  (r0 + 8 * (j) + 2 * t + (h) < n_end                                       \
+       ? (((pen >> (2 * (j) + (h))) & 1u) << 31) |                          \
+             (static_cast<uint32_t>(acc[j][2 * (i) + (h)]) << rb) |         \
+             static_cast<uint32_t>(r0 - n_begin + 8 * (j) + 2 * t + (h))    \
+       : PAD)
+    int c[2], tot[2];  // the lane's and its quad's keys below own[i]
+    auto tally = [&]() {
+      c[0] = c[1] = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < 2; ++i) c[i] += TILE_KEY(j, i, h) < own[i];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tot[i] = c[i] + __shfl_xor_sync(FULL, c[i], 1);
+        tot[i] += __shfl_xor_sync(FULL, tot[i], 2);
+      }
+    };
+    tally();
+    unsigned over[2];  // bit 4 g': slot g' + 8 i's candidates would overflow
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      over[i] = __ballot_sync(FULL, t == 0 && count[i] + tot[i] > H);
+    }
+    if ((over[0] | over[1]) != 0u) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        while (over[i] != 0u) {
+          const int src = __ffs(over[i]) - 1;
+          over[i] &= over[i] - 1u;
+          uint32_t* kq = keys + ((src >> 2) + 8 * i) * P;
+          fold_half(kq, H, __shfl_sync(FULL, count[i], src), lane);
+          const uint32_t kth = kq[k - 1];
+          if (g == (src >> 2)) {
+            own[i] = kth;
+            count[i] = 0;
+          }
+        }
+      }
+      tally();
+    }
+    if (__any_sync(FULL, (c[0] | c[1]) != 0)) {
+      int pos[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the lane's first slot: its quad's
+        int x = c[i];                // exclusive prefix
+        int y = __shfl_up_sync(FULL, x, 1, 4);
+        if (t >= 1) x += y;
+        y = __shfl_up_sync(FULL, x, 2, 4);
+        if (t >= 2) x += y;
+        pos[i] = H + count[i] + x - c[i];
+        count[i] += tot[i];
+      }
+      uint32_t* kq0 = keys + g * P;
+      uint32_t* kq1 = keys + (g + 8) * P;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t k0 = TILE_KEY(j, 0, h);
+          const uint32_t k1 = TILE_KEY(j, 1, h);
+          if (k0 < own[0]) kq0[pos[0]++] = k0;
+          if (k1 < own[1]) kq1[pos[1]++] = k1;
+        }
+      __syncwarp();
+    }
+#undef TILE_KEY
+  }
+
+  if (active) {
+    for (int slot = 0; slot < TQ; ++slot) {
+      const int src = 4 * (slot & 7);
+      const int cnt = __shfl_sync(FULL, slot < 8 ? count[0] : count[1], src);
+      uint32_t* kq = keys + slot * P;
+      if (cnt > 0) fold_half(kq, H, cnt, lane);
+      const int qi = warp * TQ + slot;
+      if (qi < q_here) {
+        // each compact key as its (distance, row) key
+        unsigned long long* dst =
+            out + ((size_t)(b0 + qi) * n_slices + slice) * k;
+        for (int j = lane; j < k; j += 32) {
+          const uint32_t c = kq[j];
+          const uint32_t dist = ((c & 0x7FFFFFFFu) >> rb) + ((c >> 31) << 22);
+          const uint32_t row = n_begin + (c & ((1u << rb) - 1u));
+          dst[j] = c == PAD ? PAD_KEY
+                            : (static_cast<unsigned long long>(dist) << 32) |
+                                  row;
+        }
+      }
+    }
+  }
+}
+
+// The one-table select's plan: P keys a query, a power of two with H = P
+// / 2 >= max(k, 64) (a tile's 64 rows fit after a fold); K-chunks of whole
+// k-steps (at most CHUNK_MAX words, or the whole row); a merge round folds
+// MERGE_KEYS / pow2(k) >= 2 lists into one, so k <= MAX_K. A compact key
+// holds the penalty bit, the distance (at most 255 d, below the penalty
+// 2**22) and the row within the slice, and a real one is never all ones.
+bool select_ok(int B, int N, int d, int k, int row_words, int warps, int P,
+               int chunk, int stages, int slice_rows) {
+  return B >= 1 && B <= 65535 && k >= 1 && k <= MAX_K && k <= N && d >= 1 &&
+         255LL * d < (1LL << 22) && slice_rows >= ROWS &&
+         slice_rows <= (1 << 24) &&
+         255LL * d + 1 < (1LL << (31 - row_bits(slice_rows))) &&
+         row_words >= d && (warps == 1 || warps == 2 || warps == 4) &&
+         P >= 2 * ROWS && (P & (P - 1)) == 0 && P / 2 >= k && chunk >= 8 &&
+         chunk % 8 == 0 && (chunk >= row_words || chunk <= CHUNK_MAX) &&
+         stages >= 2 && stages <= 4 && slice_rows >= ROWS &&
+         slice_rows % ROWS == 0 &&
+         select_smem(warps, P, row_words, chunk, stages) <= SMEM_MAX;
 }
 
 // What the grouping pass lays out for the select and merge passes.
@@ -1302,23 +1289,25 @@ shortlist_blocks_select(const int* __restrict__ qw,
   }
 }
 
-// One merge round of the block-table entry: (B, m_in, k) -> (B, m_out, k),
-// each output list the k smallest keys of `group` consecutive input lists,
-// over the n_in = ceil(lists_n[b] / div) lists query b has in this round:
-// a block past them returns, a block of one list copies it. The lists are
+// One merge round of either entry: (B, m_in, k) -> (B, m_out, k), each
+// output list the k smallest keys of `group` consecutive input lists, over
+// the n_in = ceil(lists_n[b] / div) lists query b has in this round (every
+// m_in list where lists_n is null, as for the one-table entry): a block
+// past them returns, a block of one list copies it. The lists are
 // sorted, so the block merges them pairwise in a tree: each list padded to
 // K2 = pow2(k) keys, the elementwise minimum of one with the other reversed
 // holds the K2 smallest of both as a bitonic sequence, which log2(K2)
 // stages sort.
 __global__ void __launch_bounds__(MERGE_THREADS)
-shortlist_blocks_merge(const unsigned long long* __restrict__ in,
+shortlist_merge(const unsigned long long* __restrict__ in,
                        unsigned long long* __restrict__ out,
                        const int* __restrict__ lists_n, int div, int m_in,
                        int m_out, int k, int K2, int group) {
   __shared__ unsigned long long keys[MERGE_KEYS];
   const int g = blockIdx.x;
   const int b = blockIdx.y;
-  const int n_in = (lists_n[b] + div - 1) / div;
+  const int n_in =
+      lists_n != nullptr ? (lists_n[b] + div - 1) / div : m_in;
   const int first = g * group;
   if (first >= n_in) return;
   const int here = min(group, n_in - first);
@@ -1414,10 +1403,10 @@ int blocks_select_any(int kind, int bits, const int* qw, const uint32_t* op,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Merge rounds of the block-table entry: each query's lists_n[b] (<= m)
+// Merge rounds: each query's lists_n[b] (<= m; m where lists_n is null)
 // sorted lists in `a` -> its k smallest in out (B, k), ping-ponging
 // between a and bscr.
-int blocks_merge_lists(unsigned long long* a, unsigned long long* bscr,
+int merge_lists(unsigned long long* a, unsigned long long* bscr,
                        unsigned long long* out, const int* lists_n, int B,
                        int m, int k, cudaStream_t st) {
   int K2 = 1;
@@ -1428,7 +1417,7 @@ int blocks_merge_lists(unsigned long long* a, unsigned long long* bscr,
   while (m > 1) {
     const int m_out = (m + group - 1) / group;
     unsigned long long* dst = m_out == 1 ? out : (src == a ? bscr : a);
-    shortlist_blocks_merge<<<dim3(m_out, B), MERGE_THREADS, 0, st>>>(
+    shortlist_merge<<<dim3(m_out, B), MERGE_THREADS, 0, st>>>(
         src, dst, lists_n, div, m, m_out, k, K2, group);
     const int err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
@@ -1448,38 +1437,53 @@ extern "C" const char* repro_error_string(int err) {
 // The wrapper sizes its merge scratch from this; it checks it at load time.
 extern "C" int shortlist_merge_keys() { return MERGE_KEYS; }
 
-// qw (B, d) int32 query words; op (N, row_words) 32-bit words of the
-// operand (kind 0 packed int32, 1 bf16 pairs, 2 f32); valid (N,) uint8 or
-// null. The plan (qb queries per block, slice_rows, window words, P keys
-// per query) comes from kernels/shortlist.py::shortlist_plan. scratch_a
-// holds B * slices * k keys, scratch_b B * ceil(slices / (MERGE_KEYS / k))
-// * k; out_keys (B, k). Returns cudaGetLastError() of the first failing
-// launch, else 0.
-extern "C" int shortlist_launch(const void* qw, const void* op, int kind,
-                                int bits, int row_words, const void* valid,
-                                int B, int N, int d, int k, int warps,
-                                int slice_rows, int window, int P,
-                                void* scratch_a, void* scratch_b,
-                                void* out_keys, void* stream) {
-  if (!plan_ok(k, N, warps, slice_rows, window, row_words, P) || k > N) {
+// qw (B, d) int32 query words; op (N, row_words) int32 words of 8-bit
+// packed fields; valid (N,) uint8 or null. The plan (warps of 16 queries a
+// select block, P keys a query, K-chunks of `chunk` words through a ring
+// of `stages`, slice_rows) comes from kernels/shortlist.py::shortlist_plan.
+// mask_scratch holds B * mw int32 words (mw: row_words rounded up to 8);
+// scratch_a B * slices * k keys, scratch_b B * ceil(slices / (MERGE_KEYS /
+// pow2(k))) * k; out_keys (B, k). Returns cudaGetLastError() of the first
+// failing launch, else 0.
+extern "C" int shortlist_launch(const void* qw, const void* op,
+                                int row_words, const void* valid, int B,
+                                int N, int d, int k, int warps, int P,
+                                int chunk, int stages, int slice_rows,
+                                void* mask_scratch, void* scratch_a,
+                                void* scratch_b, void* out_keys,
+                                void* stream) {
+  if (!select_ok(B, N, d, k, row_words, warps, P, chunk, stages,
+                 slice_rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mw = 8 * ((row_words + 7) / 8);
+  auto* masks = static_cast<uint32_t*>(mask_scratch);
+  const long long words = (long long)B * mw;
+  shortlist_masks<<<static_cast<unsigned>((words + 255) / 256), 256, 0,
+                    st>>>(static_cast<const int*>(qw), B, d, row_words, mw,
+                          masks);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int smem = select_smem(warps, P, row_words, chunk, stages);
+  err = static_cast<int>(cudaFuncSetAttribute(
+      shortlist_select, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  if (err != 0) return err;
+  const int qb = warps * TQ;
   const int n_slices = (N + slice_rows - 1) / slice_rows;
+  const long long blocks = (long long)((B + qb - 1) / qb) * n_slices;
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   auto* a = static_cast<unsigned long long*>(scratch_a);
   auto* out = static_cast<unsigned long long*>(out_keys);
-  const int qb = warps * QW;
-  const int err = select_any(
-      kind, bits, static_cast<const int*>(qw),
-      static_cast<const uint32_t*>(op), row_words,
-      static_cast<const uint8_t*>(valid), B, N, d, k, warps, P, slice_rows,
-      window, n_slices, (B + qb - 1) / qb, n_slices == 1 ? out : a, st);
+  shortlist_select<<<static_cast<unsigned>(blocks), warps * 32, smem, st>>>(
+      masks, mw, static_cast<const uint32_t*>(op), row_words,
+      static_cast<const uint8_t*>(valid), B, N, k, P, chunk, stages,
+      slice_rows, n_slices, n_slices == 1 ? out : a);
+  err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  return merge_lists(a, static_cast<unsigned long long*>(scratch_b), out, B,
-                     n_slices, k, st);
+  return merge_lists(a, static_cast<unsigned long long*>(scratch_b),
+                            out, nullptr, B, n_slices, k, st);
 }
-
-
 // The block-table entry. qw (B, d) int32 query words; op (M, rows,
 // row_words) 32-bit words (kinds as shortlist_launch); valid (M, rows)
 // uint8 (or bool) or null; base (M,) int64 key rows of each block's row 0
@@ -1554,7 +1558,7 @@ extern "C" int shortlist_blocks_launch(
       stages, work, split, static_cast<int>(lists), u_max,
       lists == 1 ? out : a, u, st);
   if (err != 0) return err;
-  return blocks_merge_lists(a, static_cast<unsigned long long*>(scratch_b),
+  return merge_lists(a, static_cast<unsigned long long*>(scratch_b),
                             out, u.lists_n, B, static_cast<int>(lists), k,
                             st);
 }

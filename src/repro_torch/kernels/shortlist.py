@@ -11,14 +11,18 @@ one LUT column per dimension. The support operand is either the write-time
 projection (N, 4d) bf16 / f32, or its bit-packed form (N, ceil(4d/wpi))
 int32 from `ops.pack_projection`, whose fields are `pack_bits` wide.
 
-The CUDA kernel is `csrc/shortlist.cu` (a warp takes 4 queries over a
-slice of staged rows, sums each row's fields as packed dot products with
-the query's one-hot mask, and keeps a running top-k per query that sorts
-only the rows below its k-th key; merge rounds fold the slices), cut by
-`shortlist_plan`; `lut_shortlist_plain` is its plain version. Both select
-on one int64 key per candidate, uint64(dist) << 32 | row, which is exact
-because dist + penalty < 2**24, so the result never depends on how a sort
-orders equal values.
+The CUDA kernel is `csrc/shortlist.cu`. For 8-bit packed fields (every
+MTMC and CUB store) its one-table select runs the one-hot products on the
+tensor cores: a block of up to 64 queries (16 a warp) streams a slice of
+rows through a ring of K-chunks beside the queries' masks, and each query
+keeps a running top-k that sorts only the rows below its k-th key; merge
+rounds fold the slices. `shortlist_plan` cuts it. Other operand kinds
+take the block-table entry as one block of N rows that every query
+visits. `lut_shortlist_plain` is the plain version. Every route selects
+on one int64 key per candidate, uint64(dist) << 32 | row (the select
+packs it in 32 bits while it works), which is exact because dist +
+penalty < 2**24, so the result never depends on how a sort orders equal
+values.
 
 `lut_shortlist_blocks` is the block-table entry of the same source, with
 kernels of its own: every query selects over its own list of row blocks
@@ -46,8 +50,7 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"shortlist_launch": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _P, _P, _P, _P],
+_SIGNATURES = {"shortlist_launch": [_P, _P, _I, _P] + [_I] * 9 + [_P] * 5,
                "shortlist_blocks_launch": [_P, _P, _I, _I, _I, _P, _P, _P]
                                           + [_I] * 14 + [_P] * 6,
                "shortlist_merge_keys": []}
@@ -67,93 +70,134 @@ FUSED_TAG = "shortlist_fused"
 _KIND_PACKED, _KIND_BF16, _KIND_F32 = 0, 1, 2
 _MERGE_KEYS = 2048      # keys per merge block (csrc/shortlist.cu MERGE_KEYS)
 MAX_K = _MERGE_KEYS // 2  # largest k the kernel takes
-_ROWS = 64              # rows per staged tile: 2 per lane
-_QW = 4                 # queries per warp
-# the select pass's static shared memory (csrc/shortlist.cu
-# SELECT_STATIC_SMEM: a query and a list a slot), and what one H100 block
-# may use beside it
-_SELECT_STATIC = 4 * _QW * 12
-_SMEM_MAX = 232448 - _SELECT_STATIC
+_ROWS = 64              # rows per staged tile
+_QW = 4                 # pairs per warp of the block-table select
 _SM_SMEM = 233472       # shared memory of one H100 SM
 _SMS = 132              # SMs of an H100
+_BLOCK_SMEM = 232448    # shared memory one H100 block may use
+# the one-table select (csrc/shortlist.cu shortlist_select): queries a warp
+# (the MMA's M), no static shared memory, the widest row (words) staged
+# whole with the block's masks resident, and the K-chunk words and ring
+# depth of wider rows (launch/time_blocks.py --variants times them)
+_TQ = 16
+_SELECT_STATIC = 0
+_SMEM_MAX = _BLOCK_SMEM - _SELECT_STATIC
+_WHOLE_MAX = 64
+_ONE_CHUNK = 32
+_ONE_STAGES = 2
+# a compact key of the one-table select: the penalty bit, the distance
+# and the row within its slice in 32 bits; the penalty stays above any
+# distance of 8-bit fields while 255 d < 2**22
+_KEY_BITS = 31
+_PENALTY_BITS = 22
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _stage_stride(window: int) -> int:
-    """Words per staged row (csrc/shortlist.cu stage_stride): a multiple of
-    4 with an odd quarter, so 16-byte loads of 32 rows hit every bank
-    group."""
-    return 4 * (_cdiv(window, 4) | 1)
+def _keys(k: int) -> int:
+    """Keys a list of either select: sorted H = P / 2 >= max(k, 64) and as
+    many candidate slots, P a power of two."""
+    return max(2 * _ROWS, 2 * (1 << (k - 1).bit_length()))
 
 
-def _select_smem(warps: int, keys: int, window: int) -> int:
-    """Dynamic shared memory of one select block (csrc/shortlist.cu
-    select_smem): per query its keys and mask words, and two staged
-    tiles."""
-    return (warps * _QW * (keys * 8 + 4 * _cdiv(window, 4) * 4)
-            + 2 * _ROWS * _stage_stride(window) * 4)
+def _select_smem(warps: int, keys: int, row_words: int, chunk: int,
+                 stages: int) -> int:
+    """Dynamic shared memory of one one-table select block
+    (csrc/shortlist.cu select_smem): `keys` 32-bit keys a query, a ring of
+    `stages` slots of 64 staged rows (with the block's masks of the same
+    words for K-chunked rows), and whole rows' masks once beside the
+    ring."""
+    qb = _TQ * warps
+    whole = chunk >= row_words
+    return (qb * keys * 4 + 4 * _blocks_stride(chunk)
+            * (stages * (_ROWS + (0 if whole else qb)) + (qb if whole else 0)))
 
 
 @dataclass(frozen=True)
 class ShortlistPlan:
-    """How csrc/shortlist.cu cuts one call: `warps` per select block (4
-    queries each), `slice_rows` rows per block in `slices` slices, rows
-    staged `window` words at a time, `keys` = top-k + candidate slots per
-    query, `smem` bytes of dynamic shared memory per select block."""
+    """How csrc/shortlist.cu's one-table select cuts one call (8-bit
+    packed fields): blocks of `warps` warps of 16 queries, `keys` = sorted
+    top-k + candidate slots a query (32-bit compact keys), rows staged 64
+    at a time in K-chunks of `chunk` words (the whole row, padded to 8
+    words, where it fits _WHOLE_MAX: the masks then resident) through a
+    ring of `stages`, `smem` bytes of dynamic shared memory a block and
+    `ctas_per_sm` blocks an SM at it, `slice_rows` rows a block in
+    `slices` slices, and `mask_words` words of each query's mask in the
+    scratch."""
     warps: int
+    keys: int
+    chunk: int
+    stages: int
     slice_rows: int
     slices: int
-    window: int
-    keys: int
     smem: int
+    ctas_per_sm: int
+    mask_words: int
+
+    @property
+    def queries(self) -> int:
+        """Queries a select block."""
+        return _TQ * self.warps
 
     def scratch(self, b: int, k: int) -> tuple[int, int]:
-        """Keys of the two merge scratch buffers (ping and pong)."""
+        """Keys of the two merge scratch buffers (ping and pong): a merge
+        block takes MERGE_KEYS / pow2(k) lists."""
+        group = _MERGE_KEYS // (1 << (k - 1).bit_length())
         return (b * self.slices * k,
-                b * max(1, _cdiv(self.slices, _MERGE_KEYS // k)) * k)
+                b * max(1, _cdiv(self.slices, group)) * k)
 
 
-def _select_block(queries: int, row_words: int, k: int
-                  ) -> tuple[int, int, int, int]:
-    """(warps, window, keys, smem) of a select block: up to 4 warps of 4
-    queries while the block's shared memory (top-k and candidates, mask
-    words, two staged tiles) fits; whole rows staged when they fit, else
-    windows of words (a multiple of 4)."""
-    keys = max(128, 2 * (1 << (k - 1).bit_length()))
-    for warps in range(min(4, _cdiv(queries, _QW)), 0, -1):
-        window = row_words
-        while window > 4 and _select_smem(warps, keys, window) > _SMEM_MAX:
-            window = 4 * (window // 8)
-        if _select_smem(warps, keys, window) <= _SMEM_MAX:
-            break
-    else:
-        raise ValueError(f"lut_shortlist: k={k} leaves no shared memory to "
-                         f"stage rows")
-    return warps, window, keys, _select_smem(warps, keys, window)
-
-
-def _slices(rows: int, k: int, warps: int, smem: int, tiles: int) -> int:
-    """Rows a slice, so that `tiles` query tiles x the slices fill the SMs
-    once at the occupancy that shared memory allows (a block's dynamic and
-    static shared memory and the runtime's 1 KB), each slice at least k
-    rows (and one 64-row tile)."""
-    per_sm = min(2048 // (32 * warps),
-                 _SM_SMEM // (smem + _SELECT_STATIC + 1024))
-    slices = max(1, min(_cdiv(rows, max(_ROWS, k)), per_sm * _SMS // tiles))
-    return _ROWS * _cdiv(_cdiv(rows, slices), _ROWS)
+def _max_slice_rows(row_words: int) -> int:
+    """The most rows a slice may have: a compact key holds the penalty
+    bit, a distance of up to 255 d (d <= row_words for 8-bit fields) and
+    the row within the slice, and a real key is never all ones."""
+    return 1 << (_KEY_BITS - (255 * row_words + 1).bit_length())
 
 
 def shortlist_plan(b: int, n: int, row_words: int, k: int) -> ShortlistPlan:
-    """The select pass's cut for B queries over N rows of `row_words`
-    32-bit words (`_select_block`, `_slices`)."""
-    warps, window, keys, smem = _select_block(b, row_words, k)
-    slice_rows = _slices(n, k, warps, smem, _cdiv(b, _QW * warps))
-    return ShortlistPlan(warps=warps, slice_rows=slice_rows,
-                         slices=_cdiv(n, slice_rows), window=window,
-                         keys=keys, smem=smem)
+    """The one-table select's cut for B queries over N rows of `row_words`
+    words of 8-bit fields (255 row_words < 2**22). Up to 4 warps (no more
+    than the queries fill) while the block's shared memory fits; then
+    slices of whole 64-row tiles, each at least k rows and at most
+    `_max_slice_rows`, so that the query tiles x the slices fill the 132
+    SMs once at the occupancy shared memory allows (a block's shared
+    memory and the runtime's 1 KB)."""
+    if 255 * row_words >= 1 << _PENALTY_BITS:
+        raise ValueError(f"lut_shortlist: distances over {row_words} words "
+                         f"of 8-bit fields reach the mask penalty")
+    keys = _keys(k)
+    whole = row_words <= _WHOLE_MAX
+    chunk = 8 * _cdiv(row_words, 8) if whole else _ONE_CHUNK
+    stages = _ONE_STAGES
+    most = min(4, _cdiv(b, _TQ))
+    for warps in (4, 2, 1):
+        smem = _select_smem(warps, keys, row_words, chunk, stages)
+        if warps <= most and smem <= _SMEM_MAX:
+            break
+    else:
+        raise ValueError(f"lut_shortlist: k={k} with {row_words}-word rows "
+                         f"leaves no shared memory for one select block")
+    per_sm = min(2048 // (32 * warps),
+                 _SM_SMEM // (smem + _SELECT_STATIC + 1024))
+    tiles = _cdiv(b, _TQ * warps)
+    slices = max(1, min(_cdiv(n, max(_ROWS, k)), per_sm * _SMS // tiles),
+                 _cdiv(n, _max_slice_rows(row_words)))
+    slice_rows = _ROWS * _cdiv(_cdiv(n, slices), _ROWS)
+    return ShortlistPlan(warps=warps, keys=keys, chunk=chunk, stages=stages,
+                         slice_rows=slice_rows,
+                         slices=_cdiv(n, slice_rows), smem=smem,
+                         ctas_per_sm=per_sm,
+                         mask_words=8 * _cdiv(row_words, 8))
+
+
+def tensor_core_route(kind: int, bits: int, row_words: int) -> bool:
+    """Whether a one-table call takes the tensor-core select (8-bit packed
+    fields whose distances stay below the penalty, 255 row_words < 2**22)
+    rather than the block-table entry."""
+    return (kind == _KIND_PACKED and bits == 8
+            and 255 * row_words < 1 << _PENALTY_BITS)
 
 
 # the block-table entry (csrc/shortlist.cu): pairs a unit at most (the
@@ -164,7 +208,7 @@ _DSTRIDE = 72
 _SLOTS = 32
 _CHUNK_MAX = 64
 _BLOCKS_STATIC = _BQ * (4 + 8 + 4 + 4)
-_BLOCKS_SMEM_MAX = 232448 - _BLOCKS_STATIC
+_BLOCKS_SMEM_MAX = _BLOCK_SMEM - _BLOCKS_STATIC
 # the units a mix is spread over, in waves of the SMs at the plan's
 # occupancy: whole rows half a wave, so a query has fewer, longer lists
 # and every unit runs at once; rows staged in K-chunks (wider than
@@ -283,7 +327,7 @@ def shortlist_blocks_plan(b: int, p: int, m: int, rows: int, row_words: int,
     any mix stay below
     floor(rows (row cost x tiles + 2 B p) / work) + tiles."""
     pairs = b * p
-    keys = max(128, 2 * (1 << (k - 1).bit_length()))
+    keys = _keys(k)
     chunk = min(8 * _cdiv(row_words, 8), _CHUNK_MAX)
     stages = 2 if chunk >= row_words else _BLOCKS_STAGES_CHUNKED
     most = 4 if pairs > 2 * _QW else (2 if pairs > _QW else 1)
@@ -455,7 +499,8 @@ def lut_shortlist(q_words: torch.Tensor, s_proj: torch.Tensor | None,
 
     def shapes():
         return dict(b=B, n=n, d=d, k=k, masked=valid is not None,
-                    row_words=_row_words(d, s_proj, packed))
+                    row_words=_row_words(d, s_proj, packed),
+                    bits=_field_bits(s_proj, pack_bits))
     with _build.profiler_range(FUSED_TAG):
         if _build.off_card(q_words, operand):
             return _build.plain_route("shortlist", shapes, lambda: (
@@ -472,6 +517,19 @@ def _row_words(d: int, s_proj, packed) -> int:
     return d * s_proj.element_size()
 
 
+def _field_bits(s_proj, pack_bits) -> int:
+    """Bits of one LUT entry of the operand: its packed fields', else its
+    dtype's."""
+    return pack_bits if s_proj is None else 8 * s_proj.element_size()
+
+
+def _valid_bytes(valid: torch.Tensor) -> torch.Tensor:
+    """A row mask as the kernels read it: one byte a row, a bool mask
+    viewed as bytes without a copy."""
+    return (valid.contiguous().view(torch.uint8) if valid.dtype == torch.bool
+            else valid.to(torch.uint8).contiguous())
+
+
 def _shortlist_cuda(q_words, s_proj, k, valid, packed, pack_bits, n,
                     shapes):
     if q_words.device.type != "cuda":
@@ -484,29 +542,40 @@ def _shortlist_cuda(q_words, s_proj, k, valid, packed, pack_bits, n,
     if B > 65535:
         raise ValueError(f"lut_shortlist: B={B} exceeds the kernel's 65535 "
                          f"queries")
+    dev = q_words.device
     q = q_words.to(torch.int32).contiguous()
     kind, bits, words = _operand_words(s_proj, packed, pack_bits)
-    tensors = [q, words]
+    words = words.contiguous()
+    row_words = words.shape[1]
+    valid_u8 = None
     if valid is not None:
         if valid.shape != (n,):
             raise ValueError(f"lut_shortlist: valid {tuple(valid.shape)} "
                              f"for N={n}")
-        valid_u8 = valid.to(torch.uint8).contiguous()
-        tensors.append(valid_u8)
-    _build.require_cuda("lut_shortlist", *tensors)
-    plan = shortlist_plan(B, n, words.shape[1], k)
-    scratch_a, scratch_b, keys = _scratch_keys(q.device, plan.scratch(B, k),
-                                               B, k)
+        valid_u8 = _valid_bytes(valid)
+    _build.require_cuda("lut_shortlist", q, words,
+                        *([] if valid_u8 is None else [valid_u8]))
+    if not tensor_core_route(kind, bits, row_words):
+        # one block of N rows that every query visits: the same keys
+        keys = _blocks_keys(
+            q, words.reshape(1, n, row_words), kind, bits,
+            None if valid_u8 is None else valid_u8.reshape(1, n),
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.zeros(B, 1, dtype=torch.int64, device=dev), k)
+        _build.count_launch("shortlist", shapes)
+        return split_keys(keys)
+    plan = shortlist_plan(B, n, row_words, k)
+    masks = torch.empty(B * plan.mask_words, dtype=torch.int32, device=dev)
+    scratch_a, scratch_b, keys = _scratch_keys(dev, plan.scratch(B, k), B, k)
     lib = _load()
+    ints = (B, n, d, k, plan.warps, plan.keys, plan.chunk, plan.stages,
+            plan.slice_rows)
     err = lib.shortlist_launch(
-        _build.ptr(q), _build.ptr(words), ctypes.c_int(kind),
-        ctypes.c_int(bits), ctypes.c_int(words.shape[1]),
-        _build.ptr(valid_u8) if valid is not None else ctypes.c_void_p(0),
-        ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(d), ctypes.c_int(k),
-        ctypes.c_int(plan.warps), ctypes.c_int(plan.slice_rows),
-        ctypes.c_int(plan.window), ctypes.c_int(plan.keys),
+        _build.ptr(q), _build.ptr(words), ctypes.c_int(row_words),
+        _build.ptr(valid_u8) if valid_u8 is not None else ctypes.c_void_p(0),
+        *(ctypes.c_int(v) for v in ints), _build.ptr(masks),
         _build.ptr(scratch_a), _build.ptr(scratch_b), _build.ptr(keys),
-        _build.stream_ptr(q.device))
+        _build.stream_ptr(dev))
     _build.check(lib, err, "shortlist_launch")
     _build.count_launch("shortlist", shapes)
     return split_keys(keys)
@@ -609,6 +678,7 @@ def lut_shortlist_blocks(q_words: torch.Tensor, s_proj: torch.Tensor | None,
         return dict(b=ids.shape[0], d=q_words.shape[1], p=ids.shape[1], m=m,
                     rows=rows, k=k, row_words=_row_words(
                         q_words.shape[1], s_proj, packed),
+                    bits=_field_bits(s_proj, pack_bits),
                     visited=None if ids.device.type == "meta"
                     else int(torch.unique(inside).numel()))
     with _build.profiler_range(FUSED_TAG):
@@ -638,16 +708,27 @@ def _blocks_cuda(q_words, s_proj, k, base, ids, valid, packed, pack_bits, m,
     dev = q_words.device
     q = q_words.to(torch.int32).contiguous()
     kind, bits, words = _operand_words(s_proj, packed, pack_bits)
-    words = words.contiguous()
-    row_words = words.shape[2]
     # ids are read as int64 and a bool mask as bytes: no conversion where
     # they come so
-    tensors = [q, words, base.to(device=dev, dtype=torch.int64).contiguous(),
-               ids.to(device=dev, dtype=torch.int64).contiguous()]
-    if valid is not None:
-        tensors.append(valid.contiguous().view(torch.uint8)
-                       if valid.dtype == torch.bool
-                       else valid.to(torch.uint8).contiguous())
+    keys = _blocks_keys(
+        q, words.contiguous(), kind, bits,
+        None if valid is None else _valid_bytes(valid),
+        base.to(device=dev, dtype=torch.int64).contiguous(),
+        ids.to(device=dev, dtype=torch.int64).contiguous(), k)
+    _build.count_launch("shortlist_blocks", shapes)
+    return split_keys(keys)
+
+
+def _blocks_keys(q, words, kind, bits, valid_u8, base, ids, k):
+    """The block-table entry's (B, k) keys: q (B, d) int32, words (M,
+    rows, row_words) 32-bit words of the operand, valid_u8 (M, rows) or
+    None, base (M,) and ids (B, p) int64, all contiguous on one card."""
+    B, d = q.shape
+    p = ids.shape[1]
+    m, rows, row_words = words.shape
+    dev = q.device
+    tensors = [q, words, base, ids] + ([] if valid_u8 is None
+                                       else [valid_u8])
     _build.require_cuda("lut_shortlist_blocks", *tensors)
     plan = shortlist_blocks_plan(B, p, m, rows, row_words, k,
                                  kind == _KIND_PACKED and bits == 8)
@@ -661,11 +742,10 @@ def _blocks_cuda(q_words, s_proj, k, base, ids, valid, packed, pack_bits, m,
     err = lib.shortlist_blocks_launch(
         _build.ptr(q), _build.ptr(words), ctypes.c_int(kind),
         ctypes.c_int(bits), ctypes.c_int(row_words),
-        _build.ptr(tensors[4]) if valid is not None else ctypes.c_void_p(0),
-        _build.ptr(tensors[2]), _build.ptr(tensors[3]),
+        _build.ptr(valid_u8) if valid_u8 is not None else ctypes.c_void_p(0),
+        _build.ptr(base), _build.ptr(ids),
         *(ctypes.c_int(v) for v in ints),
         _build.ptr(group), _build.ptr(bounds), _build.ptr(scratch_a),
         _build.ptr(scratch_b), _build.ptr(keys), _build.stream_ptr(dev))
     _build.check(lib, err, "shortlist_blocks_launch")
-    _build.count_launch("shortlist_blocks", shapes)
-    return split_keys(keys)
+    return keys

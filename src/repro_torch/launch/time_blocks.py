@@ -15,16 +15,20 @@ entry on the inputs that chip_smoke.py's searches give it:
   tenants      the tenant stack and its 256 queries of mixed tenants
   cub_nprobe8  the routed store at the CUB width (d = 480), nprobe 8
 
-and the one-table entry (`lut_shortlist`) on the two unsharded stores
-(its CUDA-event ms, the wrapper's host work included, and its
-torch.profiler device ms).
+and the one-table entry (`lut_shortlist`) on the two unsharded stores,
+on their 8-bit packed fields (`shortlist`, `cub_shortlist`) and on their
+bf16 projections (`shortlist_bf16`, `cub_shortlist_bf16`; this tree routes
+those through the block-table entry): its CUDA-event ms, the wrapper's
+host work included, and its torch.profiler device ms.
 Each block row holds the entry's result against its plain version bit for
 bit, and gives its CUDA-event ms and its torch.profiler device ms by pass
 (group, select, merge). With --variants (this checkout's package only)
 every block row the constant acts on is timed again under each value in
-VARIANTS of the host plan's tuning constants; a value whose select block
-the shared-memory model (analysis/vmem.py) puts over the H100's budget
-is rejected before it is timed. One JSON object a line; the last line
+VARIANTS of the host plan's tuning constants, and the one-table entry at
+d = 480 under each value in ONE_TABLE_VARIANTS (the K-chunk words and the
+ring's depth of its tensor-core select); a value whose select block the
+shared-memory model (analysis/vmem.py) puts over the H100's budget is
+rejected before it is timed. One JSON object a line; the last line
 gives the card's name and power limit.
 """
 
@@ -48,6 +52,10 @@ VARIANTS = {
     "_BLOCKS_STAGES_CHUNKED": (2, 3, 4),
 }
 CHUNKED = ("_BLOCKS_WAVES_CHUNKED", "_CHUNK_MAX", "_BLOCKS_STAGES_CHUNKED")
+# the one-table select's ring for K-chunked rows: words a chunk (a multiple
+# of 8) and slots
+ONE_TABLE_VARIANTS = {"_ONE_CHUNK": (24, 32, 40, 48),
+                      "_ONE_STAGES": (2, 3)}
 
 
 def main() -> int:
@@ -79,8 +87,9 @@ def main() -> int:
 
     t = smoke.timers(torch)
     _build.build()
-    calls, out = {}, {"src": str(args.src), "one_table_ms": {},
-                      "one_table_device_ms": {}}
+    calls, one_calls = {}, {}
+    out = {"src": str(args.src), "one_table_ms": {},
+           "one_table_device_ms": {}}
     cub = get_config()
     for prefix, seed, d, cl in (("", args.seed, 48, 32),
                                 ("cub_", args.seed + 17, cub.embed_dim,
@@ -94,20 +103,29 @@ def main() -> int:
             x, torch.from_numpy(labels).to(t.dev))
         q = torch.from_numpy(queries).to(t.dev)
         qw = store.quantize_queries(q)
-        def one_table():
-            return shortlist.lut_shortlist(
-                qw, None, 64, valid=store.valid, packed=store.proj_packed,
-                pack_bits=8)
-        out["one_table_ms"][f"{prefix}shortlist"] = t.event_ms(one_table)
-        out["one_table_device_ms"][f"{prefix}shortlist"] = t.device_ms(
-            one_table, "shortlist_")
+
+        for name, sp, kw in (
+                (f"{prefix}shortlist", None,
+                 {"packed": store.proj_packed, "pack_bits": 8}),
+                (f"{prefix}shortlist_bf16", store.proj, {})):
+            def fn(qw=qw, sp=sp, kw=kw, valid=store.valid):
+                return shortlist.lut_shortlist(qw, sp, 64, valid=valid, **kw)
+            got = fn()
+            want = shortlist.lut_shortlist_plain(qw, sp, 64,
+                                                 valid=store.valid, **kw)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                smoke.fail(f"{name}: the one-table entry differs from plain")
+            one_calls[name] = fn
+            out["one_table_ms"][name] = t.event_ms(fn)
+            out["one_table_device_ms"][name] = t.device_ms(fn, "shortlist_")
         rstore = store.shard(n_shards=smoke.ROUTED_SHARDS)
         eng = RetrievalEngine(cfg.search)
         for nprobe in (8,) if prefix else (8, 1):
             req = SearchRequest(mode="ideal", k=64, nprobe=nprobe)
             calls[f"{prefix}nprobe{nprobe}"] = smoke.capture_blocks(
                 lambda: eng.search(rstore, q, req))
-        del store, x
+        del x
     tstore, queries, tids, *_, search, _, _ = smoke.tenant_stack(t, args)
     eng = RetrievalEngine(search)
     calls["tenants"] = smoke.capture_blocks(
@@ -171,6 +189,27 @@ def main() -> int:
                            else {n: measure(n) for n in names})
                 except ValueError as e:     # the plan refuses the value
                     res = {"refused": str(e)}
+                finally:
+                    setattr(shortlist, const, kept)
+                out["variants"][f"{const}={v}"] = res
+                t.log(json.dumps({"variant": f"{const}={v}", **res}))
+        from repro_torch.analysis import vmem
+        for const, values in ONE_TABLE_VARIANTS.items():
+            kept = getattr(shortlist, const)
+            for v in values:
+                setattr(shortlist, const, v)
+                try:
+                    check = vmem.validate_config(vmem.shortlist_smem(
+                        256, args.capacity, cub.embed_dim, 64))
+                    fn = one_calls["cub_shortlist"]
+                    res = ({"rejected": check.reason} if not check.ok else
+                           {"cub_shortlist": {
+                               "ms": t.event_ms(fn),
+                               "device_ms": t.device_ms(fn, "shortlist_"),
+                               "plan": smoke.plan_fields(
+                                   shortlist.shortlist_plan(
+                                       256, args.capacity, cub.embed_dim,
+                                       64))}})
                 finally:
                     setattr(shortlist, const, kept)
                 out["variants"][f"{const}={v}"] = res

@@ -27,9 +27,9 @@ torch.set_num_threads(1)
 # (kernel, shapes, PERF.md's bound, its unit): the kernel table's rows
 BOUNDS = {
     "shortlist": ("shortlist", dict(b=256, n=65536, d=48, k=64,
-                                    row_words=48), "12.0", "us"),
+                                    row_words=48), "3.85", "us"),
     "shortlist_cub": ("shortlist", dict(b=256, n=65536, d=480, k=64,
-                                        row_words=480), "120", "us"),
+                                        row_words=480), "37.8", "us"),
     "shortlist_blocks": ("shortlist_blocks", dict(
         b=256, d=48, p=8, m=64, rows=1024, row_words=48, k=64,
         visited=64), "3.9", "us"),
@@ -74,8 +74,17 @@ def test_kernel_bounds_equal_the_kernel_table(row):
 def test_kernel_cost_formulas():
     c = C.kernel_cost("shortlist", b=2, n=10, d=3, k=4, row_words=3,
                       masked=False)
-    assert c["ops"] == 2 * 10 * 3
+    # the one-hot product: 2 b n 4d multiply-adds, int8 tensor cores for
+    # packed fields of 8 bits or fewer, else the bf16 rate
+    assert c["ops"] == 2 * 2 * 10 * 4 * 3
+    assert c["rate"] == C.INT8_TENSOR_OPS_PER_S == 1979e12
+    assert C.kernel_cost("shortlist", b=2, n=10, d=3, k=4, row_words=6,
+                         bits=16)["rate"] == C.BF16_TENSOR_OPS_PER_S
     assert c["bytes"] == 10 * 3 * 4 + 2 * 3 * 4 + 2 * 4 * 12
+    blocks = C.kernel_cost("shortlist_blocks", b=2, d=3, p=2, m=4, rows=10,
+                           row_words=3, k=4, bits=4)
+    assert blocks["ops"] == 2 * 2 * 2 * 10 * 4 * 3
+    assert blocks["rate"] == C.INT8_TENSOR_OPS_PER_S
     assert C.kernel_cost("mcam_dist", b=2, n=3, k=8)["rate"] == \
         C.BF16_TENSOR_OPS_PER_S
     assert C.kernel_cost("mcam_dist", b=2, n=3, k=8, elem=4)["rate"] == \

@@ -94,9 +94,10 @@ def test_shortlist_kernel_matches_plain(dev, operand, n, d, ks):
 @pytest.mark.parametrize("operand", ["packed8", "packed4", "bf16"])
 def test_shortlist_kernel_at_the_cub_width(dev, operand):
     """d = 480 (4d = 1,920 LUT columns), B = 256, k = 64 and 1024: 8-bit
-    fields (MTMC CL = 25, B4E) give 480-word rows, which the select pass
-    stages in windows of words; 4-bit fields (SRE) 240-word rows, staged
-    whole; bf16 960 words."""
+    fields (MTMC CL = 25, B4E) give 480-word rows, which the tensor-core
+    select streams in K-chunks beside the masks at 2 or more blocks an SM;
+    4-bit fields (SRE) 240-word rows and bf16 960 words take the
+    block-table route."""
     bits, dtype, _ = OPERANDS[operand]
     vmax = 12 if bits == 4 else 75
     n, d = 5000, 480
@@ -110,9 +111,9 @@ def test_shortlist_kernel_at_the_cub_width(dev, operand):
         sp = None
     else:
         kw, sp = {}, torch.as_tensor(proj).to(dtype).to(dev)
-    words = kw["packed"].shape[1] if bits else 2 * d
-    plan = shortlist.shortlist_plan(256, n, words, 64)
-    assert (plan.window < words) == (operand != "packed4")
+    if operand == "packed8":
+        plan = shortlist.shortlist_plan(256, n, kw["packed"].shape[1], 64)
+        assert plan.chunk < kw["packed"].shape[1] and plan.ctas_per_sm >= 2
     for k in (64, 1024):
         got = shortlist.lut_shortlist(q.to(dev), sp, k, valid=valid.to(dev),
                                       **kw)
@@ -158,6 +159,57 @@ def test_shortlist_kernel_on_adversarial_orders(dev, order, b, n, k):
                                   pack_bits=16)
     want = shortlist.lut_shortlist_plain(q, None, k, valid=valid,
                                          packed=packed, pack_bits=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# the tensor-core select's shapes (d, B, N): B no multiple of its 64-query
+# tile, N no multiple of its 64-row tile; rows whole (d = 48), in K-chunks
+# (d = 480), and of a width no multiple of 4 words (copied a word at a
+# time) and of 8 (the last k-step reads past the row, where the masks are
+# 0)
+TC_SHAPES = {"d48": (48, 200, 5017), "d480": (480, 100, 4099),
+             "d13": (13, 70, 1100)}
+
+
+def uniform8(per_row: np.ndarray, d: int) -> np.ndarray:
+    """(N, 4d) 8-bit LUT entries whose every column of a dimension holds
+    one value, so that a row's distance is per_row (<= 255 d) whatever the
+    query: per_row spread over the dimensions, each within a byte."""
+    per_dim = (per_row[:, None] // d
+               + (np.arange(d)[None] < per_row[:, None] % d))
+    return np.repeat(per_dim, 4, axis=1)
+
+
+@pytest.mark.parametrize("k", (1, 64, 1024))
+@pytest.mark.parametrize("store", ["random", "descending", "ties",
+                                   "masked"])
+@pytest.mark.parametrize("shape", list(TC_SHAPES))
+def test_shortlist_tensor_core_select_matches_plain(dev, shape, store, k):
+    """8-bit packed fields, the main path's operand: the one-table select
+    on the tensor cores against the plain version bit for bit, at every k
+    (k = 1,024: one warp of 16 queries a block), on random rows with a
+    fifth masked, rows in
+    descending distance (every row a candidate; ties in groups at d = 48,
+    where 255 d < N), all rows tied, and all rows masked."""
+    d, b, n = TC_SHAPES[shape]
+    rng = np.random.default_rng(d + b + n + k)
+    if store in ("random", "masked"):
+        proj = rng.integers(0, 256, size=(n, 4 * d))
+    else:
+        per_row = (np.arange(n)[::-1] * 255 * d // n if store == "descending"
+                   else np.full(n, 5 * d))
+        proj = uniform8(per_row, d)
+    valid = {"random": rng.random(n) > 0.2, "masked": np.zeros(n, bool)
+             }.get(store, np.ones(n, bool))
+    q = torch.as_tensor(rng.integers(0, 4, size=(b, d)).astype(np.int32),
+                        device=dev)
+    kw = {"valid": torch.as_tensor(valid, device=dev),
+          "packed": torch.as_tensor(pack_words(proj, 8), device=dev),
+          "pack_bits": 8}
+    assert kw["packed"].shape[1] == d
+    got = shortlist.lut_shortlist(q, None, k, **kw)
+    want = shortlist.lut_shortlist_plain(q, None, k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 

@@ -145,40 +145,47 @@ def test_lut_shortlist_rejects_what_it_does_not_take():
          "windowed"])
 def test_shortlist_plan_fits_a_block_and_covers_every_row(b, n, row_words,
                                                           k):
-    """The select pass's cut (host side of csrc/shortlist.cu): shared
-    memory within one block's 227 KB, slices of whole 64-row tiles that
-    cover N exactly once, at least k rows a slice, P >= k + 32 keys a
-    query, a window no wider than a row (a multiple of 4 words when it is
-    narrower), and merge scratch for every slice's list."""
+    """The one-table select's cut (host side of csrc/shortlist.cu, 8-bit
+    fields on the tensor cores): shared memory within one block's 227 KB
+    (16 queries a warp, P 32-bit keys each, the ring of staged rows and
+    the masks), slices of whole 64-row tiles that cover N exactly once, at
+    least k rows a slice where a compact key's row bits allow it (at most
+    2**(31 - bits(255 row words + 1)) rows), P >= 2 max(k, 64) keys a
+    query, whole rows of up to 64 words staged with the masks resident and
+    wider rows in K-chunks of whole k-steps, and merge scratch for every
+    slice's list."""
     plan = shortlist.shortlist_plan(b, n, row_words, k)
-    stride = 4 * (-(-plan.window // 4) | 1)
-    assert stride % 8 == 4 and stride >= plan.window
-    assert plan.smem == (plan.warps * 4 * (plan.keys * 8
-                                           + 4 * -(-plan.window // 4) * 4)
-                         + 2 * 64 * stride * 4) <= 232448
-    assert 1 <= plan.warps <= min(4, -(-b // 4))
+    whole = row_words <= 64
+    assert plan.chunk == (8 * -(-row_words // 8) if whole
+                          else shortlist._ONE_CHUNK)
+    assert plan.chunk % 8 == 0 and plan.stages == shortlist._ONE_STAGES
+    stride = plan.chunk + 4
+    qb = 16 * plan.warps
+    assert plan.queries == qb
+    assert plan.smem == (qb * plan.keys * 4 + 4 * stride * (
+        plan.stages * (64 + (0 if whole else qb)) + (qb if whole else 0))
+    ) <= 232448
+    assert plan.warps in (1, 2, 4) and plan.warps <= max(1, -(-b // 16))
+    assert plan.mask_words == 8 * -(-row_words // 8)
     assert plan.slice_rows % 64 == 0
     assert (plan.slices - 1) * plan.slice_rows < n <= \
         plan.slices * plan.slice_rows
-    assert plan.slices == 1 or plan.slice_rows >= k
-    assert plan.keys >= k + 32 and plan.keys & (plan.keys - 1) == 0
-    assert plan.window == row_words or (plan.window % 4 == 0
-                                        and plan.window < row_words)
-    full_rows = (plan.warps * 4 * (plan.keys * 8 + 4 * -(-row_words // 4) * 4)
-                 + 2 * 64 * 4 * (-(-row_words // 4) | 1) * 4)
-    assert (plan.window == row_words) == (full_rows <= 232448)
-    group = 2048 // k
+    most = 1 << (31 - (255 * row_words + 1).bit_length())
+    assert plan.slice_rows <= most
+    assert plan.slices == 1 or plan.slice_rows >= min(k, most)
+    assert plan.keys >= 2 * max(k, 64) and plan.keys & (plan.keys - 1) == 0
+    assert plan.ctas_per_sm == min(2048 // (32 * plan.warps),
+                                   233472 // (plan.smem + 1024)) >= 1
+    group = 2048 // (1 << (k - 1).bit_length())
     a, bb = plan.scratch(b, k)
     assert a == b * plan.slices * k
     assert bb == b * max(1, -(-plan.slices // group)) * k
     if (b, n, k) == (256, 65536, 64):
-        # the main path: one wave of blocks over the 132 SMs at the
-        # occupancy shared memory allows, and one merge round (32 slices x
-        # 64 keys fill one 2,048-key merge block)
-        per_sm = min(2048 // (32 * plan.warps),
-                     233472 // (plan.smem + 192 + 1024))
-        blocks = plan.slices * (b // (4 * plan.warps))
-        assert 132 <= blocks <= per_sm * 132 and plan.slices * k <= 2048
+        # the main path: 4 warps (64 queries a block), 3 blocks an SM, and
+        # one wave of blocks over the 132 SMs
+        blocks = plan.slices * (b // qb)
+        assert plan.warps == 4 and plan.ctas_per_sm == 3
+        assert 132 <= blocks <= plan.ctas_per_sm * 132
 
 
 def test_shortlist_plan_refuses_what_no_block_can_hold():

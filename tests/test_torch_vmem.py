@@ -27,17 +27,16 @@ def test_select_model_equals_the_plan(k):
     for b, n, words, kk in SELECT_SWEEP:
         if kk != k:
             continue
-        try:
-            plan = sl.shortlist_plan(b, n, words, k)
-        except ValueError:
-            continue
+        plan = sl.shortlist_plan(b, n, words, k)
         est = vmem.shortlist_smem(b, n, words, k)
-        assert (est.warps, est.window, est.keys, est.dynamic_bytes) == (
-            plan.warps, plan.window, plan.keys, plan.smem), (b, n, words)
-        assert est.dynamic_bytes == sl._select_smem(est.warps, est.keys,
-                                                    est.window)
+        assert (est.warps, est.chunk, est.stages, est.keys,
+                est.dynamic_bytes, est.ctas_per_sm) == (
+            plan.warps, plan.chunk, plan.stages, plan.keys, plan.smem,
+            plan.ctas_per_sm), (b, n, words)
+        assert est.dynamic_bytes == sl._select_smem(
+            est.warps, est.keys, words, est.chunk, est.stages)
         assert est.total_bytes <= vmem.H100_BLOCK_SMEM
-        assert est.static_bytes == vmem.SELECT_STATIC_SMEM == 192
+        assert est.static_bytes == vmem.SELECT_STATIC_SMEM == 0
         assert vmem.validate_config(est).ok
         checked += 1
     assert checked
@@ -55,12 +54,12 @@ def test_blocks_model_equals_the_plan(words, mma):
         except ValueError:
             continue
         est = vmem.blocks_smem(b, p, m, rows, w, k, mma)
-        assert (est.warps, est.window, est.stages, est.keys,
+        assert (est.warps, est.chunk, est.stages, est.keys,
                 est.dynamic_bytes, est.ctas_per_sm) == (
             plan.warps, plan.chunk, plan.stages, plan.keys, plan.smem,
             plan.ctas_per_sm), (b, p, m, rows, k)
         assert est.dynamic_bytes == sl._blocks_smem(
-            est.warps, est.keys, w, est.window, est.stages, mma)
+            est.warps, est.keys, w, est.chunk, est.stages, mma)
         assert est.static_bytes == vmem.BLOCKS_STATIC_SMEM == 320
         assert vmem.validate_config(est).ok
         checked += 1
@@ -80,8 +79,8 @@ def test_validate_rejects_over_budget_and_honours_a_custom_budget():
     tight = vmem.validate_config(est, block_budget=est.total_bytes - 1)
     assert not tight.ok and "exceeds" in tight.reason
     assert vmem.validate_config(est, block_budget=est.total_bytes).ok
-    # a forced window too wide for one block
-    wide = vmem.shortlist_smem(256, 65536, 1920, 1024, warps=4, window=1920)
+    # a forced block too wide for one block's shared memory
+    wide = vmem.shortlist_smem(256, 65536, 1920, 1024, warps=4, chunk=1920)
     check = vmem.validate_config(wide)
     assert not check.ok and wide.total_bytes > vmem.H100_BLOCK_SMEM
     # the SM's registers at the plan's occupancy
