@@ -8,7 +8,11 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import _build
+
 MODES = ("full", "two_phase", "ideal")
+#: the profiler range (`_build.profiler_range`) of `SearchResult.predict`
+PREDICT_TAG = "engine.predict"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,8 +79,9 @@ class SearchResult:
     def predict(self) -> torch.Tensor:
         """(B,) 1-NN label prediction; -1 when the store holds no valid
         candidate."""
-        return torch.take_along_dim(self.labels, self.best()[:, None],
-                                    dim=1)[:, 0]
+        with _build.profiler_range(PREDICT_TAG):
+            return torch.take_along_dim(self.labels, self.best()[:, None],
+                                        dim=1)[:, 0]
 
     def asdict(self) -> dict[str, torch.Tensor | int]:
         return {"votes": self.votes, "dist": self.dist,

@@ -58,6 +58,7 @@ from repro_torch.engine.backends import resolve_backend
 from repro_torch.engine.sharded import _use_fused
 from repro_torch.engine.store import MemoryStore
 from repro_torch.engine.tenant import TenantStore
+from repro_torch.kernels import _build
 from repro_torch.kernels import mcam_dist
 from repro_torch.kernels import mcam_episode
 from repro_torch.kernels import ops as kernel_ops
@@ -71,6 +72,13 @@ from repro_torch.kernels import shortlist as shortlist_kernel
 # interpret mode; it has not been measured on the card. Override it per
 # engine (`fused_min_rows=`) or per request (`SearchRequest.fused_min_rows`).
 IDEAL_FUSED_MIN_ROWS = 1024
+
+#: profiler ranges (`_build.profiler_range`) of a search: the whole call,
+#: the query and support grids with the physics constants put on the card
+#: (`_grids`), and the label gather and vote mask of an unsharded search
+SEARCH_TAG = "engine.search"
+GRIDS_TAG = "engine.grids"
+LABELS_TAG = "engine.labels"
 
 
 def noise_stream(key) -> int | None:
@@ -189,27 +197,28 @@ class RetrievalEngine:
         calibrated range) or pre-quantized integer words. A mesh store is
         searched shard by shard (module docstring); results are on its
         first shard's device."""
-        req = request if request is not None else SearchRequest()
-        if store.residency == "host":
-            raise ValueError(
-                "RetrievalEngine.search: this store's shards live in host "
-                "memory (shard(..., residency='host')); search it through "
-                "repro_torch.engine.pager.ShardPager, which pages the "
-                "visited shards onto the device, or re-shard with "
-                "residency='device'.")
-        eng = self.with_backend(req.backend).with_noisy(req.noisy)
-        q = store.quantize_queries(queries)
-        # routing engages iff the request visits fewer shards than the
-        # store has; nprobe=None and nprobe >= n_shards are the exhaustive
-        # search below, byte for byte
-        if (req.nprobe is not None and req.mode != "full"
-                and req.nprobe < store.n_shards):
-            return eng._search_routed(store, q, req)
-        if store.mesh is None:
-            return eng._search_unsharded(store, q, req)
-        if req.mode == "full":
-            return eng._search_unsharded(store.assembled(), q, req)
-        return eng._search_mesh(store, q, req)
+        with _build.profiler_range(SEARCH_TAG):
+            req = request if request is not None else SearchRequest()
+            if store.residency == "host":
+                raise ValueError(
+                    "RetrievalEngine.search: this store's shards live in "
+                    "host memory (shard(..., residency='host')); search it "
+                    "through repro_torch.engine.pager.ShardPager, which "
+                    "pages the visited shards onto the device, or re-shard "
+                    "with residency='device'.")
+            eng = self.with_backend(req.backend).with_noisy(req.noisy)
+            q = store.quantize_queries(queries)
+            # routing engages iff the request visits fewer shards than
+            # the store has; nprobe=None and nprobe >= n_shards are the
+            # exhaustive search below, byte for byte
+            if (req.nprobe is not None and req.mode != "full"
+                    and req.nprobe < store.n_shards):
+                return eng._search_routed(store, q, req)
+            if store.mesh is None:
+                return eng._search_unsharded(store, q, req)
+            if req.mode == "full":
+                return eng._search_unsharded(store.assembled(), q, req)
+            return eng._search_mesh(store, q, req)
 
     def _search_mesh(self, store: MemoryStore, q: torch.Tensor,
                      req: SearchRequest) -> SearchResult:
@@ -548,11 +557,12 @@ class RetrievalEngine:
         if req.mode == "full":
             res = self.full(q, store.values, s_grid=store.s_grid,
                             noise_qidx=noise_qidx)
-            votes = torch.where(valid[None, :], res["votes"],
-                                float("-inf"))
-            indices = torch.arange(store.capacity, device=store.device
-                                   ).expand(votes.shape)
-            labels = store.labels.expand(votes.shape)
+            with _build.profiler_range(LABELS_TAG):
+                votes = torch.where(valid[None, :], res["votes"],
+                                    float("-inf"))
+                indices = torch.arange(store.capacity, device=store.device
+                                       ).expand(votes.shape)
+                labels = store.labels.expand(votes.shape)
             return SearchResult(votes, res["dist"], indices, labels,
                                 res["iterations"])
         if req.mode == "two_phase":
@@ -562,8 +572,10 @@ class RetrievalEngine:
                                  pack_bits=store.pack_bits,
                                  fused_min_rows=self._fused_threshold(req),
                                  noise_qidx=noise_qidx)
-            labels = store.labels[res["indices"]]
-            votes = torch.where(labels >= 0, res["votes"], float("-inf"))
+            with _build.profiler_range(LABELS_TAG):
+                labels = store.labels[res["indices"]]
+                votes = torch.where(labels >= 0, res["votes"],
+                                    float("-inf"))
             return SearchResult(votes, res["dist"], res["indices"], labels,
                                 res["iterations"])
         # ideal: phase 1 alone, votes -dist
@@ -571,8 +583,9 @@ class RetrievalEngine:
                                    proj=store.proj, packed=store.proj_packed,
                                    pack_bits=store.pack_bits,
                                    fused_min_rows=self._fused_threshold(req))
-        labels = store.labels[idx]
-        votes = torch.where(labels >= 0, -dist, float("-inf"))
+        with _build.profiler_range(LABELS_TAG):
+            labels = store.labels[idx]
+            votes = torch.where(labels >= 0, -dist, float("-inf"))
         return SearchResult(votes, dist, idx, labels, iters)
 
     # -- helpers -----------------------------------------------------------
@@ -584,12 +597,13 @@ class RetrievalEngine:
         cfg = self.cfg
         enc = cfg.enc
         sl = cfg.mcam.string_len
-        if s_grid is None:
-            s_grid = avss_lib.layout_support(s_values, enc, sl)
-        q_grid = avss_lib.layout_query(q_values, enc, cfg.mode, sl)
-        dev = s_grid.device
-        return (q_grid, s_grid, enc.weights_array(device=dev),
-                torch.as_tensor(cfg.mcam.thresholds(), device=dev))
+        with _build.profiler_range(GRIDS_TAG):
+            if s_grid is None:
+                s_grid = avss_lib.layout_support(s_values, enc, sl)
+            q_grid = avss_lib.layout_query(q_values, enc, cfg.mode, sl)
+            dev = s_grid.device
+            return (q_grid, s_grid, enc.weights_array(device=dev),
+                    torch.as_tensor(cfg.mcam.thresholds(), device=dev))
 
     def _iterations(self, d: int) -> int:
         cfg = self.cfg

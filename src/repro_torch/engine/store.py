@@ -60,6 +60,7 @@ from repro_torch.core.memory import MemoryConfig
 from repro_torch.engine import router as router_lib
 from repro_torch.engine import sharded as sharded_lib
 from repro_torch.engine.sharded import ShardedRows
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.launch.mesh import Mesh
 
@@ -77,6 +78,21 @@ _LEAF_DTYPES = {"values": torch.int32, "proj": torch.bfloat16,
                 "labels": torch.int32, "size": torch.int32,
                 "lo": torch.float32, "hi": torch.float32,
                 "sketch_sums": torch.int32, "sketch_counts": torch.int32}
+
+#: profiler ranges (`_build.profiler_range`): the query words of a search,
+#: the whole of a write, and each stage of a write in its order: the batch
+#: quantised (labels onto the device), the ring cursor read back, the LUT
+#: projection, its packing, the string-grid layout, the leaves committed
+#: out of place, the router sketch updated
+QUERY_TAG = "engine.quantize"
+WRITE_TAG = "store.write"
+QUANTIZE_TAG = "store.quantize"
+CURSOR_TAG = "store.cursor"
+PROJECTION_TAG = "store.projection"
+PACK_TAG = "store.pack"
+GRID_TAG = "store.layout"
+COMMIT_TAG = "store.commit"
+SKETCH_TAG = "store.sketch"
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -497,62 +513,80 @@ class MemoryStore:
         here, once. A mesh store of more than one shard is written shard
         by shard (`_program_streamed`); one of a single shard takes the
         scatter of the unsharded store over its one block."""
-        x = torch.as_tensor(vectors).to(device=self.device,
-                                        dtype=torch.float32)
-        n = x.shape[0]
-        ring = self.cfg.capacity
-        if n > ring:
-            raise ValueError(f"write batch ({n}) exceeds capacity ({ring})")
-        if n == 0:
-            return self
-        if not self.calibrated:
-            raise ValueError(
-                "MemoryStore.write: writing to a never-calibrated store "
-                "would quantize against the default (lo=0, hi=1) range and "
-                "program garbage words; call store.calibrate(sample) before "
-                "the first write (already-quantized supports go through "
-                "MemoryStore.from_quantized instead).")
-        v = _quantize(x, self.cfg.search.enc.levels, self.lo, self.hi)
-        lab = torch.as_tensor(labels).to(device=self.device,
-                                         dtype=torch.int32)
-        if self.mesh is not None and self.n_shards > 1:
-            return self._program_streamed(v, lab)
-        start = int(self.size) % ring
-        idx = (start + torch.arange(n, device=self.device)) % ring
-        if self.mesh is not None:
-            return self.assembled()._program(idx, v, lab)._place(
-                self.mesh, self.axes, [self.device])
-        return self._program(idx, v, lab)
+        with _build.profiler_range(WRITE_TAG):
+            x = torch.as_tensor(vectors).to(device=self.device,
+                                            dtype=torch.float32)
+            n = x.shape[0]
+            ring = self.cfg.capacity
+            if n > ring:
+                raise ValueError(
+                    f"write batch ({n}) exceeds capacity ({ring})")
+            if n == 0:
+                return self
+            if not self.calibrated:
+                raise ValueError(
+                    "MemoryStore.write: writing to a never-calibrated store "
+                    "would quantize against the default (lo=0, hi=1) range "
+                    "and program garbage words; call store.calibrate("
+                    "sample) before the first write (already-quantized "
+                    "supports go through MemoryStore.from_quantized "
+                    "instead).")
+            with _build.profiler_range(QUANTIZE_TAG):
+                v = _quantize(x, self.cfg.search.enc.levels, self.lo,
+                              self.hi)
+                lab = torch.as_tensor(labels).to(device=self.device,
+                                                 dtype=torch.int32)
+            if self.mesh is not None and self.n_shards > 1:
+                return self._program_streamed(v, lab)
+            with _build.profiler_range(CURSOR_TAG):
+                start = int(self.size) % ring
+                idx = (start + torch.arange(n, device=self.device)) % ring
+            if self.mesh is not None:
+                return self.assembled()._program(idx, v, lab)._place(
+                    self.mesh, self.axes, [self.device])
+            return self._program(idx, v, lab)
 
     def _program(self, idx: torch.Tensor, v: torch.Tensor,
                  lab: torch.Tensor) -> "MemoryStore":
         """Scatter a quantized batch onto ring slots `idx` (distinct, since
         the batch is no larger than the ring)."""
         enc = self.cfg.search.enc
-        proj = kernel_ops.support_projection(v, enc)
         s, r = self.sketch_sums.shape[:2]
+        with _build.profiler_range(PROJECTION_TAG):
+            proj = kernel_ops.support_projection(v, enc)
+        with _build.profiler_range(PACK_TAG):
+            packed = kernel_ops.pack_projection(proj, enc)
+        with _build.profiler_range(GRID_TAG):
+            grid = _layout(v, self.cfg)
 
         def put(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
             return old.index_put((idx,), new.to(old.dtype))
 
-        values, labels = put(self.values, v), put(self.labels, lab)
-        if s == 1:
-            # the batch lands on distinct slots, so adding (new - old)
-            # bucket stats is exact integer arithmetic, equal to a rebuild
-            ds_new, dc_new = router_lib.bucket_sums(v, lab, r)
-            ds_old, dc_old = router_lib.bucket_sums(self.values[idx],
-                                                    self.labels[idx], r)
-            sk_sums = self.sketch_sums + (ds_new - ds_old)[None]
-            sk_counts = self.sketch_counts + (dc_new - dc_old)[None]
-        else:
-            # a partitioned store: the batch may cross blocks; rebuild
-            sk_sums, sk_counts = router_lib.build_sketch(values, labels, s, r)
+        with _build.profiler_range(COMMIT_TAG):
+            rows = {"values": put(self.values, v),
+                    "proj": put(self.proj, proj),
+                    "proj_packed": put(self.proj_packed, packed),
+                    "s_grid": put(self.s_grid, grid),
+                    "labels": put(self.labels, lab)}
+        # after the commit: a partitioned store rebuilds its sketch from the
+        # committed rows (the puts are out of place, so self still holds
+        # the rows the batch replaces)
+        with _build.profiler_range(SKETCH_TAG):
+            if s == 1:
+                # the batch lands on distinct slots, so adding (new - old)
+                # bucket stats is exact integer arithmetic, equal to a
+                # rebuild
+                ds_new, dc_new = router_lib.bucket_sums(v, lab, r)
+                ds_old, dc_old = router_lib.bucket_sums(self.values[idx],
+                                                        self.labels[idx], r)
+                sk_sums = self.sketch_sums + (ds_new - ds_old)[None]
+                sk_counts = self.sketch_counts + (dc_new - dc_old)[None]
+            else:
+                # a partitioned store: the batch may cross blocks; rebuild
+                sk_sums, sk_counts = router_lib.build_sketch(
+                    rows["values"], rows["labels"], s, r)
         store = dataclasses.replace(
-            self, values=values, proj=put(self.proj, proj),
-            proj_packed=put(self.proj_packed,
-                            kernel_ops.pack_projection(proj, enc)),
-            s_grid=put(self.s_grid, _layout(v, self.cfg)), labels=labels,
-            sketch_sums=sk_sums, sketch_counts=sk_counts,
+            self, **rows, sketch_sums=sk_sums, sketch_counts=sk_counts,
             size=self.size + idx.shape[0])
         if self.residency == "host" and self.values.is_pinned():
             store = dataclasses.replace(store, **{
@@ -572,32 +606,39 @@ class MemoryStore:
         device; equal, bit for bit, to the unsharded write, wraparound
         across shard boundaries included."""
         enc, ring, n = self.cfg.search.enc, self.cfg.capacity, v.shape[0]
-        start = int(self.size) % ring
-        proj = kernel_ops.support_projection(v, enc)
-        batch = {"values": v, "proj": proj,
-                 "proj_packed": kernel_ops.pack_projection(proj, enc),
-                 "s_grid": _layout(v, self.cfg), "labels": lab}
+        with _build.profiler_range(CURSOR_TAG):
+            start = int(self.size) % ring
+        with _build.profiler_range(PROJECTION_TAG):
+            proj = kernel_ops.support_projection(v, enc)
+        with _build.profiler_range(PACK_TAG):
+            packed = kernel_ops.pack_projection(proj, enc)
+        with _build.profiler_range(GRID_TAG):
+            grid = _layout(v, self.cfg)
+        batch = {"values": v, "proj": proj, "proj_packed": packed,
+                 "s_grid": grid, "labels": lab}
         r = self.sketch_sums.block(0).shape[1]
         out = {f: [] for f in ROW_FIELDS}
-        sums, counts = [], []
-        g0 = 0
-        for i in range(len(self.values.blocks)):
-            old_values = self.values.block(i)
-            dev, rows = old_values.device, old_values.shape[0]
-            g = torch.arange(g0, g0 + rows, device=dev)
-            j = torch.remainder(g - start, ring)
-            written = (j < n) & (g < ring)
-            jc = torch.clamp(j, max=n - 1)
-            for f in ROW_FIELDS:
-                old = getattr(self, f).block(i)
-                w = written.reshape((-1,) + (1,) * (old.dim() - 1))
-                out[f].append(torch.where(w, batch[f].to(dev)[jc].to(
-                    old.dtype), old))
-            s, c = router_lib.bucket_sums(out["values"][i], out["labels"][i],
-                                          r)
-            sums.append(s[None])
-            counts.append(c[None])
-            g0 += rows
+        with _build.profiler_range(COMMIT_TAG):
+            g0 = 0
+            for i in range(len(self.values.blocks)):
+                old_values = self.values.block(i)
+                dev, rows = old_values.device, old_values.shape[0]
+                g = torch.arange(g0, g0 + rows, device=dev)
+                j = torch.remainder(g - start, ring)
+                written = (j < n) & (g < ring)
+                jc = torch.clamp(j, max=n - 1)
+                for f in ROW_FIELDS:
+                    old = getattr(self, f).block(i)
+                    w = written.reshape((-1,) + (1,) * (old.dim() - 1))
+                    out[f].append(torch.where(w, batch[f].to(dev)[jc].to(
+                        old.dtype), old))
+                g0 += rows
+        with _build.profiler_range(SKETCH_TAG):
+            sums, counts = [], []
+            for values, labels in zip(out["values"], out["labels"]):
+                s, c = router_lib.bucket_sums(values, labels, r)
+                sums.append(s[None])
+                counts.append(c[None])
         return dataclasses.replace(
             self, **{f: ShardedRows(b) for f, b in out.items()},
             sketch_sums=ShardedRows(sums), sketch_counts=ShardedRows(counts),
@@ -608,17 +649,18 @@ class MemoryStore:
         [0, levels) for SVSS) on the store's device. Integer queries are
         already words and pass through. Float queries on a never-calibrated
         store raise."""
-        q = torch.as_tensor(queries).to(self.device)
-        if not torch.is_floating_point(q):
-            return q
-        if not self.calibrated:
-            raise ValueError(
-                "MemoryStore.quantize_queries: float queries on a "
-                "never-calibrated store (e.g. fresh create() or "
-                "from_quantized()) would quantize against the default "
-                "(lo=0, hi=1) range and return garbage words; call "
-                "store.calibrate(sample) first, or pass pre-quantized "
-                "integer queries.")
-        cfg = self.cfg.search
-        levels = 4 if cfg.mode == "avss" else cfg.enc.levels
-        return _quantize(q.to(torch.float32), levels, self.lo, self.hi)
+        with _build.profiler_range(QUERY_TAG):
+            q = torch.as_tensor(queries).to(self.device)
+            if not torch.is_floating_point(q):
+                return q
+            if not self.calibrated:
+                raise ValueError(
+                    "MemoryStore.quantize_queries: float queries on a "
+                    "never-calibrated store (e.g. fresh create() or "
+                    "from_quantized()) would quantize against the default "
+                    "(lo=0, hi=1) range and return garbage words; call "
+                    "store.calibrate(sample) first, or pass pre-quantized "
+                    "integer queries.")
+            cfg = self.cfg.search
+            levels = 4 if cfg.mode == "avss" else cfg.enc.levels
+            return _quantize(q.to(torch.float32), levels, self.lo, self.hi)

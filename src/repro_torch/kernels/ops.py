@@ -24,10 +24,17 @@ import torch
 
 from repro_torch.core import encodings as enc_lib
 from repro_torch.core.encodings import Encoding
+from repro_torch.kernels import _build
 from repro_torch.kernels import mcam_dist
 from repro_torch.kernels import mcam_search as mcam_search_kernel
 from repro_torch.kernels import shortlist as shortlist_kernel
 from repro_torch.kernels.shortlist import SHORTLIST_MASK_PENALTY  # noqa: F401
+
+#: profiler ranges (`_build.profiler_range`) of the physics entries: phase
+#: 2's rescore (its string operands and the gathered launch, on every
+#: route) and the dense entry (its operands and launch)
+RESCORE_TAG = "kernels.rescore"
+DENSE_TAG = "kernels.dense"
 
 
 def flatten_strings(grid: torch.Tensor) -> torch.Tensor:
@@ -62,12 +69,14 @@ def mcam_search(q_grid: torch.Tensor, s_grid: torch.Tensor,
     per-query noise coordinates (default arange(B)). cfg: SearchConfig."""
     seg, L = s_grid.shape[1], s_grid.shape[2]
     dev = s_grid.device
-    q = flatten_strings(broadcast_query(q_grid, L)).to(torch.int8).contiguous()
-    s = flatten_strings(s_grid).to(torch.int8).contiguous()
-    return mcam_search_kernel.mcam_search(
-        q, s, _string_weights(weights, seg, dev),
-        thresholds.to(device=dev, dtype=torch.float32).contiguous(),
-        cfg.mcam, noisy=cfg.noisy, qidx=qidx)
+    with _build.profiler_range(DENSE_TAG):
+        q = flatten_strings(broadcast_query(q_grid, L)).to(
+            torch.int8).contiguous()
+        s = flatten_strings(s_grid).to(torch.int8).contiguous()
+        return mcam_search_kernel.mcam_search(
+            q, s, _string_weights(weights, seg, dev),
+            thresholds.to(device=dev, dtype=torch.float32).contiguous(),
+            cfg.mcam, noisy=cfg.noisy, qidx=qidx)
 
 
 # ---------------------------------------------------------------------------
@@ -157,10 +166,11 @@ def rescore_shortlist(q_grid: torch.Tensor, s_grid: torch.Tensor,
     noise coordinate (default arange(B)). Votes equal `mcam_search`'s for
     the same (query, global row); with `with_dist`, (votes, dist), dist
     as `mcam_search` gives it (a tenant's `full`)."""
-    return mcam_search_kernel.mcam_rescore(
-        *_rescore_args(q_grid, s_grid, short_idx, weights, thresholds),
-        cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx, qidx=noise_qidx,
-        with_dist=with_dist)
+    with _build.profiler_range(RESCORE_TAG):
+        return mcam_search_kernel.mcam_rescore(
+            *_rescore_args(q_grid, s_grid, short_idx, weights, thresholds),
+            cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx,
+            qidx=noise_qidx, with_dist=with_dist)
 
 
 def rescore_shortlist_plain(q_grid: torch.Tensor, s_grid: torch.Tensor,
@@ -171,9 +181,11 @@ def rescore_shortlist_plain(q_grid: torch.Tensor, s_grid: torch.Tensor,
                             ) -> torch.Tensor:
     """`rescore_shortlist` through the kernel's plain version on any
     device (the `ref` backend's phase 2)."""
-    return mcam_search_kernel.mcam_rescore_plain(
-        *_rescore_args(q_grid, s_grid, short_idx, weights, thresholds),
-        cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx, qidx=noise_qidx)
+    with _build.profiler_range(RESCORE_TAG):
+        return mcam_search_kernel.mcam_rescore_plain(
+            *_rescore_args(q_grid, s_grid, short_idx, weights, thresholds),
+            cfg.mcam, noisy=cfg.noisy, noise_rows=noise_idx,
+            qidx=noise_qidx)
 
 
 def _rescore_args(q_grid, s_grid, short_idx, weights, thresholds) -> tuple:
