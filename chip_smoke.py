@@ -643,8 +643,11 @@ def run(args, torch) -> int:
                 ("one-table select", "shortlist_select", "blocks"),
                 ("block-table select", "shortlist_blocks_select", "\0"))}
     log(f"[sass] shortlist IMMA (mma.sync) instructions: {imma}")
-    if imma["one-table select"] == 0:
-        fail("[sass] the one-table select runs no tensor-core instruction")
+    gmma = sass_count(_build.library_path("shortlist"), "GMMA",
+                      "shortlist_wgmma")
+    log(f"[sass] shortlist wgmma select: {gmma} GMMA instructions")
+    if imma["one-table select"] == 0 or gmma == 0:
+        fail("[sass] a one-table select runs no tensor-core instruction")
     resources = {}
     for src in ("mcam_search", "mcam_episode"):
         found = kernel_resources(logs.get(src, ""))
@@ -1081,7 +1084,8 @@ def run_contracts(t, launches: dict) -> dict:
              + "; ".join(f"{r['entry']} {json.dumps(r['config'])} "
                          f"[{r['invariant']}] {r['detail']}"
                          for r in bad[:6]))
-    missing = [k for k, c in counts.items() if c < 1]
+    missing = [k for k, c in counts.items()
+               if c < 1 and k not in _build.SELECT_PATHS]
     if missing:
         fail(f"[contracts] the cells launched no {missing}: {counts}")
     disagree = []
@@ -1201,9 +1205,10 @@ def run_vmem(t, nvcc_log: str, n: int) -> dict:
     """[vmem]: analysis/vmem.py's model of the shortlist's select blocks
     against ptxas: its static shared memory must equal the kernel's, and
     the plans' occupancy is checked against the registers ptxas gives a
-    thread (printed, not gated), for the main path's, CUB's, k = 1,024's
-    and the block-table rows' plans. The one-table select at d = 480 must
-    run 2 or more blocks an SM, by shared memory and by registers."""
+    thread (printed, not gated), for the main path's and CUB's (the wgmma
+    select), k = 1,024's (the mma.sync select) and the block-table rows'
+    plans. The wgmma select's block must fit one SM by shared memory and
+    by registers."""
     from repro_torch.analysis import vmem
     entries = ptxas_entries(nvcc_log)
     if not entries:
@@ -1213,15 +1218,16 @@ def run_vmem(t, nvcc_log: str, n: int) -> dict:
         return {"rows": []}
     select = [(k, v) for k, v in entries.items()
               if "shortlist_select" in k and "blocks" not in k]
+    wgmma = [(k, v) for k, v in entries.items() if "shortlist_wgmma" in k]
     blocks = [(k, v) for k, v in entries.items()
               if "shortlist_blocks_select" in k]
-    if not select or not blocks:
+    if not select or not wgmma or not blocks:
         fail(f"[vmem] no select entries in the ptxas log: {list(entries)}")
     rows = []
     for name, est, found in (
-            ("select", vmem.shortlist_smem(256, n, 48, 64), select),
+            ("select", vmem.shortlist_smem(256, n, 48, 64), wgmma),
             ("select_cub", vmem.shortlist_smem(CUB_SERVE_QUERIES, n, 480,
-                                               64), select),
+                                               64), wgmma),
             ("select_k1024", vmem.shortlist_smem(256, n, 48, 1024), select),
             ("blocks", vmem.blocks_smem(256, ROUTED_KERNEL_NPROBE,
                                         ROUTED_SHARDS, n // ROUTED_SHARDS,
@@ -1250,11 +1256,11 @@ def run_vmem(t, nvcc_log: str, n: int) -> dict:
                      f"{est.static_bytes} B != ptxas's {smem} B")
             by_regs = vmem.H100_SM_REGS // (est.threads * regs)
             row["ctas_by_registers"] = by_regs
-            if name == "select_cub" and min(est.ctas_per_sm, by_regs) < 2:
-                fail(f"[vmem] the one-table select at d = 480 runs "
-                     f"{min(est.ctas_per_sm, by_regs)} block(s) an SM "
+            if name in ("select", "select_cub") and \
+                    min(est.ctas_per_sm, by_regs) < 1:
+                fail(f"[vmem] the wgmma select ({name}) fits no SM "
                      f"(shared memory {est.ctas_per_sm}, registers "
-                     f"{by_regs}); the design needs 2")
+                     f"{by_regs})")
     return {"rows": rows}
 
 
@@ -1929,10 +1935,10 @@ def uniform_table(torch, per_row, d: int, bits: int):
 
 def plan_fields(plan) -> dict:
     """The one-table select's plan as a kernel row prints it."""
-    return {"query_tile": plan.queries, "row_tile": 64,
-            "k_chunk_words": plan.chunk, "stages": plan.stages,
-            "blocks_an_sm": plan.ctas_per_sm, "slices": plan.slices,
-            "smem": plan.smem}
+    return {"path": plan.path, "query_tile": plan.queries,
+            "row_tile": plan.tile_rows, "k_chunk_words": plan.chunk,
+            "stages": plan.stages, "blocks_an_sm": plan.ctas_per_sm,
+            "slices": plan.slices, "blocks": plan.blocks, "smem": plan.smem}
 
 
 def adversarial_stores(t, shortlist, qw, valid, packed, d: int, tag: str,

@@ -2,9 +2,23 @@
 (counterpart of `repro.analysis.vmem`, the Pallas kernel's VMEM model).
 
 On Hopper the shortlist (`csrc/shortlist.cu`) keeps its working set in
-shared memory, sized on the host by the plans of `kernels/shortlist.py`:
-a one-table select block (8-bit fields on the tensor cores) of `warps`
-warps of 16 queries holds
+shared memory, sized on the host by the plans of `kernels/shortlist.py`.
+The one-table entry (8-bit fields on the tensor cores) has two selects,
+chosen from k and the row's width (`shortlist.wgmma_route`). A wgmma
+select block (two consumer warpgroups of 64 queries and a producer warp,
+one block an SM) holds
+
+    keys     128 x keys x 4 B   each query's 64 sorted keys and 128
+             candidate slots, 32 for each lane of its quad (32-bit compact
+             keys)
+    masks    3 x 128 x 64 B, once a unit, for whole rows (up to 3 TMA
+             columns of 64 bytes); wider rows carry theirs in the ring
+    stages   stages x slot   1 KB aligned TMA slots: 128 rows x 3 columns
+             (whole) or one column of the 128 masks and 256 rows, then
+             the tile's valid bytes
+    tile     (2 stages + 2) x 8 B of mbarriers and 1 KB to align the base
+
+and an mma.sync select block of `warps` warps of 16 queries
 
     keys     warps x 16 x keys x 4 B   each query's top-k and candidates
              (32-bit compact keys)
@@ -25,8 +39,8 @@ plus each kernel's static shared memory (none for the one-table select;
 `blocks_smem` are these closed forms, with the plans' own choice of
 warps, keys, chunk and stages; they equal the plans exactly
 (tests/test_torch_vmem.py), and the static part equals what ptxas
-reports (chip_smoke.py's `[vmem]` lines, which also hold the one-table
-select at d = 480 to 2 blocks an SM).
+reports (chip_smoke.py's `[vmem]` lines, which also hold the wgmma
+select's block of 288 threads within one SM's registers).
 
 `validate_config` is the static gate: a plan's total against one
 block's 227 KB and the blocks an SM runs at the plan's occupancy against
@@ -71,7 +85,7 @@ class SmemEstimate:
     """The shared memory of one select block of a plan: its parts, the
     dynamic bytes the launch asks for, the static bytes, their total,
     and the blocks an SM runs at the plan's occupancy."""
-    entry: str                 # "select" | "blocks_select"
+    entry: str                 # "select_wgmma" | "select" | "blocks_select"
     warps: int
     keys: int
     chunk: int                 # words of a staged K-chunk of a row
@@ -87,7 +101,9 @@ class SmemEstimate:
 
     @property
     def threads(self) -> int:
-        return 32 * self.warps
+        """A block's threads: its warps, and the wgmma select's producer
+        warp."""
+        return 32 * (self.warps + (self.entry == "select_wgmma"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,10 +122,44 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def _occupancy(warps: int, total: int) -> int:
-    """Select blocks an SM runs: by threads, and by shared memory (a
-    block's dynamic and static bytes and the runtime's reserve)."""
+    """Select blocks an SM runs: by threads (`warps` a block), and by
+    shared memory (a block's dynamic and static bytes and the runtime's
+    reserve)."""
     return min(H100_SM_THREADS // (32 * warps),
                H100_SM_SMEM // (total + BLOCK_RESERVED_SMEM))
+
+
+def _wgmma_parts(whole: bool, stages: int) -> tuple[int, ...]:
+    """(keys, masks, stages, tile) bytes of a wgmma select block."""
+    data = sl._WG_BOX * (3 * sl._WG_N if whole
+                         else sl._WG_QB + 2 * sl._WG_N)
+    slot = _cdiv(data + (sl._WG_N if whole else 2 * sl._WG_N), 1024) * 1024
+    return (sl._WG_QB * sl._WG_KEYS * 4,
+            3 * sl._WG_QB * sl._WG_BOX if whole else 0,
+            stages * slot, (2 * stages + 2) * 8 + 1024)
+
+
+def wgmma_smem(b: int, n: int, row_words: int, k: int,
+               stages: int | None = None) -> SmemEstimate:
+    """The wgmma select block of `shortlist_plan(b, n, row_words, k)`
+    (its ring's depth unless given): the row whole where it fits
+    _WG_WHOLE_BOXES columns of 64 bytes and the block, else in 64-byte
+    K-columns."""
+    stages = sl._WG_STAGES if stages is None else stages
+    whole = (_cdiv(4 * row_words, sl._WG_BOX) <= sl._WG_WHOLE_BOXES
+             and sum(_wgmma_parts(True, stages)) + SELECT_STATIC_SMEM
+             <= H100_BLOCK_SMEM)
+    key_b, mask_b, stage_b, tile_b = _wgmma_parts(whole, stages)
+    dynamic = key_b + mask_b + stage_b + tile_b
+    return SmemEstimate(
+        entry="select_wgmma", warps=sl._WG_WARPS, keys=sl._WG_KEYS,
+        chunk=row_words if whole else sl._WG_BOX // 4, stages=stages,
+        key_bytes=key_b, mask_bytes=mask_b, stage_bytes=stage_b,
+        tile_bytes=tile_b, dynamic_bytes=dynamic,
+        static_bytes=SELECT_STATIC_SMEM,
+        total_bytes=dynamic + SELECT_STATIC_SMEM,
+        ctas_per_sm=_occupancy(sl._WG_WARPS + 1,
+                               dynamic + SELECT_STATIC_SMEM))
 
 
 def _stride(words: int) -> int:
@@ -131,12 +181,16 @@ def _select_parts(warps: int, keys: int, row_words: int, chunk: int,
 def shortlist_smem(b: int, n: int, row_words: int, k: int,
                    warps: int | None = None, chunk: int | None = None,
                    stages: int | None = None) -> SmemEstimate:
-    """The one-table select block of `shortlist_plan(b, n, row_words, k)`
-    (its warps, chunk and stages unless given): keys = max(128, 2
-    pow2(k)); a row of up to the plan's _WHOLE_MAX words staged whole
-    (padded to 8 words) with the masks resident, a wider one in K-chunks
-    of _ONE_CHUNK words through _ONE_STAGES slots; up to 4 warps of 16
-    queries, no more than the queries fill, while the block fits."""
+    """The one-table select block of `shortlist_plan(b, n, row_words, k)`:
+    the wgmma select's (`wgmma_smem`, its stages unless given) where the
+    plan takes it, else the mma.sync select's (its warps, chunk and
+    stages unless given): keys = max(128, 2 pow2(k)); a row of up to the
+    plan's _WHOLE_MAX words staged whole (padded to 8 words) with the
+    masks resident, a wider one in K-chunks of _ONE_CHUNK words through
+    _ONE_STAGES slots; up to 4 warps of 16 queries, no more than the
+    queries fill, while the block fits."""
+    if sl.wgmma_route(row_words, k):
+        return wgmma_smem(b, n, row_words, k, stages)
     keys = max(128, 2 * (1 << (k - 1).bit_length()))
     if chunk is None:
         chunk = (8 * _cdiv(row_words, 8) if row_words <= sl._WHOLE_MAX

@@ -14,58 +14,74 @@
 // (uint64(dist) << 32 | row) and any exact selection gives the same
 // arrays.
 //
-// What bounds it on an H100. The one-table entry on the main path (B =
-// 256 queries, N = 65,536 rows, k = 64, 8-bit packed fields: 48 words a
-// row at d = 48, 480 at CUB's d = 480) reads the operand once (12.6 / 126
-// MB, 3.8 / 37.7 us at 3.35 TB/s) and does 2 B N 4d one-hot
-// multiply-adds (6.4 / 64 G, 3.3 / 32.6 us at the int8 tensor-core peak):
-// bytes bound, by a little. On top of that comes the selection: B N keys
-// tested against a running threshold, and the sorts of the few that pass.
+// What bounds it on an H100. The benchmark's two_phase cells (B = 1,024
+// queries, k = 64, 8-bit packed fields: 4,194,304 Omniglot rows of 48
+// words, 262,144 CUB rows of 480) do 2 B N 4d one-hot multiply-adds
+// (1.65 / 1.03 T: 0.833 / 0.521 ms at the int8 tensor-core peak of 1,979
+// TOP/s) and read the operand once (805 / 503 MB: 0.24 / 0.15 ms at 3.35
+// TB/s): operations bound. On top of that comes the selection: B N
+// distances tested against a running threshold, and the few that pass
+// kept and sorted.
 //
 // The one-table entry, for 8-bit packed fields (every MTMC and CUB store):
 //   masks: one thread a (query, word) writes the query's one-hot mask in
 //     the operand's own byte order to a (B, mw) scratch, once a call: byte
 //     f of word w is 1 where the query selects column f row_words + w (mw:
-//     row_words rounded up to the MMA's 8 words, the rest 0).
-//   select: one block of `warps` <= 4 warps per (tile of 16 warps
-//     queries, slice of rows); each warp owns 16 queries, the MMA's M.
-//     Rows are staged 64 at a time through a cp.async ring of `stages`: a
-//     row of up to 64 words whole, with the block's masks staged once
-//     beside the ring; a wider row in K-chunks of `chunk` words, each
-//     stage carrying the 64 rows' chunk and the block's masks of the same
-//     words, so shared memory does not grow with the row width. The
-//     products are mma.sync m16n8k32 u8 x u8 -> s32, exact since every sum
-//     is below 2**24: A the warp's 16 mask rows (ldmatrix), B the staged
-//     rows (8 n-tiles of 8), the next k-step's fragments loaded under this
-//     one's products. A lane ends a tile holding 2 queries x 16 rows of
-//     distances in registers, and the selection reads them there, on
-//     32-bit compact keys: the penalty bit, the distance (at most 255 d,
-//     below the penalty 2**22) and the row within the slice, in the order
-//     of the (distance, row) keys; the plan keeps a slice's rows within
-//     the bits left. Each query keeps, in shared memory, its sorted H = P
-//     / 2 >= max(k, 64) smallest keys and H candidate slots, and in its
-//     quad's registers its k-th key. A lane counts its keys below that key
-//     and the quad sums the counts; a list whose candidates would
-//     overflow is folded first (the warp sorts the candidates and merges
-//     them into the sorted half), and the counts are taken again under
-//     its tighter k-th key; a tile's 64 rows always fit after a fold. Then
-//     each lane writes its candidates at its quad's prefix. Only
-//     candidates are ever sorted. Each block writes one sorted list of k
-//     (distance, row) keys per query for its slice to a (B, slices, k)
-//     scratch.
+//     row_words rounded up to 8 words, the rest 0); on the wgmma path it
+//     also resets each query's shared bound.
+//   select, one of two (kernels/shortlist.py::wgmma_route, from k and the
+//     row's width alone):
+//   - shortlist_wgmma, for k <= 64 and rows of whole 16-byte segments
+//     (the cells'): persistent blocks, one an SM, walk (query tile of 128,
+//     slice of rows) units cut so that the last round leaves under 5% of
+//     the SMs idle. A block is two consumer warpgroups of 64 queries (the
+//     wgmma's M) and a producer warp whose lane 0 keeps a ring of 4 TMA
+//     slots full (bytes counted on each slot's mbarrier; a slot refilled
+//     once every consumer warp has arrived on its other one; no
+//     block-wide barrier after set-up). Rows of up to 3 columns of 64
+//     bytes come 128 a slot, with their valid bytes, and the queries'
+//     masks once a unit; wider rows one 64-byte K-column of the 128 masks
+//     and of 256 rows a slot. The products are wgmma m64n128k32 u8 x u8
+//     -> s32 from shared memory in the TMA's 64-byte swizzle, exact. No
+//     wgmma is in flight across a branch, so ptxas serialises none; the
+//     two warpgroups run apart, one selecting while the other's products
+//     run. The selection reads the accumulators where the wgmma leaves
+//     them (a lane: 2 queries x 32 rows): one compare a distance against
+//     the query's threshold marks the rare 8-row blocks to look at, and a
+//     shared body (a switch takes the block's accumulators by constant
+//     index) turns what passes into 32-bit compact keys -- the penalty
+//     bit, the distance (at most 255 d, below the penalty 2**22) and the
+//     row within the slice, in the order of the (distance, row) keys --
+//     and writes a key below the list's k-th into the lane's own
+//     candidate slots (32 a lane of the query's quad, counted in a
+//     register: no atomics). Each list keeps 64 sorted keys and its k-th
+//     key in the quad's registers; a list whose slots could overflow in
+//     the next 64 rows is folded (the warp sorts the 128 candidates and
+//     merges them into the sorted keys). Units of one query share a bound
+//     through global memory: every fold publishes its list's k-th
+//     distance (atomicMin), and a tile's threshold is also held below the
+//     least published, read under the tile's products; the first round
+//     of units so spares the second most of its candidates. Each unit
+//     writes one sorted list of k (distance, row) keys per query for its
+//     slice to a (B, slices, k) scratch.
+//   - shortlist_select, for larger k (lists of up to 2,048 keys) and
+//     other row widths: blocks of up to 4 warps of 16 queries (the
+//     mma.sync's M) walk the same units, rows staged 64 at a time through
+//     a cp.async ring of `stages` (a row of up to 64 words whole, with the
+//     block's masks beside the ring; a wider row in K-chunks carrying the
+//     masks' same words), products on mma.sync m16n8k32 u8 x u8 -> s32
+//     (A the warp's mask rows and B the staged rows, by ldmatrix), the
+//     same compact keys selected from the accumulator fragments: a lane
+//     counts its keys below its query's k-th, the quad sums the counts, a
+//     list whose candidates would overflow is folded first, and each lane
+//     writes its candidates at its quad's prefix.
 //   merge: the merge rounds both entries share (shortlist_merge, below),
 //     each query with all its slices' lists.
-//   Shared memory of a select block (kernels/shortlist.py::shortlist_plan
-//   and analysis/vmem.py model it): 16 warps P 4 bytes of lists, and
-//   stages x (64 + 16 warps for K-chunked rows) x blocks_stride(chunk) x 4
-//   bytes of ring, plus 16 warps x blocks_stride(chunk) x 4 bytes of
-//   resident masks for whole rows; no static shared memory. On the main
-//   path (B = 256, k = 64: 4 warps, P = 128) that is 72,704 bytes at d =
-//   48 and 69,632 at d = 480 (K-chunks of 32 words, 2 stages): 3 blocks
-//   an SM (__launch_bounds__ holds the registers to it), and the plan cuts
-//   94 slices of 704 rows, so the 376 blocks are one wave and the 4 query
-//   tiles of a slice read its rows from L2. At k = 1,024 a block of one
-//   warp holds 16 lists of 2,048 keys (128 KB).
+//   Shared memory (kernels/shortlist.py::shortlist_plan and
+//   analysis/vmem.py model it): a wgmma block holds its ring (4 slots of
+//   25 KB), whole rows' masks (24 KB), 128 lists of 192 keys (96 KB) and
+//   the mbarriers: 226,384 bytes for whole rows, 201,808 in K-columns; an
+//   mma.sync block 16 warps P 4 bytes of lists and its ring.
 //
 // Other operand kinds (4-, 16- and 32-bit packed fields, bf16 and f32)
 // go to the block-table entry below as one block of N rows that every
@@ -147,6 +163,7 @@
 // rows no key is below the threshold. Every order gives the same exact
 // result.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -454,14 +471,17 @@ __device__ __noinline__ void fold_half(K* keys, int H, int count, int lane) {
 
 // The (B, mw) one-hot masks, one thread a word: byte f of word w of query
 // b is 1 where b selects column f row_words + w of the packed operand;
-// words at or past row_words are 0.
+// words at or past row_words are 0. With `bounds` (B,), each query's
+// shared bound is reset to no bound.
 __global__ void shortlist_masks(const int* __restrict__ qw, int B, int d,
                                 int row_words, int mw,
-                                uint32_t* __restrict__ masks) {
+                                uint32_t* __restrict__ masks,
+                                int* __restrict__ bounds) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)B * mw) return;
   const int b = static_cast<int>(e / mw);
   const int w = static_cast<int>(e - (long long)b * mw);
+  if (bounds != nullptr && w == 0) bounds[b] = 0x7FFFFFFF;
   uint32_t m = 0u;
   if (w < row_words) {
 #pragma unroll
@@ -497,9 +517,11 @@ __host__ __device__ __forceinline__ int row_bits(int slice_rows) {
   return b;
 }
 
-// One table of N rows for every query, 8-bit packed fields. Block x is
-// (query tile x % q_tiles, slice x / q_tiles): the query tiles of a slice
-// run together and read its rows from L2 once the first has loaded them.
+// One table of N rows for every query, 8-bit packed fields: the select
+// for k above the wgmma select's (or rows of a width no multiple of 4
+// words). The grid's blocks walk the units (query tile u % q_tiles,
+// slice u / q_tiles), so the query tiles of a slice run together and read
+// its rows from L2 once the first has loaded them.
 __global__ void __launch_bounds__(MAX_WARPS * 32, 3)
 shortlist_select(const uint32_t* __restrict__ masks, int mw,
                  const uint32_t* __restrict__ op, int row_words,
@@ -524,239 +546,886 @@ shortlist_select(const uint32_t* __restrict__ masks, int mw,
   uint32_t* mres = ring + stages * stage_words;  // whole rows' masks
 
   const int q_tiles = (B + qb - 1) / qb;
-  const int b0 = (blockIdx.x % q_tiles) * qb;
-  const int slice = blockIdx.x / q_tiles;
-  const int q_here = min(qb, B - b0);
-  const int n_begin = slice * slice_rows;
-  const int n_end = min(N, n_begin + slice_rows);
-  const int n_kc = whole ? 1 : (row_words + chunk - 1) / chunk;
-  const int n_st = (n_end - n_begin + ROWS - 1) / ROWS * n_kc;
-  const bool vec = row_words % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(op) & 15) == 0;
+  const int units = q_tiles * n_slices;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    if (unit != blockIdx.x) __syncthreads();  // the last unit's reads done
+    const int b0 = (unit % q_tiles) * qb;
+    const int slice = unit / q_tiles;
+    const int q_here = min(qb, B - b0);
+    const int n_begin = slice * slice_rows;
+    const int n_end = min(N, n_begin + slice_rows);
+    const int n_kc = whole ? 1 : (row_words + chunk - 1) / chunk;
+    const int n_st = (n_end - n_begin + ROWS - 1) / ROWS * n_kc;
+    const bool vec = row_words % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(op) & 15) == 0;
 
-  // stage s = (tile s / n_kc, K-chunk s % n_kc) into ring slot s % stages;
-  // the masks' words are whole k-steps (0 past the row)
-  auto issue = [&](int s) {
-    if (s < n_st) {
-      const int r0 = n_begin + (s / n_kc) * ROWS;
-      const int w0 = (s % n_kc) * chunk;
-      const int ww = min(chunk, row_words - w0);
-      const int r_here = min(ROWS, n_end - r0);
-      uint32_t* buf = ring + (s % stages) * stage_words;
-      if (vec) {
-        const int segs = ww / 4;
-        for (int e = threadIdx.x; e < r_here * segs; e += blockDim.x) {
-          const int r = e / segs;
-          const int j = e - r * segs;
-          cp_async16(buf + r * stride + 4 * j,
-                     op + (size_t)(r0 + r) * row_words + w0 + 4 * j);
+    // stage s = (tile s / n_kc, K-chunk s % n_kc) into ring slot s % stages;
+    // the masks' words are whole k-steps (0 past the row)
+    auto issue = [&](int s) {
+      if (s < n_st) {
+        const int r0 = n_begin + (s / n_kc) * ROWS;
+        const int w0 = (s % n_kc) * chunk;
+        const int ww = min(chunk, row_words - w0);
+        const int r_here = min(ROWS, n_end - r0);
+        uint32_t* buf = ring + (s % stages) * stage_words;
+        if (vec) {
+          const int segs = ww / 4;
+          for (int e = threadIdx.x; e < r_here * segs; e += blockDim.x) {
+            const int r = e / segs;
+            const int j = e - r * segs;
+            cp_async16(buf + r * stride + 4 * j,
+                       op + (size_t)(r0 + r) * row_words + w0 + 4 * j);
+          }
+        } else {
+          for (int e = threadIdx.x; e < r_here * ww; e += blockDim.x) {
+            const int r = e / ww;
+            const int j = e - r * ww;
+            cp_async4(buf + r * stride + j,
+                      op + (size_t)(r0 + r) * row_words + w0 + j);
+          }
         }
+        if (!whole) {
+          const int segs = (ww + 7) / 8 * 2;
+          uint32_t* mb = buf + ROWS * stride;
+          for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
+            const int qi = e / segs;
+            const int j = e - qi * segs;
+            cp_async16(mb + qi * stride + 4 * j,
+                       masks + (size_t)(b0 + qi) * mw + w0 + 4 * j);
+          }
+        }
+      }
+      cp_async_commit();  // an empty group past the last stage
+    };
+    if (whole) {  // the block's masks, once, in the first stage's group
+      const int segs = mw / 4;
+      for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
+        const int qi = e / segs;
+        const int j = e - qi * segs;
+        cp_async16(mres + qi * stride + 4 * j,
+                   masks + (size_t)(b0 + qi) * mw + 4 * j);
+      }
+    }
+    for (int s = 0; s < stages - 1; ++s) issue(s);
+    for (int e = lane; e < TQ * P; e += 32) keys[e] = PAD;
+
+    const bool active = warp * TQ < q_here;  // slots fill in order
+    uint32_t own[2];  // the k-th key of slot g + 8 i's list
+    int count[2];     // its candidates
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      own[i] = warp * TQ + g + 8 * i < q_here ? PAD : 0u;  // else none
+      count[i] = 0;
+    }
+    int acc[8][4];      // slots g, g + 8 x rows 2 t, 2 t + 1 of n-tile j
+    unsigned pen = 0u;  // bit 2 j + h: row 8 j + 2 t + h of the tile masked
+    // A: lanes 0-15 mask rows 0-15 words 0-3, lanes 16-31 words 4-7; B: two
+    // n-tiles' rows, words 0-3 and 4-7
+    const int a_off =
+        (warp * TQ + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride +
+        4 * (lane >> 4);
+    const int b_off = ((lane >> 4) * 8 + (lane & 7)) * stride +
+                      4 * ((lane >> 3) & 1);
+
+    for (int s = 0; s < n_st; ++s) {
+      if (stages == 2) {
+        cp_async_wait<0>();
+      } else if (stages == 3) {
+        cp_async_wait<1>();
       } else {
-        for (int e = threadIdx.x; e < r_here * ww; e += blockDim.x) {
-          const int r = e / ww;
-          const int j = e - r * ww;
-          cp_async4(buf + r * stride + j,
-                    op + (size_t)(r0 + r) * row_words + w0 + j);
+        cp_async_wait<2>();
+      }
+      __syncthreads();  // stage s (and the masks) for every warp; the slot
+      issue(s + stages - 1);  // refilled here was last read in stage s - 1
+      if (!active) continue;
+      const int tile = s / n_kc;
+      const int kc = s - tile * n_kc;
+      const int r0 = n_begin + tile * ROWS;
+      const uint32_t* buf = ring + (s % stages) * stage_words;
+      if (kc == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[j][c] = 0;
+        pen = 0u;
+        if (valid != nullptr) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int n = r0 + 8 * j + 2 * t + h;
+              if (n < n_end && valid[n] == 0) pen |= 1u << (2 * j + h);
+            }
         }
       }
-      if (!whole) {
-        const int segs = (ww + 7) / 8 * 2;
-        uint32_t* mb = buf + ROWS * stride;
-        for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
-          const int qi = e / segs;
-          const int j = e - qi * segs;
-          cp_async16(mb + qi * stride + 4 * j,
-                     masks + (size_t)(b0 + qi) * mw + w0 + 4 * j);
+      const uint32_t* a_ptr = (whole ? mres : buf + ROWS * stride) + a_off;
+      const uint32_t* b_ptr = buf + b_off;
+      const int ksteps = (min(chunk, row_words - kc * chunk) + 7) / 8;
+      uint32_t a[2][4], bf[2][4][4];
+      auto load = [&](int ks, int slot) {
+        ldsm_x4(a[slot], a_ptr + 8 * ks);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ldsm_x4(bf[slot][i], b_ptr + 16 * i * stride + 8 * ks);
+        }
+      };
+      load(0, 0);
+      for (int ks = 0; ks < ksteps; ks += 2) {
+        if (ks + 1 < ksteps) load(ks + 1, 1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_u8(acc[2 * i], a[0], bf[0][i][0], bf[0][i][1]);
+          mma_u8(acc[2 * i + 1], a[0], bf[0][i][2], bf[0][i][3]);
+        }
+        if (ks + 1 < ksteps) {
+          if (ks + 2 < ksteps) load(ks + 2, 0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            mma_u8(acc[2 * i], a[1], bf[1][i][0], bf[1][i][1]);
+            mma_u8(acc[2 * i + 1], a[1], bf[1][i][2], bf[1][i][3]);
+          }
         }
       }
-    }
-    cp_async_commit();  // an empty group past the last stage
-  };
-  if (whole) {  // the block's masks, once, in the first stage's group
-    const int segs = mw / 4;
-    for (int e = threadIdx.x; e < q_here * segs; e += blockDim.x) {
-      const int qi = e / segs;
-      const int j = e - qi * segs;
-      cp_async16(mres + qi * stride + 4 * j,
-                 masks + (size_t)(b0 + qi) * mw + 4 * j);
-    }
-  }
-  for (int s = 0; s < stages - 1; ++s) issue(s);
-  for (int e = lane; e < TQ * P; e += 32) keys[e] = PAD;
+      if (kc != n_kc - 1) continue;
 
-  const bool active = warp * TQ < q_here;  // slots fill in order
-  uint32_t own[2];  // the k-th key of slot g + 8 i's list
-  int count[2];     // its candidates
+      // the tile's selection, on the accumulators: the compact key of slot
+      // g + 8 i and row 8 j + 2 t + h
+#define TILE_KEY(j, i, h)                                                   \
+    (r0 + 8 * (j) + 2 * t + (h) < n_end                                       \
+         ? (((pen >> (2 * (j) + (h))) & 1u) << 31) |                          \
+               (static_cast<uint32_t>(acc[j][2 * (i) + (h)]) << rb) |         \
+               static_cast<uint32_t>(r0 - n_begin + 8 * (j) + 2 * t + (h))    \
+         : PAD)
+      int c[2], tot[2];  // the lane's and its quad's keys below own[i]
+      auto tally = [&]() {
+        c[0] = c[1] = 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    own[i] = warp * TQ + g + 8 * i < q_here ? PAD : 0u;  // else none
-    count[i] = 0;
-  }
-  int acc[8][4];      // slots g, g + 8 x rows 2 t, 2 t + 1 of n-tile j
-  unsigned pen = 0u;  // bit 2 j + h: row 8 j + 2 t + h of the tile masked
-  // A: lanes 0-15 mask rows 0-15 words 0-3, lanes 16-31 words 4-7; B: two
-  // n-tiles' rows, words 0-3 and 4-7
-  const int a_off = (warp * TQ + (lane & 7) + 8 * ((lane >> 3) & 1)) * stride +
-                    4 * (lane >> 4);
-  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * stride +
-                    4 * ((lane >> 3) & 1);
-
-  for (int s = 0; s < n_st; ++s) {
-    if (stages == 2) {
-      cp_async_wait<0>();
-    } else if (stages == 3) {
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<2>();
-    }
-    __syncthreads();  // stage s (and the masks) for every warp; the slot
-    issue(s + stages - 1);  // refilled here was last read in stage s - 1
-    if (!active) continue;
-    const int tile = s / n_kc;
-    const int kc = s - tile * n_kc;
-    const int r0 = n_begin + tile * ROWS;
-    const uint32_t* buf = ring + (s % stages) * stage_words;
-    if (kc == 0) {
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][c] = 0;
-      pen = 0u;
-      if (valid != nullptr) {
+            for (int i = 0; i < 2; ++i) c[i] += TILE_KEY(j, i, h) < own[i];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          tot[i] = c[i] + __shfl_xor_sync(FULL, c[i], 1);
+          tot[i] += __shfl_xor_sync(FULL, tot[i], 2);
+        }
+      };
+      tally();
+      unsigned over[2];  // bit 4 g': slot g' + 8 i's candidates would overflow
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        over[i] = __ballot_sync(FULL, t == 0 && count[i] + tot[i] > H);
+      }
+      if ((over[0] | over[1]) != 0u) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          while (over[i] != 0u) {
+            const int src = __ffs(over[i]) - 1;
+            over[i] &= over[i] - 1u;
+            uint32_t* kq = keys + ((src >> 2) + 8 * i) * P;
+            fold_half(kq, H, __shfl_sync(FULL, count[i], src), lane);
+            const uint32_t kth = kq[k - 1];
+            if (g == (src >> 2)) {
+              own[i] = kth;
+              count[i] = 0;
+            }
+          }
+        }
+        tally();
+      }
+      if (__any_sync(FULL, (c[0] | c[1]) != 0)) {
+        int pos[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // the lane's first slot: its quad's
+          int x = c[i];                // exclusive prefix
+          int y = __shfl_up_sync(FULL, x, 1, 4);
+          if (t >= 1) x += y;
+          y = __shfl_up_sync(FULL, x, 2, 4);
+          if (t >= 2) x += y;
+          pos[i] = H + count[i] + x - c[i];
+          count[i] += tot[i];
+        }
+        uint32_t* kq0 = keys + g * P;
+        uint32_t* kq1 = keys + (g + 8) * P;
 #pragma unroll
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int n = r0 + 8 * j + 2 * t + h;
-            if (n < n_end && valid[n] == 0) pen |= 1u << (2 * j + h);
+            const uint32_t k0 = TILE_KEY(j, 0, h);
+            const uint32_t k1 = TILE_KEY(j, 1, h);
+            if (k0 < own[0]) kq0[pos[0]++] = k0;
+            if (k1 < own[1]) kq1[pos[1]++] = k1;
           }
+        __syncwarp();
       }
-    }
-    const uint32_t* a_ptr = (whole ? mres : buf + ROWS * stride) + a_off;
-    const uint32_t* b_ptr = buf + b_off;
-    const int ksteps = (min(chunk, row_words - kc * chunk) + 7) / 8;
-    uint32_t a[2][4], bf[2][4][4];
-    auto load = [&](int ks, int slot) {
-      ldsm_x4(a[slot], a_ptr + 8 * ks);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ldsm_x4(bf[slot][i], b_ptr + 16 * i * stride + 8 * ks);
-      }
-    };
-    load(0, 0);
-    for (int ks = 0; ks < ksteps; ks += 2) {
-      if (ks + 1 < ksteps) load(ks + 1, 1);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        mma_u8(acc[2 * i], a[0], bf[0][i][0], bf[0][i][1]);
-        mma_u8(acc[2 * i + 1], a[0], bf[0][i][2], bf[0][i][3]);
-      }
-      if (ks + 1 < ksteps) {
-        if (ks + 2 < ksteps) load(ks + 2, 0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          mma_u8(acc[2 * i], a[1], bf[1][i][0], bf[1][i][1]);
-          mma_u8(acc[2 * i + 1], a[1], bf[1][i][2], bf[1][i][3]);
-        }
-      }
-    }
-    if (kc != n_kc - 1) continue;
-
-    // the tile's selection, on the accumulators: the compact key of slot
-    // g + 8 i and row 8 j + 2 t + h
-#define TILE_KEY(j, i, h)                                                   \
-  (r0 + 8 * (j) + 2 * t + (h) < n_end                                       \
-       ? (((pen >> (2 * (j) + (h))) & 1u) << 31) |                          \
-             (static_cast<uint32_t>(acc[j][2 * (i) + (h)]) << rb) |         \
-             static_cast<uint32_t>(r0 - n_begin + 8 * (j) + 2 * t + (h))    \
-       : PAD)
-    int c[2], tot[2];  // the lane's and its quad's keys below own[i]
-    auto tally = [&]() {
-      c[0] = c[1] = 0;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) c[i] += TILE_KEY(j, i, h) < own[i];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tot[i] = c[i] + __shfl_xor_sync(FULL, c[i], 1);
-        tot[i] += __shfl_xor_sync(FULL, tot[i], 2);
-      }
-    };
-    tally();
-    unsigned over[2];  // bit 4 g': slot g' + 8 i's candidates would overflow
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      over[i] = __ballot_sync(FULL, t == 0 && count[i] + tot[i] > H);
-    }
-    if ((over[0] | over[1]) != 0u) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        while (over[i] != 0u) {
-          const int src = __ffs(over[i]) - 1;
-          over[i] &= over[i] - 1u;
-          uint32_t* kq = keys + ((src >> 2) + 8 * i) * P;
-          fold_half(kq, H, __shfl_sync(FULL, count[i], src), lane);
-          const uint32_t kth = kq[k - 1];
-          if (g == (src >> 2)) {
-            own[i] = kth;
-            count[i] = 0;
-          }
-        }
-      }
-      tally();
-    }
-    if (__any_sync(FULL, (c[0] | c[1]) != 0)) {
-      int pos[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {  // the lane's first slot: its quad's
-        int x = c[i];                // exclusive prefix
-        int y = __shfl_up_sync(FULL, x, 1, 4);
-        if (t >= 1) x += y;
-        y = __shfl_up_sync(FULL, x, 2, 4);
-        if (t >= 2) x += y;
-        pos[i] = H + count[i] + x - c[i];
-        count[i] += tot[i];
-      }
-      uint32_t* kq0 = keys + g * P;
-      uint32_t* kq1 = keys + (g + 8) * P;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const uint32_t k0 = TILE_KEY(j, 0, h);
-          const uint32_t k1 = TILE_KEY(j, 1, h);
-          if (k0 < own[0]) kq0[pos[0]++] = k0;
-          if (k1 < own[1]) kq1[pos[1]++] = k1;
-        }
-      __syncwarp();
-    }
 #undef TILE_KEY
+    }
+
+    if (active) {
+      for (int slot = 0; slot < TQ; ++slot) {
+        const int src = 4 * (slot & 7);
+        const int cnt = __shfl_sync(FULL, slot < 8 ? count[0] : count[1], src);
+        uint32_t* kq = keys + slot * P;
+        if (cnt > 0) fold_half(kq, H, cnt, lane);
+        const int qi = warp * TQ + slot;
+        if (qi < q_here) {
+          // each compact key as its (distance, row) key
+          unsigned long long* dst =
+              out + ((size_t)(b0 + qi) * n_slices + slice) * k;
+          for (int j = lane; j < k; j += 32) {
+            const uint32_t c = kq[j];
+            const uint32_t dist = ((c & 0x7FFFFFFFu) >> rb) + ((c >> 31) << 22);
+            const uint32_t row = n_begin + (c & ((1u << rb) - 1u));
+            dst[j] = c == PAD ? PAD_KEY
+                              : (static_cast<unsigned long long>(dist) << 32) |
+                                    row;
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The one-table entry's wgmma select: k <= WG_KMAX, rows of whole 16-byte
+// segments (row_words % 4 == 0).
+// ---------------------------------------------------------------------------
+
+constexpr int WG_Q = 64;            // queries a consumer warpgroup (wgmma's M)
+constexpr int WG_QB = 2 * WG_Q;     // queries a block: two consumer warpgroups
+constexpr int WG_WARPS = 8;         // consumer warps; warp 8 is the producer
+constexpr int WG_THREADS = 32 * (WG_WARPS + 1);
+constexpr int WG_N = 128;           // rows of one wgmma (its N)
+constexpr int WG_BOX = 64;          // bytes of a TMA box's row (64B swizzle)
+constexpr int WG_H = 64;            // sorted keys a list
+constexpr int WG_C = 128;           // candidate slots a list
+constexpr int WG_P = WG_H + WG_C;
+constexpr int WG_LANE_C = WG_C / 4;  // candidate slots of each quad lane
+static_assert(WG_LANE_C == 32, "a quad lane's slots are a warp's width");
+constexpr int WG_SEG = 64;          // rows between a list's overflow checks
+constexpr int WG_KMAX = WG_H;
+constexpr int WG_WHOLE_BOXES = 3;   // columns of a row staged whole
+
+// Shared memory of a wgmma select block, byte offsets from a 1 KB aligned
+// base: a ring of `stages` slots (whole rows: the tile's 128 rows in
+// WG_WHOLE_BOXES 64-byte columns, zeros past the row; wider rows: one
+// 64-byte column of the block's 128 masks and of the tile's 256 rows),
+// each with the tile's valid bytes after its data; whole rows' masks once
+// beside the ring; the 128 lists; the mbarriers.
+struct WgSmem {
+  int stage, masks, lists, bars, total;
+};
+
+__host__ __device__ __forceinline__ int wg_data(bool whole) {
+  return (whole ? WG_WHOLE_BOXES * WG_N : WG_QB + 2 * WG_N) * WG_BOX;
+}
+
+__host__ __device__ __forceinline__ WgSmem wg_smem(bool whole, int stages) {
+  WgSmem m;
+  m.stage =
+      (wg_data(whole) + (whole ? WG_N : 2 * WG_N) + 1023) / 1024 * 1024;
+  m.masks = stages * m.stage;
+  m.lists = m.masks + (whole ? WG_WHOLE_BOXES * WG_QB * WG_BOX : 0);
+  m.bars = m.lists + WG_QB * WG_P * 4;
+  m.total = m.bars + (2 * stages + 2) * 8 + 1024;  // + the alignment
+  return m;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival of a warp, by its lane 0: predicated inside the asm, so that
+// no branch is left around the warpgroup's wgmmas.
+__device__ __forceinline__ void mbar_arrive_warp(uint32_t bar, int lane) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.s32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}" ::"r"(bar),
+      "r"(lane)
+      : "memory");
+}
+
+// Until the phase of `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One TMA box of a tensor map into shared memory, its bytes counted on
+// `bar`.
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       int x, int y, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(uint32_t dst, const CUtensorMap* map,
+                                       int x, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(bar)
+      : "memory");
+}
+
+// A wgmma operand: rows of 64 bytes of K in the 64-byte swizzle the TMA
+// boxes write (layout type 2), 8-row groups 512 bytes apart; addr is the
+// shared address of row 0's K-step (a box's start, + 32 for its second).
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps reads of acc after the wg_wait that completes it.
+__device__ __forceinline__ void wg_hold(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// acc (64 x 128, s32) = A (64 x 32 u8) B (128 x 32 u8)^T + (scale_d ?
+// acc : 0), both operands K-major in shared memory behind their
+// descriptors: one wgmma of a consumer warpgroup, asynchronous until
+// wg_wait. Exact: every sum of 8-bit fields here is below 2**24.
+__device__ __forceinline__ void wgmma_u8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// Distances below this can make a key below `own` (a list's k-th key):
+// own's distance where own is a valid row's key (a later row of that
+// distance has a larger row), every distance where it is a masked row's
+// or the all-ones key, none for a slot without a query (own 0).
+__device__ __forceinline__ int wg_thr(uint32_t own, int rb) {
+  return (own >> 31) ? 0x7FFFFFFF
+                     : static_cast<int>((own & 0x7FFFFFFFu) >> rb);
+}
+
+// A query's shared bound, held as 1 + the least k-th distance of a valid
+// row that any of its units' lists holds: k of its keys lie below it, so
+// no row of a distance at or above it is in its result. A list publishes
+// its k-th key (a valid row's) whenever it folds.
+__device__ __forceinline__ void wg_publish(int* bound, uint32_t kth,
+                                           int rb) {
+  if ((kth >> 31) == 0u) {
+    atomicMin(bound, static_cast<int>(kth >> rb) + 1);
+  }
+}
+
+// A query's shared bound, read from L2 (other blocks update it); used a
+// tile after it is read, so that the read's latency hides.
+__device__ __forceinline__ int wg_bound(const int* bound) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(bound));
+  return v;
+}
+
+// One warp folds list kq's candidates into its sorted keys kq[0, WG_H):
+// the WG_H smallest of both, sorted. Lane t of the list's quad (its first
+// lane `quad`) holds candidates kq[WG_H + 32 t, + its count c): each lane
+// passes its own count, the unfilled slots are padded, then the
+// candidates are sorted and the elementwise minimum of the sorted keys
+// with the 64 smallest candidates reversed (a bitonic sequence of the 64
+// smallest of both) is merged.
+__device__ __forceinline__ void wg_fold(uint32_t* kq, int c, int quad,
+                                        int lane) {
+#pragma unroll
+  for (int sub = 0; sub < 4; ++sub) {
+    if (lane >= __shfl_sync(FULL, c, quad + sub)) {
+      kq[WG_H + sub * WG_LANE_C + lane] = ~0u;
+    }
+  }
+  __syncwarp();
+  uint32_t x[WG_H / 32], y[WG_C / 32];
+#pragma unroll
+  for (int i = 0; i < WG_H / 32; ++i) x[i] = kq[i * 32 + lane];
+#pragma unroll
+  for (int i = 0; i < WG_C / 32; ++i) y[i] = kq[WG_H + i * 32 + lane];
+  warp_sort<WG_C / 32>(y, lane);
+#pragma unroll
+  for (int i = 0; i < WG_H / 32; ++i) {
+    x[i] = min(x[i], __shfl_sync(FULL, y[WG_H / 32 - 1 - i], 31 - lane));
+  }
+  warp_clean<WG_H / 32>(x, lane);
+#pragma unroll
+  for (int i = 0; i < WG_H / 32; ++i) kq[i * 32 + lane] = x[i];
+  __syncwarp();
+}
+
+// The valid bytes of a 128-row tile as 4 masks a warp holds alike: bit l
+// of vm[x] is row 4 l + x's (all ones where no row is masked), so that a
+// slot is released as soon as its wgmmas are done.
+__device__ __forceinline__ void wg_valid(const uint8_t* vb, unsigned (&vm)[4],
+                                         int lane) {
+  const uint32_t w =
+      vb != nullptr ? reinterpret_cast<const uint32_t*>(vb)[lane] : FULL;
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    vm[x] = __ballot_sync(FULL, ((w >> (8 * x)) & 0xFFu) != 0u);
+  }
+}
+
+// The selection of a 64 x 128 distance tile by one consumer warp: its 16
+// queries (slots g, g + 8 of its quad) x rows r0 + 8 j + 2 t + h (acc[4 j
+// + 2 i + h], the wgmma's layout). A lane first marks the 8-row blocks j
+// where one of its 4 distances is below its query's threshold (unrolled,
+// one compare a distance); then, each 64 rows, the lists where a quad
+// lane's candidate slots could overflow are folded, and the lane walks
+// its marked blocks of those rows through one shared body (a switch takes
+// the block's 4 accumulators by constant index): a key below its query's
+// k-th key takes the lane's next candidate slot of that list. So the code
+// that rarely runs exists once, not once a block, and no lane waits on
+// another's. vm: the tile's valid rows (wg_valid); cnt: the lane's
+// candidates in its 2 lists; qb: the 16 queries' shared bounds, where a
+// fold publishes its list's k-th key.
+__device__ __forceinline__ void wg_select(const int (&acc)[64], int r0,
+                                          int n_begin, int n_end, int rb,
+                                          int k, const unsigned (&vm)[4],
+                                          uint32_t* lists, int* qb,
+                                          int (&cnt)[2], uint32_t (&own)[2],
+                                          int (&thr)[2], int lane) {
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  unsigned marked = 0u;  // bit j: block j holds a distance below threshold
+#pragma unroll
+  for (int j = 0; j < WG_N / 8; ++j) {
+    marked |= static_cast<unsigned>((acc[4 * j] < thr[0]) |
+                                    (acc[4 * j + 1] < thr[0]) |
+                                    (acc[4 * j + 2] < thr[1]) |
+                                    (acc[4 * j + 3] < thr[1]))
+              << j;
+  }
+#pragma unroll 1
+  for (int seg = 0; seg < WG_N / WG_SEG; ++seg) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {  // a lane adds at most WG_SEG / 4 a list
+      unsigned over =
+          __ballot_sync(FULL, cnt[i] > WG_LANE_C - WG_SEG / 4);
+      while (over != 0u) {
+        const int quad = (__ffs(over) - 1) & ~3;
+        over &= ~(0xFu << quad);
+        uint32_t* kq = lists + ((quad >> 2) + 8 * i) * WG_P;
+        wg_fold(kq, cnt[i], quad, lane);
+        const uint32_t kth = kq[k - 1];
+        if (g == (quad >> 2)) {
+          own[i] = kth;
+          thr[i] = wg_thr(kth, rb);
+          cnt[i] = 0;
+        }
+        if (lane == quad) wg_publish(qb + (quad >> 2) + 8 * i, kth, rb);
+      }
+    }
+    unsigned mine = (marked >> (seg * (WG_SEG / 8))) &
+                    ((1u << (WG_SEG / 8)) - 1u);
+    while (mine != 0u) {
+      const int j = seg * (WG_SEG / 8) + __ffs(mine) - 1;
+      mine &= mine - 1u;
+      int w[4];
+      switch (j) {
+        case 0:
+          w[0] = acc[0], w[1] = acc[1];
+          w[2] = acc[2], w[3] = acc[3];
+          break;
+        case 1:
+          w[0] = acc[4], w[1] = acc[5];
+          w[2] = acc[6], w[3] = acc[7];
+          break;
+        case 2:
+          w[0] = acc[8], w[1] = acc[9];
+          w[2] = acc[10], w[3] = acc[11];
+          break;
+        case 3:
+          w[0] = acc[12], w[1] = acc[13];
+          w[2] = acc[14], w[3] = acc[15];
+          break;
+        case 4:
+          w[0] = acc[16], w[1] = acc[17];
+          w[2] = acc[18], w[3] = acc[19];
+          break;
+        case 5:
+          w[0] = acc[20], w[1] = acc[21];
+          w[2] = acc[22], w[3] = acc[23];
+          break;
+        case 6:
+          w[0] = acc[24], w[1] = acc[25];
+          w[2] = acc[26], w[3] = acc[27];
+          break;
+        case 7:
+          w[0] = acc[28], w[1] = acc[29];
+          w[2] = acc[30], w[3] = acc[31];
+          break;
+        case 8:
+          w[0] = acc[32], w[1] = acc[33];
+          w[2] = acc[34], w[3] = acc[35];
+          break;
+        case 9:
+          w[0] = acc[36], w[1] = acc[37];
+          w[2] = acc[38], w[3] = acc[39];
+          break;
+        case 10:
+          w[0] = acc[40], w[1] = acc[41];
+          w[2] = acc[42], w[3] = acc[43];
+          break;
+        case 11:
+          w[0] = acc[44], w[1] = acc[45];
+          w[2] = acc[46], w[3] = acc[47];
+          break;
+        case 12:
+          w[0] = acc[48], w[1] = acc[49];
+          w[2] = acc[50], w[3] = acc[51];
+          break;
+        case 13:
+          w[0] = acc[52], w[1] = acc[53];
+          w[2] = acc[54], w[3] = acc[55];
+          break;
+        case 14:
+          w[0] = acc[56], w[1] = acc[57];
+          w[2] = acc[58], w[3] = acc[59];
+          break;
+        case 15:
+          w[0] = acc[60], w[1] = acc[61];
+          w[2] = acc[62], w[3] = acc[63];
+          break;
+        default:
+          w[0] = w[1] = w[2] = w[3] = 0x7FFFFFFF;
+      }
+      const int col = 8 * j + 2 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const int h = e & 1;
+        if (w[e] < thr[i] && r0 + col + h < n_end) {
+          const int x = (col + h) & 3;
+          const unsigned m = x == 0 ? vm[0]
+                             : x == 1 ? vm[1]
+                             : x == 2 ? vm[2]
+                                      : vm[3];
+          const uint32_t pen = ((m >> ((col + h) >> 2)) & 1u) ^ 1u;
+          const uint32_t key = (pen << 31) |
+                               (static_cast<uint32_t>(w[e]) << rb) |
+                               static_cast<uint32_t>(r0 + col + h - n_begin);
+          if (key < own[i]) {
+            lists[(g + 8 * i) * WG_P + WG_H + t * WG_LANE_C + cnt[i]++] =
+                key;
+          }
+        }
+      }
+    }
+  }
+}
+
+// One table of N rows for every query, 8-bit packed fields, k <= WG_KMAX,
+// rows of whole 16-byte segments. A persistent block of two consumer
+// warpgroups (64 queries each: wgmma's M) and a producer warp walks the
+// units (query tile u % q_tiles of 128 queries, slice u / q_tiles of
+// slice_rows rows). The producer's lane 0 keeps a ring of `stages` TMA
+// slots full, each slot's bytes counted on its `full` mbarrier, and
+// refills a slot once every consumer warp has arrived on its `empty`
+// one; nothing else waits block-wide. WHOLE rows (up to WG_WHOLE_BOXES
+// columns of 64 bytes): a slot is a tile of 128 rows and the 128
+// queries' masks are loaded once a unit beside the ring. Wider rows: a
+// slot is one 64-byte K-column of the 128 queries' masks and of a tile of
+// 256 rows (two accumulator tiles), and the tile's selection follows its
+// last column. A tile's valid bytes come in its (last) slot; a warp
+// turns them into ballot masks and releases the slot as soon as its
+// wgmmas are done, so no slot is held through a selection. The two
+// warpgroups run apart: one selects while the other's wgmmas run. No
+// wgmma is in flight across a branch, so nothing serialises them. The
+// units of a query share a bound (`bounds`, (B,), reset by the masks
+// pass). Each unit writes one sorted list of k (distance, row) keys per
+// query for its slice to out (B, n_slices, k).
+template <bool WHOLE>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+shortlist_wgmma(const __grid_constant__ CUtensorMap tm_rows,
+                const __grid_constant__ CUtensorMap tm_masks,
+                const __grid_constant__ CUtensorMap tm_valid, int has_valid,
+                int row_bytes, int B, int N, int k, int stages,
+                int slice_rows, int n_slices, int* __restrict__ bounds,
+                unsigned long long* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  constexpr uint32_t PAD = 0xFFFFFFFFu;  // the compact all-ones key
+  constexpr int R = WHOLE ? WG_N : 2 * WG_N;  // rows a tile
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the 64B swizzle's atoms
+  uint8_t* sm = smem_raw + (base - raw);
+  const WgSmem L = wg_smem(WHOLE, stages);
+  const uint32_t full = base + L.bars;  // + 8 s
+  const uint32_t empty = full + 8 * stages;
+  const uint32_t mfull = empty + 8 * stages;
+  const uint32_t mempty = mfull + 8;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, WG_WARPS);
+    }
+    mbar_init(mfull, 1);
+    mbar_init(mempty, WG_WARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_kc = WHOLE ? 1 : (row_bytes + WG_BOX - 1) / WG_BOX;
+  const int q_tiles = (B + WG_QB - 1) / WG_QB;
+  const int units = q_tiles * n_slices;
+  const int rb = row_bits(slice_rows);
+
+  if (warp == WG_WARPS) {  // the producer
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0, mph = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int b0 = (u % q_tiles) * WG_QB;
+        const int n_begin = (u / q_tiles) * slice_rows;
+        const int n_end = min(N, n_begin + slice_rows);
+        const int tiles = (n_end - n_begin + R - 1) / R;
+        if (WHOLE) {  // once the consumers' wgmmas of the last unit are done
+          if (u != static_cast<int>(blockIdx.x)) {
+            mbar_wait(mempty, mph);
+            mph ^= 1u;
+          }
+          mbar_expect_tx(mfull, WG_WHOLE_BOXES * WG_QB * WG_BOX);
+          for (int c = 0; c < WG_WHOLE_BOXES; ++c) {
+            tma_2d(base + L.masks + c * WG_QB * WG_BOX, &tm_masks,
+                   c * WG_BOX, b0, mfull);
+          }
+        }
+        for (int t = 0; t < tiles; ++t) {
+          const int r0 = n_begin + t * R;
+          for (int c = 0; c < n_kc; ++c) {
+            mbar_wait(empty + 8 * s, ph ^ 1u);
+            const uint32_t slot = base + s * L.stage;
+            const uint32_t bar = full + 8 * s;
+            const int vbytes = has_valid && c == n_kc - 1 ? R : 0;
+            mbar_expect_tx(bar, wg_data(WHOLE) + vbytes);
+            if (WHOLE) {
+              for (int x = 0; x < WG_WHOLE_BOXES; ++x) {
+                tma_2d(slot + x * WG_N * WG_BOX, &tm_rows, x * WG_BOX, r0,
+                       bar);
+              }
+            } else {
+              tma_2d(slot, &tm_masks, c * WG_BOX, b0, bar);
+              tma_2d(slot + WG_QB * WG_BOX, &tm_rows, c * WG_BOX, r0, bar);
+            }
+            if (vbytes) tma_1d(slot + wg_data(WHOLE), &tm_valid, r0, bar);
+            if (++s == stages) {
+              s = 0;
+              ph ^= 1u;
+            }
+          }
+        }
+      }
+    }
+    return;
   }
 
-  if (active) {
-    for (int slot = 0; slot < TQ; ++slot) {
-      const int src = 4 * (slot & 7);
-      const int cnt = __shfl_sync(FULL, slot < 8 ? count[0] : count[1], src);
-      uint32_t* kq = keys + slot * P;
-      if (cnt > 0) fold_half(kq, H, cnt, lane);
-      const int qi = warp * TQ + slot;
+  // the consumers: warp w holds block query slots 16 w .. 16 w + 15
+  const int wg = warp >> 2;
+  const int g = lane >> 2;
+  uint32_t* lists = reinterpret_cast<uint32_t*>(sm + L.lists) +
+                    warp * 16 * WG_P;
+  int s = 0;
+  uint32_t ph = 0, mph = 0;
+  auto take = [&]() {  // the next ring slot, once its bytes have landed
+    const int slot = s;
+    mbar_wait(full + 8 * s, ph);
+    if (++s == stages) {
+      s = 0;
+      ph ^= 1u;
+    }
+    return slot;
+  };
+  auto valid_of = [&](int slot) -> const uint8_t* {
+    return has_valid ? sm + slot * L.stage + wg_data(WHOLE) : nullptr;
+  };
+  int acc0[64], acc1[64];
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int b0 = (u % q_tiles) * WG_QB;
+    const int slice = u / q_tiles;
+    const int n_begin = slice * slice_rows;
+    const int n_end = min(N, n_begin + slice_rows);
+    const int tiles = (n_end - n_begin + R - 1) / R;
+    const int q_here = min(WG_QB, B - b0);
+    int* qb = bounds + b0 + warp * 16;  // the warp's queries' bounds
+    for (int e = lane; e < 16 * WG_H; e += 32) {
+      lists[(e / WG_H) * WG_P + e % WG_H] = PAD;
+    }
+    __syncwarp();
+    uint32_t own[2];  // the k-th key of slot g + 8 i's list
+    int thr[2];
+    int cnt[2] = {0, 0};  // the lane's candidates in that list
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      own[i] = warp * 16 + g + 8 * i < q_here ? PAD : 0u;  // else none
+      thr[i] = wg_thr(own[i], rb);
+    }
+    if (WHOLE) {
+      mbar_wait(mfull, mph);
+      mph ^= 1u;
+      const uint32_t a0 = base + L.masks + wg * WG_Q * WG_BOX;
+      int gb[2] = {0x7FFFFFFF, 0x7FFFFFFF};  // shared bounds, a tile old
+      for (int t = 0; t < tiles; ++t) {
+        const int slot = take();
+        const uint32_t b = base + slot * L.stage;
+        wg_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2 * WG_WHOLE_BOXES; ++ks) {
+          const int col = (ks >> 1) * WG_BOX * 128 + (ks & 1) * 32;
+          wgmma_u8(acc0, wg_desc(a0 + col), wg_desc(b + col), ks);
+        }
+        wg_commit();
+        wg_wait<0>();
+        wg_hold(acc0);
+        if (t == tiles - 1) {
+          mbar_arrive_warp(mempty, lane);  // the unit's masks read
+        }
+        unsigned vm[4];
+        wg_valid(valid_of(slot), vm, lane);
+        mbar_arrive_warp(empty + 8 * slot, lane);  // the slot read
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // the bounds read a tile ago, and
+          thr[i] = min(thr[i], gb[i]);  // the next tile's, read under this
+          gb[i] = thr[i] != 0 ? wg_bound(qb + g + 8 * i) : 0;  // selection
+        }
+        wg_select(acc0, n_begin + t * WG_N, n_begin, n_end, rb, k, vm,
+                  lists, qb, cnt, own, thr, lane);
+      }
+    } else {
+      int gb[2] = {0x7FFFFFFF, 0x7FFFFFFF};  // shared bounds, a tile old
+      for (int t = 0; t < tiles; ++t) {
+        int slot = 0;
+        for (int c = 0; c < n_kc; ++c) {
+          slot = take();
+          const uint32_t a = base + slot * L.stage + wg * WG_Q * WG_BOX;
+          const uint32_t b = base + slot * L.stage + WG_QB * WG_BOX;
+          wg_fence();
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int sc = c > 0 || ks > 0;
+            wgmma_u8(acc0, wg_desc(a + 32 * ks), wg_desc(b + 32 * ks), sc);
+            wgmma_u8(acc1, wg_desc(a + 32 * ks),
+                     wg_desc(b + WG_N * WG_BOX + 32 * ks), sc);
+          }
+          wg_commit();
+          wg_wait<0>();
+          if (c != n_kc - 1) mbar_arrive_warp(empty + 8 * slot, lane);
+        }
+        wg_hold(acc0);
+        wg_hold(acc1);
+        const uint8_t* vb = valid_of(slot);
+        unsigned vm0[4], vm1[4];
+        wg_valid(vb, vm0, lane);
+        wg_valid(vb != nullptr ? vb + WG_N : nullptr, vm1, lane);
+        mbar_arrive_warp(empty + 8 * slot, lane);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {  // as for whole rows
+          thr[i] = min(thr[i], gb[i]);
+          gb[i] = thr[i] != 0 ? wg_bound(qb + g + 8 * i) : 0;
+        }
+        const int r0 = n_begin + t * R;
+        wg_select(acc0, r0, n_begin, n_end, rb, k, vm0, lists, qb, cnt, own,
+                  thr, lane);
+        wg_select(acc1, r0 + WG_N, n_begin, n_end, rb, k, vm1, lists, qb,
+                  cnt, own, thr, lane);
+      }
+    }
+    // fold what is left and write each query's k keys
+    for (int slot = 0; slot < 16; ++slot) {
+      uint32_t* kq = lists + slot * WG_P;
+      const int quad = 4 * (slot & 7);
+      const int c = slot < 8 ? cnt[0] : cnt[1];
+      int left = 0;
+#pragma unroll
+      for (int sub = 0; sub < 4; ++sub) {
+        left += __shfl_sync(FULL, c, quad + sub);
+      }
+      if (left > 0) wg_fold(kq, c, quad, lane);
+      const int qi = warp * 16 + slot;
       if (qi < q_here) {
-        // each compact key as its (distance, row) key
+        if (lane == 0) wg_publish(qb + slot, kq[k - 1], rb);
         unsigned long long* dst =
             out + ((size_t)(b0 + qi) * n_slices + slice) * k;
         for (int j = lane; j < k; j += 32) {
-          const uint32_t c = kq[j];
-          const uint32_t dist = ((c & 0x7FFFFFFFu) >> rb) + ((c >> 31) << 22);
-          const uint32_t row = n_begin + (c & ((1u << rb) - 1u));
-          dst[j] = c == PAD ? PAD_KEY
-                            : (static_cast<unsigned long long>(dist) << 32) |
-                                  row;
+          const uint32_t key = kq[j];
+          const uint32_t dist =
+              ((key & 0x7FFFFFFFu) >> rb) + ((key >> 31) << 22);
+          const uint32_t row = n_begin + (key & ((1u << rb) - 1u));
+          dst[j] = key == PAD ? PAD_KEY
+                              : (static_cast<unsigned long long>(dist) << 32) |
+                                    row;
         }
       }
     }
+    __syncwarp();
   }
 }
 
@@ -1428,6 +2097,98 @@ int merge_lists(unsigned long long* a, unsigned long long* bscr,
   return 0;
 }
 
+// The dynamic shared memory a kernel may take, set once per device (and
+// again only for a larger size): cudaFuncSetAttribute is not repeated on
+// the serving path.
+template <typename F>
+int allow_smem(F* kernel, int bytes, int (&done)[16]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 16 && done[dev] >= bytes) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 0 && dev < 16) done[dev] = bytes;
+  return 0;
+}
+
+// The (B, mw) one-hot masks of both one-table selects (and the wgmma
+// select's bounds reset).
+int launch_masks(const int* qw, int B, int d, int row_words, uint32_t* masks,
+                 int* bounds, cudaStream_t st) {
+  const int mw = 8 * ((row_words + 7) / 8);
+  const long long words = (long long)B * mw;
+  shortlist_masks<<<static_cast<unsigned>((words + 255) / 256), 256, 0,
+                    st>>>(qw, B, d, row_words, mw, masks, bounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
+// (the library links no libcuda of its own); null where there is none.
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map of `rows` rows of `width` bytes (a multiple of 16), boxes
+// of 64 bytes x box_rows rows in the 64-byte swizzle (zeros past the
+// edges); rank 1 (box_rows 0): `width` bytes, boxes of `box` bytes.
+bool tensor_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+                unsigned long long width, unsigned long long rows,
+                unsigned box_rows, unsigned box) {
+  const cuuint64_t dims[2] = {width, rows};
+  const cuuint64_t strides[1] = {width};
+  const cuuint32_t boxes[2] = {box_rows ? static_cast<cuuint32_t>(WG_BOX)
+                                        : static_cast<cuuint32_t>(box),
+                               box_rows};
+  const cuuint32_t steps[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, box_rows ? 2 : 1,
+             const_cast<void*>(ptr), dims, strides, boxes, steps,
+             CU_TENSOR_MAP_INTERLEAVE_NONE,
+             box_rows ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What the wgmma select takes (kernels/shortlist.py::shortlist_plan and
+// wgmma_route): as select_ok, with k <= WG_KMAX, rows of whole 16-byte
+// segments at 16-byte aligned addresses, slices of whole tiles, a ring of
+// 3 to 8 slots, and rows of up to 3 columns of 64 bytes when WHOLE.
+bool wgmma_ok(int B, int N, int d, int k, int row_words, const void* op,
+              const void* valid, int whole, int stages, int slice_rows,
+              int blocks) {
+  const int R = whole ? WG_N : 2 * WG_N;
+  const int n_box = (4 * row_words + WG_BOX - 1) / WG_BOX;
+  return B >= 1 && B <= 65535 && N >= 1 && k >= 1 && k <= WG_KMAX &&
+         k <= N && d >= 1 && 255LL * d < (1LL << 22) && row_words >= d &&
+         row_words % 4 == 0 &&
+         (reinterpret_cast<uintptr_t>(op) & 15) == 0 &&
+         (reinterpret_cast<uintptr_t>(valid) & 15) == 0 &&
+         (!whole || n_box <= WG_WHOLE_BOXES) && stages >= 3 &&
+         stages <= 8 &&
+         slice_rows >= R && slice_rows % R == 0 &&
+         slice_rows <= (1 << 24) &&
+         255LL * d + 1 < (1LL << (31 - row_bits(slice_rows))) &&
+         blocks >= 1 &&
+         wg_smem(whole != 0, stages).total <= SMEM_MAX;
+}
+
 }  // namespace
 
 extern "C" const char* repro_error_string(int err) {
@@ -1449,33 +2210,28 @@ extern "C" int shortlist_launch(const void* qw, const void* op,
                                 int row_words, const void* valid, int B,
                                 int N, int d, int k, int warps, int P,
                                 int chunk, int stages, int slice_rows,
-                                void* mask_scratch, void* scratch_a,
-                                void* scratch_b, void* out_keys,
-                                void* stream) {
+                                int blocks, void* mask_scratch,
+                                void* scratch_a, void* scratch_b,
+                                void* out_keys, void* stream) {
   if (!select_ok(B, N, d, k, row_words, warps, P, chunk, stages,
-                 slice_rows)) {
+                 slice_rows) ||
+      blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mw = 8 * ((row_words + 7) / 8);
   auto* masks = static_cast<uint32_t*>(mask_scratch);
-  const long long words = (long long)B * mw;
-  shortlist_masks<<<static_cast<unsigned>((words + 255) / 256), 256, 0,
-                    st>>>(static_cast<const int*>(qw), B, d, row_words, mw,
-                          masks);
-  int err = static_cast<int>(cudaGetLastError());
+  int err = launch_masks(static_cast<const int*>(qw), B, d, row_words, masks,
+                         nullptr, st);
   if (err != 0) return err;
+  static int smem_set[16] = {};
   const int smem = select_smem(warps, P, row_words, chunk, stages);
-  err = static_cast<int>(cudaFuncSetAttribute(
-      shortlist_select, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  err = allow_smem(shortlist_select, smem, smem_set);
   if (err != 0) return err;
-  const int qb = warps * TQ;
   const int n_slices = (N + slice_rows - 1) / slice_rows;
-  const long long blocks = (long long)((B + qb - 1) / qb) * n_slices;
-  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
   auto* a = static_cast<unsigned long long*>(scratch_a);
   auto* out = static_cast<unsigned long long*>(out_keys);
-  shortlist_select<<<static_cast<unsigned>(blocks), warps * 32, smem, st>>>(
+  shortlist_select<<<blocks, warps * 32, smem, st>>>(
       masks, mw, static_cast<const uint32_t*>(op), row_words,
       static_cast<const uint8_t*>(valid), B, N, k, P, chunk, stages,
       slice_rows, n_slices, n_slices == 1 ? out : a);
@@ -1483,6 +2239,67 @@ extern "C" int shortlist_launch(const void* qw, const void* op,
   if (err != 0) return err;
   return merge_lists(a, static_cast<unsigned long long*>(scratch_b),
                             out, nullptr, B, n_slices, k, st);
+}
+
+// The wgmma select's entry, for k <= WG_KMAX and row_words % 4 == 0 (the
+// rest as shortlist_launch): whole (rows of up to 3 columns of 64 bytes,
+// tiles of 128 rows) or not (tiles of 256 rows in 64-byte K-columns), a
+// ring of `stages` slots, slice_rows a unit, `blocks` persistent blocks
+// (from kernels/shortlist.py::shortlist_plan). Returns cudaGetLastError()
+// of the first failing launch, cudaErrorNotSupported where no tensor map
+// can be encoded, else 0. mask_scratch holds B * mw + B int32
+// words: the masks, then each query's shared bound.
+extern "C" int shortlist_wgmma_launch(const void* qw, const void* op,
+                                      int row_words, const void* valid,
+                                      int B, int N, int d, int k, int whole,
+                                      int stages, int slice_rows, int blocks,
+                                      void* mask_scratch, void* scratch_a,
+                                      void* scratch_b, void* out_keys,
+                                      void* stream) {
+  if (!wgmma_ok(B, N, d, k, row_words, op, valid, whole, stages, slice_rows,
+                blocks)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int mw = 8 * ((row_words + 7) / 8);
+  auto* masks = static_cast<uint32_t*>(mask_scratch);
+  const int R = whole ? WG_N : 2 * WG_N;
+  CUtensorMap tm_rows, tm_masks, tm_valid = {};
+  if (!tensor_map(enc, &tm_rows, op, 4ULL * row_words, N, R, 0) ||
+      !tensor_map(enc, &tm_masks, masks, 4ULL * mw, B, WG_QB, 0) ||
+      (valid != nullptr &&
+       !tensor_map(enc, &tm_valid, valid, N, 1, 0, R))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int* bounds = reinterpret_cast<int*>(masks + (size_t)B * mw);
+  int err = launch_masks(static_cast<const int*>(qw), B, d, row_words, masks,
+                         bounds, st);
+  if (err != 0) return err;
+  const int smem = wg_smem(whole != 0, stages).total;
+  const int n_slices = (N + slice_rows - 1) / slice_rows;
+  auto* a = static_cast<unsigned long long*>(scratch_a);
+  auto* out = static_cast<unsigned long long*>(out_keys);
+  auto* dst = n_slices == 1 ? out : a;
+  static int smem_set[2][16] = {};
+  if (whole) {
+    err = allow_smem(shortlist_wgmma<true>, smem, smem_set[1]);
+    if (err != 0) return err;
+    shortlist_wgmma<true><<<blocks, WG_THREADS, smem, st>>>(
+        tm_rows, tm_masks, tm_valid, valid != nullptr, 4 * row_words, B, N,
+        k, stages, slice_rows, n_slices, bounds, dst);
+  } else {
+    err = allow_smem(shortlist_wgmma<false>, smem, smem_set[0]);
+    if (err != 0) return err;
+    shortlist_wgmma<false><<<blocks, WG_THREADS, smem, st>>>(
+        tm_rows, tm_masks, tm_valid, valid != nullptr, 4 * row_words, B, N,
+        k, stages, slice_rows, n_slices, bounds, dst);
+  }
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return merge_lists(a, static_cast<unsigned long long*>(scratch_b), out,
+                     nullptr, B, n_slices, k, st);
 }
 // The block-table entry. qw (B, d) int32 query words; op (M, rows,
 // row_words) 32-bit words (kinds as shortlist_launch); valid (M, rows)

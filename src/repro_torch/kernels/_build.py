@@ -11,7 +11,8 @@ tensor.
 
 `LAUNCHES` counts, per kernel name, the wrapper calls that launched the
 kernel (a plain int per name), so a run can show which kernels it went
-through.
+through; `SELECT_PATHS` are the one-table shortlist's two selects,
+counted beside its entry so that a run shows which one ran.
 
 A wrapper given tensors off the card (`off_card`: the CPU, or the meta
 device, where only shapes exist) runs its plain version (`plain_route`).
@@ -43,7 +44,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: dict[str, int] = {"shortlist": 0, "shortlist_blocks": 0,
                             "mcam_dist": 0,
                             "mcam_search": 0, "mcam_rescore": 0,
-                            "mcam_episode": 0}
+                            "mcam_episode": 0,
+                            "shortlist_wgmma": 0, "shortlist_mma": 0}
+
+#: the one-table entry's selects: `wgmma` (k <= 64, rows of whole 16-byte
+#: segments) and `mma` (mma.sync, the rest), each counted with the entry's
+#: launch under its own name (no cost of its own: the entry's is counted)
+SELECT_PATHS = ("shortlist_wgmma", "shortlist_mma")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -53,10 +60,11 @@ TRACE: list = [None]
 
 def count_launch(name: str, shapes=None) -> None:
     """One launch of kernel `name`; `shapes()` gives its cost model's
-    arguments to a running trace."""
+    arguments to a running trace. Without `shapes` (a select path of an
+    entry already counted) the launch is counted but not traced."""
     LAUNCHES[name] += 1
-    if TRACE[0] is not None:
-        TRACE[0].launched(name, shapes or dict)
+    if TRACE[0] is not None and shapes is not None:
+        TRACE[0].launched(name, shapes)
 
 
 def profiler_range(name: str):

@@ -12,13 +12,18 @@ projection (N, 4d) bf16 / f32, or its bit-packed form (N, ceil(4d/wpi))
 int32 from `ops.pack_projection`, whose fields are `pack_bits` wide.
 
 The CUDA kernel is `csrc/shortlist.cu`. For 8-bit packed fields (every
-MTMC and CUB store) its one-table select runs the one-hot products on the
-tensor cores: a block of up to 64 queries (16 a warp) streams a slice of
-rows through a ring of K-chunks beside the queries' masks, and each query
-keeps a running top-k that sorts only the rows below its k-th key; merge
-rounds fold the slices. `shortlist_plan` cuts it. Other operand kinds
-take the block-table entry as one block of N rows that every query
-visits. `lut_shortlist_plain` is the plain version. Every route selects
+MTMC and CUB store) its one-table entry runs the one-hot products on the
+tensor cores, in one of two selects chosen from k and the row's width
+(`wgmma_route`): at k <= 64 with rows of whole 16-byte segments (the main
+path's), persistent blocks of 128 queries take rows through a TMA ring
+into `wgmma` products; otherwise blocks of up to 64 queries (16 a warp)
+stream rows through a `cp.async` ring into `mma.sync` products. Either
+way each query keeps a running top-k that sorts only the rows below its
+k-th key, and merge rounds fold the slices. `shortlist_plan` cuts both,
+once per shape; each select's launches are counted under its own name
+(`_build.SELECT_PATHS`). Other operand kinds take the block-table entry
+as one block of N rows that every query visits. `lut_shortlist_plain` is
+the plain version. Every route selects
 on one int64 key per candidate, uint64(dist) << 32 | row (the select
 packs it in 32 bits while it works), which is exact because dist +
 penalty < 2**24, so the result never depends on how a sort orders equal
@@ -43,6 +48,7 @@ and `interpret` arguments; the plans above size the CUDA kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -50,7 +56,9 @@ import torch
 from repro_torch.kernels import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"shortlist_launch": [_P, _P, _I, _P] + [_I] * 9 + [_P] * 5,
+_SIGNATURES = {"shortlist_launch": [_P, _P, _I, _P] + [_I] * 10 + [_P] * 5,
+               "shortlist_wgmma_launch": [_P, _P, _I, _P] + [_I] * 8
+                                         + [_P] * 5,
                "shortlist_blocks_launch": [_P, _P, _I, _I, _I, _P, _P, _P]
                                           + [_I] * 14 + [_P] * 6,
                "shortlist_merge_keys": []}
@@ -90,6 +98,24 @@ _ONE_STAGES = 2
 # distance of 8-bit fields while 255 d < 2**22
 _KEY_BITS = 31
 _PENALTY_BITS = 22
+# the wgmma select (csrc/shortlist.cu shortlist_wgmma), for k up to a
+# list's sorted keys and rows of whole 16-byte segments: blocks of 128
+# queries (two warpgroups of wgmma's M = 64) and a producer warp, one an
+# SM, walking (query tile, slice) units; tiles of 128 rows (wgmma's N)
+# where a row is at most 3 TMA box columns of 64 bytes (the masks then
+# resident), else of 256 rows in 64-byte K-columns beside the masks';
+# lists of 64 sorted keys and 128 candidate slots; a ring of _WG_STAGES
+# slots; the units cut so that the last round leaves at most _WG_IDLE of
+# the SMs idle (launch/time_blocks.py --variants times the constants)
+_WG_KMAX = 64
+_WG_QB = 128
+_WG_WARPS = 8
+_WG_N = 128
+_WG_BOX = 64
+_WG_WHOLE_BOXES = 3
+_WG_KEYS = 64 + 128
+_WG_STAGES = 4
+_WG_IDLE = 0.05
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -115,23 +141,52 @@ def _select_smem(warps: int, keys: int, row_words: int, chunk: int,
             * (stages * (_ROWS + (0 if whole else qb)) + (qb if whole else 0)))
 
 
+def wgmma_route(row_words: int, k: int) -> bool:
+    """Whether a tensor-core one-table call takes the wgmma select (k up
+    to a list's 64 sorted keys, rows of whole 16-byte segments, which the
+    TMA boxes need) rather than the mma.sync one: a choice of shared
+    memory and layout, from k and the row's width alone."""
+    return k <= _WG_KMAX and row_words % 4 == 0
+
+
+def _wgmma_smem(whole: bool, stages: int) -> int:
+    """Dynamic shared memory of one wgmma select block (csrc/shortlist.cu
+    wg_smem): a ring of `stages` 1 KB aligned slots (whole rows: the
+    tile's 128 rows in 3 columns of 64 bytes, zeros past a narrower row;
+    else one 64-byte column of the 128 masks and of the tile's 256 rows;
+    then the tile's valid bytes), whole rows' masks beside it, 128 lists
+    of _WG_KEYS keys, the mbarriers, and 1 KB to align the base."""
+    data = (3 * _WG_N if whole else _WG_QB + 2 * _WG_N) * _WG_BOX
+    stage = _cdiv(data + (_WG_N if whole else 2 * _WG_N), 1024) * 1024
+    masks = 3 * _WG_QB * _WG_BOX if whole else 0
+    return (stages * stage + masks + _WG_QB * _WG_KEYS * 4
+            + (2 * stages + 2) * 8 + 1024)
+
+
 @dataclass(frozen=True)
 class ShortlistPlan:
     """How csrc/shortlist.cu's one-table select cuts one call (8-bit
-    packed fields): blocks of `warps` warps of 16 queries, `keys` = sorted
-    top-k + candidate slots a query (32-bit compact keys), rows staged 64
-    at a time in K-chunks of `chunk` words (the whole row, padded to 8
-    words, where it fits _WHOLE_MAX: the masks then resident) through a
-    ring of `stages`, `smem` bytes of dynamic shared memory a block and
-    `ctas_per_sm` blocks an SM at it, `slice_rows` rows a block in
-    `slices` slices, and `mask_words` words of each query's mask in the
-    scratch."""
+    packed fields). `path`: "wgmma" (`wgmma_route`) or "mma". Blocks of
+    `warps` warps of 16 queries (the wgmma select's consumer warps), `keys`
+    = sorted keys + candidate slots a query (32-bit compact keys), rows
+    staged `tile_rows` at a time in K-chunks of `chunk` words (the whole
+    row, padded to 8 words on the mma path; the mma path's masks resident
+    when the row fits _WHOLE_MAX, the wgmma path's when `chunk` is the
+    row: `whole`) through a ring of `stages`, `smem` bytes of dynamic
+    shared memory a block and `ctas_per_sm` blocks an SM at it, `slice_rows`
+    rows a unit in `slices` slices, `blocks` persistent blocks walking
+    the (query tile, slice) units, and `mask_words` words of each query's
+    mask in the scratch."""
+    path: str
     warps: int
     keys: int
     chunk: int
+    whole: bool
     stages: int
+    tile_rows: int
     slice_rows: int
     slices: int
+    blocks: int
     smem: int
     ctas_per_sm: int
     mask_words: int
@@ -140,6 +195,10 @@ class ShortlistPlan:
     def queries(self) -> int:
         """Queries a select block."""
         return _TQ * self.warps
+
+    def units(self, b: int) -> int:
+        """(query tile, slice) units of B queries."""
+        return _cdiv(b, self.queries) * self.slices
 
     def scratch(self, b: int, k: int) -> tuple[int, int]:
         """Keys of the two merge scratch buffers (ping and pong): a merge
@@ -156,20 +215,63 @@ def _max_slice_rows(row_words: int) -> int:
     return 1 << (_KEY_BITS - (255 * row_words + 1).bit_length())
 
 
+def _persistent_units(b: int, n: int, row_words: int, queries: int,
+                      tile: int, slots: int) -> tuple[int, int]:
+    """(slice_rows, slices) of the wgmma select: slices of whole tiles,
+    at most `_max_slice_rows` rows and at least one tile each; the fewest
+    whose (query tile, slice) units leave at most _WG_IDLE of the `slots`
+    resident blocks idle in the last round, else the least idle."""
+    tiles_q = _cdiv(b, queries)
+    lo = _cdiv(n, _max_slice_rows(row_words) // tile * tile)
+    hi = min(max(lo, _cdiv(n, tile)), lo + 2 * slots)
+    best = None
+    for s in range(lo, hi + 1):
+        rows = tile * _cdiv(_cdiv(n, s), tile)
+        slices = _cdiv(n, rows)
+        units = tiles_q * slices
+        idle = _cdiv(units, slots) * slots - units
+        if best is None or idle < best[0]:
+            best = (idle, rows, slices)
+        if idle <= _WG_IDLE * slots:
+            break
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
 def shortlist_plan(b: int, n: int, row_words: int, k: int) -> ShortlistPlan:
     """The one-table select's cut for B queries over N rows of `row_words`
-    words of 8-bit fields (255 row_words < 2**22). Up to 4 warps (no more
-    than the queries fill) while the block's shared memory fits; then
-    slices of whole 64-row tiles, each at least k rows and at most
-    `_max_slice_rows`, so that the query tiles x the slices fill the 132
-    SMs once at the occupancy shared memory allows (a block's shared
-    memory and the runtime's 1 KB)."""
+    words of 8-bit fields (255 row_words < 2**22), computed once per
+    shape. The wgmma path (`wgmma_route`): one block an SM, the row whole
+    where it fits _WG_WHOLE_BOXES columns of 64 bytes and the block's
+    shared memory, and the units cut by `_persistent_units`. The mma
+    path: up to 4 warps (no more than the queries fill) while the block's
+    shared memory fits; then slices of whole 64-row tiles, each at least k
+    rows and at most `_max_slice_rows`, so that the query tiles x the
+    slices fill the 132 SMs once at the occupancy shared memory allows (a
+    block's shared memory and the runtime's 1 KB); where the key's row
+    bits need more slices, the blocks of that wave walk the rest."""
     if 255 * row_words >= 1 << _PENALTY_BITS:
         raise ValueError(f"lut_shortlist: distances over {row_words} words "
                          f"of 8-bit fields reach the mask penalty")
+    mask_words = 8 * _cdiv(row_words, 8)
+    if wgmma_route(row_words, k):
+        whole = _cdiv(4 * row_words, _WG_BOX) <= _WG_WHOLE_BOXES and \
+            _wgmma_smem(True, _WG_STAGES) <= _SMEM_MAX
+        smem = _wgmma_smem(whole, _WG_STAGES)
+        tile = _WG_N if whole else 2 * _WG_N
+        slots = _SMS * (_SM_SMEM // (smem + 1024))
+        slice_rows, slices = _persistent_units(b, n, row_words, _WG_QB,
+                                               tile, slots)
+        return ShortlistPlan(
+            path="wgmma", warps=_WG_WARPS, keys=_WG_KEYS,
+            chunk=row_words if whole else _WG_BOX // 4, whole=whole,
+            stages=_WG_STAGES,
+            tile_rows=tile, slice_rows=slice_rows, slices=slices,
+            blocks=min(_cdiv(b, _WG_QB) * slices, slots), smem=smem,
+            ctas_per_sm=slots // _SMS, mask_words=mask_words)
     keys = _keys(k)
     whole = row_words <= _WHOLE_MAX
-    chunk = 8 * _cdiv(row_words, 8) if whole else _ONE_CHUNK
+    chunk = mask_words if whole else _ONE_CHUNK
     stages = _ONE_STAGES
     most = min(4, _cdiv(b, _TQ))
     for warps in (4, 2, 1):
@@ -185,15 +287,17 @@ def shortlist_plan(b: int, n: int, row_words: int, k: int) -> ShortlistPlan:
     slices = max(1, min(_cdiv(n, max(_ROWS, k)), per_sm * _SMS // tiles),
                  _cdiv(n, _max_slice_rows(row_words)))
     slice_rows = _ROWS * _cdiv(_cdiv(n, slices), _ROWS)
-    return ShortlistPlan(warps=warps, keys=keys, chunk=chunk, stages=stages,
-                         slice_rows=slice_rows,
-                         slices=_cdiv(n, slice_rows), smem=smem,
-                         ctas_per_sm=per_sm,
-                         mask_words=8 * _cdiv(row_words, 8))
+    slices = _cdiv(n, slice_rows)
+    return ShortlistPlan(path="mma", warps=warps, keys=keys, chunk=chunk,
+                         whole=whole, stages=stages, tile_rows=_ROWS,
+                         slice_rows=slice_rows, slices=slices,
+                         blocks=min(tiles * slices, per_sm * _SMS),
+                         smem=smem, ctas_per_sm=per_sm,
+                         mask_words=mask_words)
 
 
 def tensor_core_route(kind: int, bits: int, row_words: int) -> bool:
-    """Whether a one-table call takes the tensor-core select (8-bit packed
+    """Whether a one-table call takes a tensor-core select (8-bit packed
     fields whose distances stay below the penalty, 255 row_words < 2**22)
     rather than the block-table entry."""
     return (kind == _KIND_PACKED and bits == 8
@@ -403,6 +507,14 @@ def split_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return (keys >> 32).to(torch.float32), keys & 0xFFFFFFFF
 
 
+def _split_words(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`split_keys` for keys whose rows are below 2**31 (the one-table
+    entry's: rows of an N < 2**31 table), through the keys' two int32
+    words: two copies, one launch each on the card, the same arrays."""
+    words = keys.view(torch.int32).view(*keys.shape, 2)
+    return words[..., 1].to(torch.float32), words[..., 0].to(torch.int64)
+
+
 def select_topk(dist: torch.Tensor, k: int
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The k smallest (distance, row) pairs of each row of a (B, N)
@@ -565,20 +677,32 @@ def _shortlist_cuda(q_words, s_proj, k, valid, packed, pack_bits, n,
         _build.count_launch("shortlist", shapes)
         return split_keys(keys)
     plan = shortlist_plan(B, n, row_words, k)
-    masks = torch.empty(B * plan.mask_words, dtype=torch.int32, device=dev)
+    # the masks, and on the wgmma path each query's shared bound
+    masks = torch.empty(B * (plan.mask_words + (plan.path == "wgmma")),
+                        dtype=torch.int32, device=dev)
     scratch_a, scratch_b, keys = _scratch_keys(dev, plan.scratch(B, k), B, k)
     lib = _load()
-    ints = (B, n, d, k, plan.warps, plan.keys, plan.chunk, plan.stages,
-            plan.slice_rows)
-    err = lib.shortlist_launch(
+    if plan.path == "wgmma":
+        # the TMA boxes read from 16-byte aligned addresses
+        words, valid_u8 = (t if t is None or t.data_ptr() % 16 == 0
+                           else t.clone() for t in (words, valid_u8))
+        entry = "shortlist_wgmma_launch"
+        ints = (B, n, d, k, int(plan.whole), plan.stages, plan.slice_rows,
+                plan.blocks)
+    else:
+        entry = "shortlist_launch"
+        ints = (B, n, d, k, plan.warps, plan.keys, plan.chunk, plan.stages,
+                plan.slice_rows, plan.blocks)
+    err = getattr(lib, entry)(
         _build.ptr(q), _build.ptr(words), ctypes.c_int(row_words),
         _build.ptr(valid_u8) if valid_u8 is not None else ctypes.c_void_p(0),
         *(ctypes.c_int(v) for v in ints), _build.ptr(masks),
         _build.ptr(scratch_a), _build.ptr(scratch_b), _build.ptr(keys),
         _build.stream_ptr(dev))
-    _build.check(lib, err, "shortlist_launch")
+    _build.check(lib, err, entry)
     _build.count_launch("shortlist", shapes)
-    return split_keys(keys)
+    _build.count_launch(f"shortlist_{plan.path}")
+    return _split_words(keys)
 
 
 # ---------------------------------------------------------------------------

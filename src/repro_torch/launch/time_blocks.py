@@ -24,11 +24,12 @@ Each block row holds the entry's result against its plain version bit for
 bit, and gives its CUDA-event ms and its torch.profiler device ms by pass
 (group, select, merge). With --variants (this checkout's package only)
 every block row the constant acts on is timed again under each value in
-VARIANTS of the host plan's tuning constants, and the one-table entry at
-d = 480 under each value in ONE_TABLE_VARIANTS (the K-chunk words and the
-ring's depth of its tensor-core select); a value whose select block the
-shared-memory model (analysis/vmem.py) puts over the H100's budget is
-rejected before it is timed. One JSON object a line; the last line
+VARIANTS of the host plan's tuning constants, and the one-table entry on
+both stores under each value in ONE_TABLE_VARIANTS, at the k its select
+takes (the wgmma select's ring depth and widest row staged whole at k =
+64; the mma.sync select's K-chunk words and ring depth at k = 1,024); a
+value whose select block the shared-memory model (analysis/vmem.py) puts
+over the H100's budget is rejected before it is timed. One JSON object a line; the last line
 gives the card's name and power limit.
 """
 
@@ -52,10 +53,15 @@ VARIANTS = {
     "_BLOCKS_STAGES_CHUNKED": (2, 3, 4),
 }
 CHUNKED = ("_BLOCKS_WAVES_CHUNKED", "_CHUNK_MAX", "_BLOCKS_STAGES_CHUNKED")
-# the one-table select's ring for K-chunked rows: words a chunk (a multiple
-# of 8) and slots
-ONE_TABLE_VARIANTS = {"_ONE_CHUNK": (24, 32, 40, 48),
-                      "_ONE_STAGES": (2, 3)}
+# the one-table selects' constants, each with its values and the k whose
+# select it cuts: the wgmma select's ring slots (3 to 8) and the widest
+# row it stages whole, in 64-byte columns (0: every row in K-columns; at
+# most csrc's 3); the mma.sync select's K-chunk words (a multiple of 8)
+# and ring slots for K-chunked rows
+ONE_TABLE_VARIANTS = {"_WG_STAGES": ((3, 4), 64),
+                      "_WG_WHOLE_BOXES": ((0, 3), 64),
+                      "_ONE_CHUNK": ((24, 32, 40, 48), 1024),
+                      "_ONE_STAGES": ((2, 3), 1024)}
 
 
 def main() -> int:
@@ -108,8 +114,8 @@ def main() -> int:
                 (f"{prefix}shortlist", None,
                  {"packed": store.proj_packed, "pack_bits": 8}),
                 (f"{prefix}shortlist_bf16", store.proj, {})):
-            def fn(qw=qw, sp=sp, kw=kw, valid=store.valid):
-                return shortlist.lut_shortlist(qw, sp, 64, valid=valid, **kw)
+            def fn(qw=qw, sp=sp, kw=kw, valid=store.valid, k=64):
+                return shortlist.lut_shortlist(qw, sp, k, valid=valid, **kw)
             got = fn()
             want = shortlist.lut_shortlist_plain(qw, sp, 64,
                                                  valid=store.valid, **kw)
@@ -194,24 +200,30 @@ def main() -> int:
                 out["variants"][f"{const}={v}"] = res
                 t.log(json.dumps({"variant": f"{const}={v}", **res}))
         from repro_torch.analysis import vmem
-        for const, values in ONE_TABLE_VARIANTS.items():
+        for const, (values, k) in ONE_TABLE_VARIANTS.items():
             kept = getattr(shortlist, const)
             for v in values:
                 setattr(shortlist, const, v)
+                shortlist.shortlist_plan.cache_clear()  # plans of this value
+                res = {}
                 try:
-                    check = vmem.validate_config(vmem.shortlist_smem(
-                        256, args.capacity, cub.embed_dim, 64))
-                    fn = one_calls["cub_shortlist"]
-                    res = ({"rejected": check.reason} if not check.ok else
-                           {"cub_shortlist": {
-                               "ms": t.event_ms(fn),
-                               "device_ms": t.device_ms(fn, "shortlist_"),
-                               "plan": smoke.plan_fields(
-                                   shortlist.shortlist_plan(
-                                       256, args.capacity, cub.embed_dim,
-                                       64))}})
+                    for name, d in (("shortlist", 48),
+                                    ("cub_shortlist", cub.embed_dim)):
+                        check = vmem.validate_config(vmem.shortlist_smem(
+                            256, args.capacity, d, k))
+                        fn = one_calls[name]
+                        res[name] = ({"rejected": check.reason}
+                                     if not check.ok else {
+                            "k": k,
+                            "ms": t.event_ms(lambda: fn(k=k)),
+                            "device_ms": t.device_ms(lambda: fn(k=k),
+                                                     "shortlist_"),
+                            "plan": smoke.plan_fields(
+                                shortlist.shortlist_plan(
+                                    256, args.capacity, d, k))})
                 finally:
                     setattr(shortlist, const, kept)
+                    shortlist.shortlist_plan.cache_clear()
                 out["variants"][f"{const}={v}"] = res
                 t.log(json.dumps({"variant": f"{const}={v}", **res}))
     card = smoke.gpu_line()

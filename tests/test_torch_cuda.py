@@ -94,10 +94,10 @@ def test_shortlist_kernel_matches_plain(dev, operand, n, d, ks):
 @pytest.mark.parametrize("operand", ["packed8", "packed4", "bf16"])
 def test_shortlist_kernel_at_the_cub_width(dev, operand):
     """d = 480 (4d = 1,920 LUT columns), B = 256, k = 64 and 1024: 8-bit
-    fields (MTMC CL = 25, B4E) give 480-word rows, which the tensor-core
-    select streams in K-chunks beside the masks at 2 or more blocks an SM;
-    4-bit fields (SRE) 240-word rows and bf16 960 words take the
-    block-table route."""
+    fields (MTMC CL = 25, B4E) give 480-word rows, which the wgmma select
+    streams in 64-byte K-columns beside the masks at k = 64 and the
+    mma.sync select in K-chunks at k = 1,024; 4-bit fields (SRE) 240-word
+    rows and bf16 960 words take the block-table route."""
     bits, dtype, _ = OPERANDS[operand]
     vmax = 12 if bits == 4 else 75
     n, d = 5000, 480
@@ -113,7 +113,9 @@ def test_shortlist_kernel_at_the_cub_width(dev, operand):
         kw, sp = {}, torch.as_tensor(proj).to(dtype).to(dev)
     if operand == "packed8":
         plan = shortlist.shortlist_plan(256, n, kw["packed"].shape[1], 64)
-        assert plan.chunk < kw["packed"].shape[1] and plan.ctas_per_sm >= 2
+        assert plan.path == "wgmma" and not plan.whole
+        plan = shortlist.shortlist_plan(256, n, kw["packed"].shape[1], 1024)
+        assert plan.path == "mma" and plan.chunk < kw["packed"].shape[1]
     for k in (64, 1024):
         got = shortlist.lut_shortlist(q.to(dev), sp, k, valid=valid.to(dev),
                                       **kw)
@@ -187,11 +189,13 @@ def uniform8(per_row: np.ndarray, d: int) -> np.ndarray:
 @pytest.mark.parametrize("shape", list(TC_SHAPES))
 def test_shortlist_tensor_core_select_matches_plain(dev, shape, store, k):
     """8-bit packed fields, the main path's operand: the one-table select
-    on the tensor cores against the plain version bit for bit, at every k
-    (k = 1,024: one warp of 16 queries a block), on random rows with a
-    fifth masked, rows in
-    descending distance (every row a candidate; ties in groups at d = 48,
-    where 255 d < N), all rows tied, and all rows masked."""
+    on the tensor cores against the plain version bit for bit, on both
+    paths (wgmma at k <= 64 with rows of whole 16-byte segments, whole at
+    d = 48 and in 64-byte K-columns at d = 480; mma.sync at k = 1,024,
+    one warp of 16 queries a block, and at d = 13), on random rows with
+    a fifth masked, rows in descending distance (every row a candidate;
+    ties in groups at d = 48, where 255 d < N), all rows tied, and all
+    rows masked; the path that ran is counted under its own name."""
     d, b, n = TC_SHAPES[shape]
     rng = np.random.default_rng(d + b + n + k)
     if store in ("random", "masked"):
@@ -208,10 +212,42 @@ def test_shortlist_tensor_core_select_matches_plain(dev, shape, store, k):
           "packed": torch.as_tensor(pack_words(proj, 8), device=dev),
           "pack_bits": 8}
     assert kw["packed"].shape[1] == d
+    _build.reset_launches()
     got = shortlist.lut_shortlist(q, None, k, **kw)
+    path = "wgmma" if k <= 64 and d % 4 == 0 else "mma"
+    assert shortlist.shortlist_plan(b, n, d, k).path == path
+    assert {p: _build.LAUNCHES[p] for p in _build.SELECT_PATHS} == {
+        f"shortlist_{p}": int(p == path) for p in ("wgmma", "mma")}
     want = shortlist.lut_shortlist_plain(q, None, k, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_shortlist_wgmma_select_at_the_omniglot_cell(dev):
+    """The `omniglot-2p-4m` cell's geometry: B 1,024 queries over
+    4,194,304 + 37 rows of 48 words of 8-bit fields, a fifth masked, k 64
+    (the wgmma path, whole rows, 33 slices). A sample of 64 queries is
+    held bit for bit against the plain version, in chunks of 16 queries
+    so that its (16, N) distances fit."""
+    b, n, d, k = 1024, 4194304 + 37, 48, 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(4194341)
+    packed = torch.randint(-2**31, 2**31 - 1, (n, d), dtype=torch.int32,
+                           device=dev, generator=g)
+    valid = torch.rand(n, device=dev, generator=g) > 0.2
+    q = torch.randint(0, 4, (b, d), dtype=torch.int32, device=dev,
+                      generator=g)
+    kw = {"valid": valid, "packed": packed, "pack_bits": 8}
+    assert shortlist.shortlist_plan(b, n, d, k).path == "wgmma"
+    _build.reset_launches()
+    dist, rows = shortlist.lut_shortlist(q, None, k, **kw)
+    assert _build.LAUNCHES["shortlist_wgmma"] == 1
+    assert _build.LAUNCHES["shortlist_mma"] == 0
+    sample = torch.randperm(b, device=dev, generator=g)[:64]
+    for chunk in sample.split(16):
+        want = shortlist.lut_shortlist_plain(q[chunk], None, k, **kw)
+        assert torch.equal(dist[chunk], want[0])
+        assert torch.equal(rows[chunk], want[1])
 
 
 def _block_table(rng, m, rows, d, operand, order=None):
@@ -660,7 +696,8 @@ def test_wrappers_count_one_launch_per_call_and_check_inputs(dev):
     torch.cuda.synchronize()
     assert _build.LAUNCHES == {"shortlist": 1, "shortlist_blocks": 0,
                                "mcam_dist": 1, "mcam_search": 1,
-                               "mcam_rescore": 1, "mcam_episode": 0}
+                               "mcam_rescore": 1, "mcam_episode": 0,
+                               "shortlist_wgmma": 0, "shortlist_mma": 0}
     with pytest.raises(ValueError, match="contiguous"):
         mcam_dist.lut_dist_matmul(ops.query_onehot(q), proj.T.contiguous().T)
     with pytest.raises(TypeError):

@@ -146,46 +146,64 @@ def test_lut_shortlist_rejects_what_it_does_not_take():
 def test_shortlist_plan_fits_a_block_and_covers_every_row(b, n, row_words,
                                                           k):
     """The one-table select's cut (host side of csrc/shortlist.cu, 8-bit
-    fields on the tensor cores): shared memory within one block's 227 KB
-    (16 queries a warp, P 32-bit keys each, the ring of staged rows and
-    the masks), slices of whole 64-row tiles that cover N exactly once, at
-    least k rows a slice where a compact key's row bits allow it (at most
-    2**(31 - bits(255 row words + 1)) rows), P >= 2 max(k, 64) keys a
-    query, whole rows of up to 64 words staged with the masks resident and
-    wider rows in K-chunks of whole k-steps, and merge scratch for every
-    slice's list."""
+    fields on the tensor cores). The wgmma path (k <= 64, rows of whole
+    16-byte segments): 128 queries a block in two warpgroups, rows whole
+    in tiles of 128 where they fit 3 columns of 64 bytes (else 256-row
+    tiles in 64-byte K-columns), a ring of 4 slots, one block an SM. The
+    mma path: 16 queries a warp, P >= 2 max(k, 64) keys a query, whole
+    rows of up to 64 words staged with the masks resident and wider rows
+    in K-chunks of whole k-steps. Both: shared memory within one block's
+    227 KB, slices of whole tiles that cover N exactly once, at least k
+    rows a slice where a compact key's row bits allow it (at most 2**(31
+    - bits(255 row words + 1)) rows), persistent blocks within one wave,
+    and merge scratch for every slice's list."""
     plan = shortlist.shortlist_plan(b, n, row_words, k)
-    whole = row_words <= 64
-    assert plan.chunk == (8 * -(-row_words // 8) if whole
-                          else shortlist._ONE_CHUNK)
-    assert plan.chunk % 8 == 0 and plan.stages == shortlist._ONE_STAGES
-    stride = plan.chunk + 4
-    qb = 16 * plan.warps
-    assert plan.queries == qb
-    assert plan.smem == (qb * plan.keys * 4 + 4 * stride * (
-        plan.stages * (64 + (0 if whole else qb)) + (qb if whole else 0))
-    ) <= 232448
-    assert plan.warps in (1, 2, 4) and plan.warps <= max(1, -(-b // 16))
+    assert plan.path == ("wgmma" if k <= 64 and row_words % 4 == 0
+                         else "mma")
+    if plan.path == "wgmma":
+        boxes = -(-4 * row_words // 64)
+        assert plan.whole == (boxes <= 3)
+        assert plan.chunk == (row_words if plan.whole else 16)
+        assert plan.warps == 8 and plan.queries == 128
+        assert plan.stages == shortlist._WG_STAGES == 4
+        assert plan.tile_rows == (128 if plan.whole else 256)
+        assert plan.keys == 64 + 128 and plan.ctas_per_sm == 1
+        assert plan.smem == shortlist._wgmma_smem(plan.whole,
+                                                  plan.stages) <= 232448
+    else:
+        whole = row_words <= 64
+        assert plan.whole == whole
+        assert plan.chunk == (8 * -(-row_words // 8) if whole
+                              else shortlist._ONE_CHUNK)
+        assert plan.chunk % 8 == 0 and plan.stages == shortlist._ONE_STAGES
+        stride = plan.chunk + 4
+        qb = 16 * plan.warps
+        assert plan.queries == qb and plan.tile_rows == 64
+        assert plan.smem == (qb * plan.keys * 4 + 4 * stride * (
+            plan.stages * (64 + (0 if whole else qb)) + (qb if whole else 0))
+        ) <= 232448
+        assert plan.warps in (1, 2, 4) and plan.warps <= max(1, -(-b // 16))
+        assert plan.keys >= 2 * max(k, 64)
+        assert plan.keys & (plan.keys - 1) == 0
+        assert plan.ctas_per_sm == min(2048 // (32 * plan.warps),
+                                       233472 // (plan.smem + 1024)) >= 1
     assert plan.mask_words == 8 * -(-row_words // 8)
-    assert plan.slice_rows % 64 == 0
+    assert plan.slice_rows % plan.tile_rows == 0
     assert (plan.slices - 1) * plan.slice_rows < n <= \
         plan.slices * plan.slice_rows
     most = 1 << (31 - (255 * row_words + 1).bit_length())
     assert plan.slice_rows <= most
     assert plan.slices == 1 or plan.slice_rows >= min(k, most)
-    assert plan.keys >= 2 * max(k, 64) and plan.keys & (plan.keys - 1) == 0
-    assert plan.ctas_per_sm == min(2048 // (32 * plan.warps),
-                                   233472 // (plan.smem + 1024)) >= 1
+    assert plan.blocks <= min(plan.units(b), plan.ctas_per_sm * 132)
     group = 2048 // (1 << (k - 1).bit_length())
     a, bb = plan.scratch(b, k)
     assert a == b * plan.slices * k
     assert bb == b * max(1, -(-plan.slices // group)) * k
     if (b, n, k) == (256, 65536, 64):
-        # the main path: 4 warps (64 queries a block), 3 blocks an SM, and
-        # one wave of blocks over the 132 SMs
-        blocks = plan.slices * (b // qb)
-        assert plan.warps == 4 and plan.ctas_per_sm == 3
-        assert 132 <= blocks <= plan.ctas_per_sm * 132
+        # the main path: the wgmma select, 2 query tiles x 64 slices of
+        # 1,024 rows: 128 units, one round of the 132 SMs
+        assert plan.path == "wgmma" and plan.whole
+        assert plan.units(b) == plan.blocks == 128
 
 
 def test_shortlist_plan_refuses_what_no_block_can_hold():

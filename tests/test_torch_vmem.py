@@ -33,8 +33,12 @@ def test_select_model_equals_the_plan(k):
                 est.dynamic_bytes, est.ctas_per_sm) == (
             plan.warps, plan.chunk, plan.stages, plan.keys, plan.smem,
             plan.ctas_per_sm), (b, n, words)
-        assert est.dynamic_bytes == sl._select_smem(
-            est.warps, est.keys, words, est.chunk, est.stages)
+        assert est.entry == ("select_wgmma" if plan.path == "wgmma"
+                             else "select")
+        assert est.dynamic_bytes == (
+            sl._wgmma_smem(plan.whole, est.stages) if plan.path == "wgmma"
+            else sl._select_smem(est.warps, est.keys, words, est.chunk,
+                                 est.stages))
         assert est.total_bytes <= vmem.H100_BLOCK_SMEM
         assert est.static_bytes == vmem.SELECT_STATIC_SMEM == 0
         assert vmem.validate_config(est).ok
