@@ -1,15 +1,18 @@
-"""The check's control: the plain reference put in the program's place in
-bfloat16, one precision below the configuration's float32, driven through
-the same loop and held to the same check. It has to come out not correct.
+"""The check's control: the program the cell's family gives for it (the
+plain reference put in the program's place, in the nearest precision
+below the configuration's), driven through the same loop and held to the
+same check. It has to come out not correct.
 
     python3 bench/control.py --workload <cell> --seeds 1 2 3 [--seconds 1]
 
 Prints one JSON line a seed with the compared numbers, the device it ran
-on and the store's rows and batch it ran at. Runs no warm-up (the control
-is not timed). Exits non-zero, and prints nothing, without a CUDA device:
-its readings are upper readings of the cell's limits only at the cell's
-own size on the card. `--dry` runs it on the CPU at the size a test holds
-(bench/run.py --dry), and says so in each line.
+on, the queries attempted and the sizes it ran at (the family's `size`).
+Runs no warm-up (the control is not timed); give it the seconds a run
+needs to fill the check's batches. Exits non-zero, and prints nothing,
+without a CUDA device: its readings are upper readings of the cell's
+limits only at the cell's own size on the card. `--dry` runs it on the
+CPU at the size a test holds (bench/run.py --dry), and says so in each
+line.
 """
 
 from __future__ import annotations
@@ -24,17 +27,15 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def control(cell, seed: int, seconds: float, device) -> dict:
-    import torch
     from bench import harness
-    from bench.reference.program import Reference
     cell = dataclasses.replace(cell, traffic=dict(cell.traffic,
                                                   warmup_batches=0))
     out = harness.run(cell, seed, seconds, False, device,
-                      program=Reference(cell.config, device, torch.bfloat16))
+                      program=cell.family.control(cell.config, device))
     return {k: v["value"] for k, v in out["compared"].items()} | {
-        "correct": out["correct"], "batches": out["attempted"]
-        // cell.traffic["batch"], "device": out["device"]["kind"],
-        "rows": cell.config["capacity"], "batch": cell.traffic["batch"]}
+        "correct": out["correct"], "attempted": out["attempted"],
+        "device": out["device"]["kind"]} | cell.family.size(cell.config,
+                                                           cell.traffic)
 
 
 def main(argv=None) -> int:

@@ -2,16 +2,42 @@
 
 A cell (bench/workloads/<cell>.json) names a configuration
 (bench/configs/<config>.json) and a traffic mix (bench/traffic/<mix>.json);
-the mix names the loop that serves it (bench/loops/<loop>.py), and
-BENCHMARK.json names the metrics each cell reports, each read by
-bench/metrics/<metric>.py. Nothing here names a cell, a configuration, a
-mix, a loop or a metric.
+the configuration names the program family it drives (`program`: the
+module bench/families/<program>.py), the mix the loop that serves it
+(bench/loops/<loop>.py), and BENCHMARK.json the metrics each cell
+reports, each read by bench/metrics/<metric>.py. Nothing here names a
+family, a cell, a configuration, a mix, a loop or a metric.
 
-A loop drives `Server.issue` (one batch enqueued: the write due before it,
-its queries, the search, its labels copied without blocking into pinned
-host memory behind an event of its own) and `Server.deliver` (the batch's
-labels on the host), and times each batch from the start of its enqueue
-to the return of its event wait.
+A family module supplies:
+
+  setup(config, traffic, seed, device, program=None) -> state
+      the inputs drawn from the seed and the program built and loaded
+      (`program`: another program in its place, such as the control)
+  issue(state, no, span) -> (count, home, kept, note)
+      batch `no` enqueued, its work inside `span(bench.trace.SEARCH_SPAN)`
+      (and WRITE_SPAN): the queries it counts, the tensor to copy home,
+      the tensors the check keeps by name, and what else the check needs
+      of the batch
+  deliver(home) -> what the check keeps of the tensor copied home
+  replay(state, seed, device) -> the run's inputs drawn again
+  check(state, replayed, sampled, device) -> {number: value}, each number
+      of NUMBERS, against the family's plain reference (bench/reference/)
+  NUMBERS: the names of the numbers the check compares
+  control(config, device) -> the program the check's control runs
+  dry(config, traffic) -> (config, traffic) at a size the CPU runs
+  size(config, traffic) -> {name: value}, the sizes a control line names
+  work(config, traffic) -> {kernel: bound} (bench/work.py) a batch drives
+
+The harness keeps the rest: the loop drives `Server.issue` (the family's
+batch, its home tensor copied without blocking into pinned host memory
+behind an event of its own, the sampled batches' tensors copied into
+slots made before the window) and `Server.deliver` (the home tensor on
+the host), and times each batch from the start of its enqueue to the
+return of its event wait; the window, the profiler, the set-up time, the
+memory peak, the metrics and the result line. A mix gives the loop's
+keys: `loop`, `in_flight`, `warmup_batches`, `trace_seconds` (the traced
+window) and `check_batches` (the batches of the window the check
+compares, drawn from the seed).
 """
 
 from __future__ import annotations
@@ -25,13 +51,11 @@ import random
 import sys
 import time
 from pathlib import Path
+from types import ModuleType
 
 import torch
 
-from bench import check
 from bench import trace as trace_lib
-from bench import work
-from bench.data import Inputs
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = ROOT / "bench"
@@ -52,53 +76,66 @@ class Cell:
     traffic: dict
     end_to_end: list[dict]
     per_layer: list[dict]
+    family: ModuleType
+    bench: Path = BENCH
 
 
-def load_cell(name: str, benchmark: Path = ROOT / "BENCHMARK.json") -> Cell:
-    spec = _json(BENCH / "workloads" / f"{name}.json")
-    bench = _json(benchmark)
+def load_cell(name: str, root: Path = ROOT) -> Cell:
+    """The cell `name` of the benchmark at `root` (its BENCHMARK.json and
+    bench/)."""
+    bench_dir = Path(root) / "bench"
+    spec = _json(bench_dir / "workloads" / f"{name}.json")
+    bench = _json(Path(root) / "BENCHMARK.json")
+    config = _json(bench_dir / "configs" / f"{spec['config']}.json")
 
     def mine(metrics):
         return [m for m in metrics if name in m.get("workloads", [name])]
-    return Cell(name, spec, _json(BENCH / "configs" / f"{spec['config']}.json"),
-                _json(BENCH / "traffic" / f"{spec['traffic']}.json"),
-                mine(bench["end_to_end"]), mine(bench["per_layer"]))
+    return Cell(name, spec, config,
+                _json(bench_dir / "traffic" / f"{spec['traffic']}.json"),
+                mine(bench["end_to_end"]), mine(bench["per_layer"]),
+                _module("families", config["program"], bench_dir),
+                bench_dir)
 
 
-def _module(kind: str, name: str):
-    """bench/<kind>/<name>.py, loaded by its path."""
-    path = BENCH / kind / f"{name}.py"
+def _module(kind: str, name: str, bench: Path = BENCH) -> ModuleType:
+    """bench/<kind>/<name>.py, loaded by its path (and entered in
+    sys.modules under bench_<kind>_<name>, which its dataclasses need)."""
+    path = bench / kind / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
-def reader(metric: str):
+def reader(metric: str, bench: Path = BENCH):
     """`read(run)` of bench/metrics/<metric>.py."""
-    return _module("metrics", metric).read
+    return _module("metrics", metric, bench).read
 
 
-def serve(loop: str):
+def serve(loop: str, bench: Path = BENCH):
     """`serve(server, seconds, batches, sample)` of bench/loops/<loop>.py:
     -> (latencies, completion times since the start)."""
-    return _module("loops", loop).serve
+    return _module("loops", loop, bench).serve
 
 
 @dataclasses.dataclass
 class Run:
-    """What a reader reads: the window's batches and, traced, its trace."""
+    """What a reader reads: the window's batches (their latencies,
+    completion times and the queries each counts, in the order issued)
+    and, traced, its trace."""
     cell: Cell
     seconds: float
     setup_s: float
     latencies_s: list[float]
     done_s: list[float]
+    counts: list[int]
     timeline: trace_lib.Timeline | None = None
 
     @property
     def work(self) -> dict[str, dict]:
-        return work.cell_work(self.cell.config, self.cell.traffic)
+        return self.cell.family.work(self.cell.config, self.cell.traffic)
 
 
 class _Reservoir:
@@ -136,66 +173,44 @@ def _mark(device: torch.device):
 
 
 class Server:
-    """The closed loop over the program: the store, the inputs and what the
-    check needs of the window (the order of the inputs drawn, the sampled
-    batches)."""
+    """The loop's view of the program: the family's state, and what the
+    check needs of the window (the sampled batches)."""
 
-    def __init__(self, program, store, inputs: Inputs, traffic: dict,
-                 seed: int, spans: bool):
-        self.program, self.store, self.inputs = program, store, inputs
-        self.traffic = traffic
-        self.request = program.request(traffic["mode"], traffic["k"])
-        # the order of the inputs drawn (("q" | "w", count)): the check
-        # draws the writes again from the seed (`replay_writes`), so the
-        # window keeps no tensor of its own on the device
-        self.log: list[tuple[str, int]] = []
-        self.n_writes = 0
-        # {batch no: (slot, delivered labels, writes before it)}; a slot
-        # holds a sampled batch's queries and results, copied on the card
-        # into buffers made before the window, so the window keeps nothing
-        # the program allocated
+    def __init__(self, cell: Cell, state, seed: int, device: torch.device,
+                 spans: bool):
+        self.family, self.state, self.device = cell.family, state, device
+        self.traffic, self.bench = cell.traffic, cell.bench
+        self.counts: list[int] = []
+        # {batch no: (slot, delivered, note)}; a slot holds a sampled
+        # batch's kept tensors, copied on the card into buffers made
+        # before the window, so the window keeps nothing the program
+        # allocated
         self.sampled: dict[int, tuple] = {}
-        self.reservoir = _Reservoir(traffic["check_batches"], seed)
+        self.reservoir = _Reservoir(self.traffic["check_batches"], seed)
         self.slots: list[dict[str, torch.Tensor]] = []
         self.span = (torch.profiler.record_function if spans
                      else lambda name: contextlib.nullcontext())
         self.host: list[torch.Tensor] = []
 
-    def _write(self) -> None:
-        n = self.traffic["write_classes"]
-        x, labels = self.inputs.new_classes(n)
-        self.log.append(("w", n))
-        self.n_writes += 1
-        with self.span(trace_lib.WRITE_SPAN):
-            self.store = self.store.write(x, labels)
-
     def issue(self, no: int, sample: bool) -> tuple:
-        """Enqueue batch `no` -> (its event, its pinned labels, whether the
-        check keeps it); the write due before it first."""
-        t = self.traffic
-        every, depth = t["write_every"], t["in_flight"]
-        dev = self.inputs.device
-        if every and no % every == every - 1:
-            self._write()
-        q = self.inputs.queries(t["batch"])
-        self.log.append(("q", t["batch"]))
-        with self.span(trace_lib.SEARCH_SPAN):
-            res = self.program.search(self.store, q, self.request)
-            pred = res.predict()
+        """Enqueue batch `no` -> (its event, its pinned home tensor,
+        whether the check keeps it)."""
+        depth = self.traffic["in_flight"]
+        count, home, kept, note = self.family.issue(self.state, no,
+                                                    self.span)
+        self.counts.append(count)
         if len(self.host) < depth:
             self.host.append(torch.empty(
-                pred.shape, dtype=pred.dtype,
-                pin_memory=dev.type == "cuda"))
+                home.shape, dtype=home.dtype,
+                pin_memory=self.device.type == "cuda"))
         buf = self.host[no % depth]
-        buf.copy_(pred, non_blocking=True)
-        ev = _mark(dev)
-        kept = {"queries": q, "votes": res.votes, "dist": res.dist,
-                "indices": res.indices, "labels": res.labels}
+        buf.copy_(home, non_blocking=True)
+        ev = _mark(self.device)
         if not self.slots:
             self.slots = [{k: torch.empty(v.shape, dtype=v.dtype,
                                           device=v.device)
                            for k, v in kept.items()}
-                          for _ in range(t["check_batches"])]
+                          for _ in range(self.traffic["check_batches"])]
         keep = False
         if sample:
             slot, out = self.reservoir.offer(no)
@@ -205,37 +220,26 @@ class Server:
                 keep = True
                 for k, v in kept.items():
                     self.slots[slot][k].copy_(v)
-                self.sampled[no] = (slot, None, self.n_writes)
+                self.sampled[no] = (slot, None, note)
         return ev, buf, keep
 
     def deliver(self, no: int, buf: torch.Tensor, keep: bool) -> None:
-        """Batch `no`'s labels are on the host (its event has returned)."""
+        """Batch `no`'s home tensor is on the host (its event has
+        returned)."""
         if keep and no in self.sampled:
-            slot, _, n_writes = self.sampled[no]
-            self.sampled[no] = (slot, buf.numpy().copy(), n_writes)
+            slot, _, note = self.sampled[no]
+            self.sampled[no] = (slot, self.family.deliver(buf), note)
 
     def loop(self, seconds: float | None = None, batches: int | None = None,
-             sample: bool = False) -> tuple[list[float], list[float]]:
+             sample: bool = False) -> tuple[list[float], list[float],
+                                            list[int]]:
         """Serve by the mix's loop until `seconds` have passed or `batches`
-        were issued -> (latencies, completion times since the start)."""
-        return serve(self.traffic["loop"])(self, seconds, batches, sample)
-
-
-def replay_writes(config: dict, traffic: dict, seed: int, device, log,
-                  supports: torch.Tensor) -> list:
-    """Every write of a run, drawn again from the seed in the order of
-    `log`; the supports drawn again must equal the run's."""
-    inputs = Inputs(config, traffic, seed, device)
-    if not torch.equal(inputs.supports()[0], supports):
-        raise RuntimeError("bench: the seed did not give the same inputs "
-                           "twice")
-    writes = []
-    for kind, n in log:
-        if kind == "w":
-            writes.append(inputs.new_classes(n))
-        else:
-            inputs.queries(n)
-    return writes
+        were issued -> (latencies, completion times since the start, the
+        queries each batch counts)."""
+        first = len(self.counts)
+        lat, done = serve(self.traffic["loop"], self.bench)(
+            self, seconds, batches, sample)
+        return lat, done, self.counts[first:]
 
 
 def memory_peak(device: torch.device) -> int:
@@ -247,25 +251,15 @@ def memory_peak(device: torch.device) -> int:
 def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         program=None, t_start: float | None = None) -> dict:
     """One run -> the result line's fields (correct, attempted, failed,
-    metrics, device, breakdown, compared)."""
+    metrics, device, breakdown, compared). `program`: another program in
+    the family's place (the control)."""
     t_start = time.perf_counter() if t_start is None else t_start
     device = torch.device(device)
-    config, traffic = cell.config, cell.traffic
-    if program is None:
-        from bench.program import Port
-        program = Port(config, device)
+    family, traffic = cell.family, cell.traffic
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    inputs = Inputs(config, traffic, seed, device)
-    x, labels = inputs.supports()
-    t_program = time.perf_counter()
-    store = program.create().calibrate(x)
-    step = config["program_rows"]
-    for r0 in range(0, x.shape[0], step):
-        store = store.write(x[r0:r0 + step], labels[r0:r0 + step])
-    _log(f"store of {x.shape[0]} supports programmed in "
-         f"{time.perf_counter() - t_program:.3f} s")
-    server = Server(program, store, inputs, traffic, seed, spans=traced)
+    state = family.setup(cell.config, traffic, seed, device, program)
+    server = Server(cell, state, seed, device, spans=traced)
     server.loop(batches=traffic["warmup_batches"])
     if traced:
         with torch.profiler.profile(activities=_activities(device)):
@@ -279,39 +273,35 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
     if traced:
         with torch.profiler.profile(activities=_activities(device)) as prof:
             time.sleep(PROFILER_SETTLE_S)
-            lat, done = server.loop(window, sample=True)
+            lat, done, counts = server.loop(window, sample=True)
         timeline = trace_lib.Timeline.from_profiler(prof)
     else:
-        lat, done = server.loop(window, sample=True)
+        lat, done, counts = server.loop(window, sample=True)
     peak = memory_peak(device)
-    rec = Run(cell, window, setup_s, lat, done, timeline)
-    issued = len(lat) * traffic["batch"]
-    store, log = server.store, server.log
-    sampled = {no: (server.slots[slot], delivered, n_writes)
-               for no, (slot, delivered, n_writes) in server.sampled.items()}
+    rec = Run(cell, window, setup_s, lat, done, counts, timeline)
+    sampled = {no: (server.slots[slot], delivered, note)
+               for no, (slot, delivered, note) in server.sampled.items()}
     del server
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    writes = replay_writes(config, traffic, seed, device, log, x)
+    replayed = family.replay(state, seed, device)
     _log(f"set-up {setup_s:.3f} s; window {window} s: {len(lat)} batches, "
-         f"{len(writes)} writes in all, {len(sampled)} checked; memory peak "
-         f"{peak} B")
+         f"{len(sampled)} checked; memory peak {peak} B")
     t_check = time.perf_counter()
-    compared = check.compare(config, traffic, (x, labels), writes, sampled,
-                             store, device)
+    compared = family.check(state, replayed, sampled, device)
     _log(f"check {time.perf_counter() - t_check:.3f} s")
     limits = cell.spec["limits"]
-    correct = all(compared[k] <= limits[k] for k in check.NUMBERS)
+    correct = all(compared[k] <= limits[k] for k in family.NUMBERS)
     metrics = {}
     for m in (cell.per_layer if traced else cell.end_to_end):
-        value = reader(m["name"])(rec)
+        value = reader(m["name"], cell.bench)(rec)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),
            "count": 1, "memory_peak_bytes": peak}
-    out = {"correct": correct, "attempted": issued, "failed": 0,
+    out = {"correct": correct, "attempted": sum(counts), "failed": 0,
            "metrics": metrics, "device": dev}
     if timeline is not None:
         start, end = timeline.window()
@@ -319,7 +309,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool, device,
         dev["window_s"] = (end - start) / 1e9
         out["breakdown"] = trace_lib.breakdown(timeline)
     out["compared"] = {k: {"value": compared[k], "limit": limits[k]}
-                       for k in check.NUMBERS}
+                       for k in family.NUMBERS}
     return out
 
 
@@ -346,23 +336,9 @@ def percentile(values: list[float], p: float) -> float:
     return s[lo] + (s[hi] - s[lo]) * (pos - lo)
 
 
-#: rows of a cell's store in a dry run (bench/run.py --dry): the fused
-#: shortlist's threshold, so that a shortlist takes the main path's route;
-#: `full`, which has no shortlist, at a quarter of it
-DRY_ROWS = 1024
-
-
 def dry(cell: Cell) -> Cell:
-    """The cell at a size the CPU runs in seconds: DRY_ROWS rows (the last
-    class left out, so some slots stay empty), batches of 4, k <= 8, small
-    writes; the widths, encoding and physics are the configuration's."""
-    t = cell.traffic
-    rows = DRY_ROWS if t["mode"] != "full" else DRY_ROWS // 4
-    config = dict(cell.config, capacity=rows,
-                  classes=rows // cell.config["shots"] - 1,
-                  program_rows=rows // 2)
-    traffic = dict(t, batch=4, k=min(t["k"], 8),
-                   write_classes=min(t["write_classes"], 8),
-                   write_every=min(t["write_every"], 2), warmup_batches=2,
-                   check_batches=2)
+    """The cell at a size the CPU runs in seconds: the family's dry size,
+    2 warm-up batches and 2 checked ones."""
+    config, traffic = cell.family.dry(cell.config, cell.traffic)
+    traffic = dict(traffic, warmup_batches=2, check_batches=2)
     return dataclasses.replace(cell, config=config, traffic=traffic)

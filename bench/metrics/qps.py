@@ -3,5 +3,5 @@ over the window's seconds."""
 
 
 def read(run):
-    done = sum(1 for t in run.done_s if t <= run.seconds)
-    return done * run.cell.traffic["batch"] / run.seconds
+    done = sum(n for n, t in zip(run.counts, run.done_s) if t <= run.seconds)
+    return done / run.seconds

@@ -26,6 +26,16 @@ murmur3 finaliser chained over them). Distances are integers below 2**24,
 so float32 holds them exactly; the ranking is by (distance, row), and
 rows of label -1 (never written) rank last and carry MASK_PENALTY.
 
+A partitioned store (n_shards contiguous blocks of rows) is searched by
+routing: per shard, int32 sums and counts of the valid rows' words in
+each bucket `label % ROUTER_BUCKETS`; each bucket's integer centroid, the
+mean rounded half up in the level domain; each query's score of a shard,
+the least LUT distance from its words to the shard's buckets, an empty
+bucket at MASK_PENALTY; the nprobe smallest scores, ties to the lower
+shard id, visited in ascending id. Phase 1 then ranks only the visited
+shards' rows, by the same (distance, global row), and phase 2 rescores
+them at their global rows.
+
 `dtype` is the precision of the float stages. float32 is the
 configuration's; bfloat16 is the control, which must come out wrong.
 """
@@ -50,6 +60,10 @@ TWO_PI = float(np.float32(2.0 * np.float32(np.pi)))
 MASK_PENALTY = 2.0 ** 22
 #: cells of one block of the physics (bounds the reference's memory)
 BLOCK_CELLS = 1 << 25
+#: class buckets of a shard's routing sketch (label % ROUTER_BUCKETS)
+ROUTER_BUCKETS = 8
+#: the key of a row that a routed query does not visit: after every other
+NOT_VISITED = (1 << 63) - 1
 
 
 def f32(x: float) -> float:
@@ -163,6 +177,7 @@ class Store:
         self.labels = torch.full((n,), -1, dtype=torch.int64, device=device)
         self.size = 0
         self.lo = self.hi = None
+        self._sketch: tuple | None = None
 
     def calibrate(self, sample: torch.Tensor) -> None:
         self.lo, self.hi = clip_range(sample.to(self.dtype),
@@ -179,6 +194,27 @@ class Store:
     def query_words(self, q: torch.Tensor) -> torch.Tensor:
         """AVSS queries: one 4-level word a dimension."""
         return quantize(q.to(self.dtype), CELL_STATES, self.lo, self.hi)
+
+    def sketch(self, n_shards: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The routing sketch of the ring as it stands: per (shard,
+        bucket), the sums (S, R, d) of the valid rows' words and their
+        counts (S, R), int64 (every sum fits in int32), worked out again
+        after each write."""
+        if self._sketch is None or self._sketch[:2] != (self.size, n_shards):
+            n, d = self.words.shape
+            rows = torch.arange(n, device=self.words.device)
+            valid = self.labels >= 0
+            cell = ((rows // (n // n_shards)) * ROUTER_BUCKETS
+                    + self.labels % ROUTER_BUCKETS)[valid]
+            cells = n_shards * ROUTER_BUCKETS
+            sums = torch.zeros(cells, d, dtype=torch.int64,
+                               device=self.words.device)
+            sums.index_add_(0, cell, self.words[valid])
+            counts = torch.bincount(cell, minlength=cells)
+            self._sketch = (self.size, n_shards,
+                            sums.reshape(n_shards, ROUTER_BUCKETS, d),
+                            counts.reshape(n_shards, ROUTER_BUCKETS))
+        return self._sketch[2], self._sketch[3]
 
 
 # -- phase 1: ideal distances and the shortlist -----------------------------------
@@ -198,17 +234,27 @@ def distances(qw: torch.Tensor, words: torch.Tensor, enc: str, cl: int,
 
 
 def shortlist(qw: torch.Tensor, store: Store, k: int, dtype=torch.float32,
-              block_rows: int = 1 << 17) -> tuple[torch.Tensor, torch.Tensor]:
+              block_rows: int = 1 << 17,
+              visit: tuple[torch.Tensor, int] | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each query's k best rows by (distance, row), never-written rows
-    last -> (dist (B, k) float32, rows (B, k) int64)."""
+    last -> (dist (B, k) float32, rows (B, k) int64). visit: (the shards
+    each query visits (B, p), rows a shard), whose rows alone are ranked
+    (k <= p rows a shard)."""
     best = None
     n = store.words.shape[0]
+    if visit is not None:
+        ids, per = visit
+        seen = torch.zeros(qw.shape[0], n // per, dtype=torch.bool,
+                           device=qw.device).scatter_(1, ids, True)
     for r0 in range(0, n, block_rows):
         d = distances(qw, store.words[r0:r0 + block_rows], store.enc,
                       store.cl, dtype)
         rows = torch.arange(r0, r0 + d.shape[1], device=d.device)
         invalid = (store.labels[r0:r0 + d.shape[1]] < 0).to(torch.int64)
         key = (invalid << 62) | (d.to(torch.int64) << 32) | rows
+        if visit is not None:
+            key = torch.where(seen[:, rows // per], key, NOT_VISITED)
         cand = key if best is None else torch.cat([best, key], 1)
         best = torch.topk(cand, min(k, cand.shape[1]), dim=1,
                           largest=False, sorted=True).values
@@ -216,6 +262,23 @@ def shortlist(qw: torch.Tensor, store: Store, k: int, dtype=torch.float32,
     dist = ((best >> 32) & ((1 << 30) - 1)).to(torch.float32)
     dist = dist + MASK_PENALTY * ((best >> 62) & 1).to(torch.float32)
     return dist, rows
+
+
+def route(qw: torch.Tensor, store: Store, n_shards: int, nprobe: int,
+          dtype=torch.float32) -> torch.Tensor:
+    """The shards each query visits, (B, nprobe) int64 ascending: the
+    nprobe least scores (module docstring), ties to the lower id."""
+    sums, counts = store.sketch(n_shards)
+    s, r, d = sums.shape
+    c = counts.clamp(min=1)[..., None]
+    centroids = torch.div(2 * sums + c, 2 * c, rounding_mode="floor").clamp(
+        0, levels(store.enc, store.cl) - 1)
+    dist = distances(qw, centroids.reshape(s * r, d), store.enc, store.cl,
+                     dtype).reshape(-1, s, r)
+    scores = (dist + MASK_PENALTY * (counts == 0)).amin(-1)       # (B, S)
+    key = scores.to(torch.int64) * s + torch.arange(s, device=qw.device)
+    ids = torch.topk(key, nprobe, dim=1, largest=False).indices
+    return ids.sort(dim=1).values
 
 
 # -- phase 2: the noisy string physics --------------------------------------------
@@ -322,17 +385,27 @@ def predict(votes: torch.Tensor, dist: torch.Tensor,
 # -- the searches -----------------------------------------------------------------
 
 
-def two_phase(q: torch.Tensor, store: Store, k: int, dtype=torch.float32
+def two_phase(q: torch.Tensor, store: Store, k: int, dtype=torch.float32,
+              route_by: tuple[int, int] | None = None
               ) -> dict[str, torch.Tensor]:
-    """Shortlist then noisy rescore of float queries q (B, d)."""
+    """Shortlist then noisy rescore of float queries q (B, d); route_by:
+    (n_shards, nprobe) of a routed search, which visits every row where
+    nprobe >= n_shards ("shards": the visited shards)."""
     qw = store.query_words(q)
-    dist, rows = shortlist(qw, store, k, dtype)
+    out = {}
+    visit = None
+    if route_by is not None and route_by[1] < route_by[0]:
+        n_shards, nprobe = route_by
+        per = store.words.shape[0] // n_shards
+        out["shards"] = route(qw, store, n_shards, nprobe, dtype)
+        visit, k = (out["shards"], per), min(k, nprobe * per)
+    dist, rows = shortlist(qw, store, k, dtype, visit=visit)
     votes, _ = physics(qw, torch.arange(qw.shape[0], device=q.device), rows,
                        store, dtype)
     labels = store.labels[rows]
     votes = torch.where(labels >= 0, votes, -math.inf)
-    return {"words": qw, "rows": rows, "dist": dist, "votes": votes,
-            "labels": labels, "pred": predict(votes, dist, labels)}
+    return out | {"words": qw, "rows": rows, "dist": dist, "votes": votes,
+                  "labels": labels, "pred": predict(votes, dist, labels)}
 
 
 def full(q: torch.Tensor, store: Store, qidx: torch.Tensor,

@@ -1,7 +1,7 @@
 """The check has to fail what it guards against. The harness runs on the
-CPU at the dry size (bench/run.py --dry) with the search or the write
-broken underneath, or with the control in the program's place, and
-`correct` comes out false; the unbroken program comes out true."""
+CPU at the dry size (bench/run.py --dry) with the search, the route or
+the write broken underneath, or with the control in the program's place,
+and `correct` comes out false; the unbroken program comes out true."""
 
 import dataclasses
 import sys
@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from bench import harness
-from bench.reference.program import Reference
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 
@@ -31,7 +30,8 @@ def _run(cell: str, seed: int = 7, program=None) -> dict:
                        False, "cpu", program=program)
 
 
-@pytest.mark.parametrize("cell", ["omniglot-2p-4m", "cub-ingest-256k"])
+@pytest.mark.parametrize("cell", ["omniglot-2p-4m", "cub-ingest-256k",
+                                  "omniglot-routed-4m"])
 def test_sound_program_is_correct(cell):
     assert _run(cell)["correct"]
 
@@ -43,12 +43,13 @@ def test_skewed_classes_are_served_correctly():
 
 
 @pytest.mark.parametrize("cell", ["omniglot-2p-4m", "cub-2p-256k",
-                                  "omniglot-full-1m", "cub-ingest-256k"])
+                                  "omniglot-full-1m", "cub-ingest-256k",
+                                  "omniglot-routed-4m"])
 def test_bfloat16_control_is_not_correct(cell):
     c = harness.dry(harness.load_cell(cell))
     c = dataclasses.replace(c, traffic=dict(c.traffic, warmup_batches=0))
     out = harness.run(c, 5, 0.3, False, "cpu",
-                      program=Reference(c.config, "cpu", torch.bfloat16))
+                      program=c.family.control(c.config, "cpu"))
     assert not out["correct"]
     assert out["compared"]["votes_wrong"]["value"] > 0
 
@@ -66,7 +67,8 @@ def test_write_that_leaves_the_store_unchanged_is_caught(monkeypatch):
     assert out["compared"]["store_wrong"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["omniglot-2p-4m", "omniglot-full-1m"])
+@pytest.mark.parametrize("cell", ["omniglot-2p-4m", "omniglot-full-1m",
+                                  "omniglot-routed-4m"])
 def test_half_the_batch_left_out_is_caught(monkeypatch, cell):
     from repro_torch.engine import RetrievalEngine, SearchResult
     real = RetrievalEngine.search
@@ -80,7 +82,8 @@ def test_half_the_batch_left_out_is_caught(monkeypatch, cell):
     assert not _run(cell)["correct"]
 
 
-@pytest.mark.parametrize("cell", ["cub-2p-256k", "omniglot-full-1m"])
+@pytest.mark.parametrize("cell", ["cub-2p-256k", "omniglot-full-1m",
+                                  "omniglot-routed-4m"])
 def test_an_altered_answer_is_caught(monkeypatch, cell):
     from repro_torch.engine import SearchResult
     real = SearchResult.predict
@@ -93,3 +96,52 @@ def test_an_altered_answer_is_caught(monkeypatch, cell):
     out = _run(cell)
     assert not out["correct"]
     assert out["compared"]["predictions_wrong"]["value"] > 0
+
+
+def _misroute(monkeypatch, position: int) -> list:
+    """The router's shard at `position` of each query's visited ids, in
+    the order of their scores (0 the nearest, -1 the last), swapped for
+    the next shard the query does not visit; returns the calls' count."""
+    from repro_torch.engine import router
+    real, calls = router.top_shards, [0]
+
+    def top_shards(scores, nprobe):
+        ids = real(scores, nprobe)
+        calls[0] += 1
+        ranked = scores.gather(1, ids).argsort(dim=1, stable=True)
+        ids = ids.gather(1, ranked)
+        bad = ids[:, position:][:, :1]
+        for _ in range(scores.shape[1]):
+            bad = torch.where((bad == ids).any(1, keepdim=True),
+                              (bad + 1) % scores.shape[1], bad)
+        ids[:, position % nprobe] = bad[:, 0]
+        return ids.sort(1).values
+    monkeypatch.setattr(router, "top_shards", top_shards)
+    return calls
+
+
+def test_a_route_to_the_wrong_last_shard_is_caught(monkeypatch):
+    """Each query's last visited shard swapped for the next one it does
+    not visit. k covers every visited row, so every row of the wrong
+    shard reaches the shortlist."""
+    calls = _misroute(monkeypatch, -1)
+    c = harness.dry(harness.load_cell("omniglot-routed-4m"))
+    per = c.config["capacity"] // c.config["n_shards"]
+    c = dataclasses.replace(c, traffic=dict(
+        c.traffic, k=c.traffic["nprobe"] * per))
+    out = harness.run(c, 7, 0.3, False, "cpu")
+    assert calls[0] > 0 and not out["correct"]
+    assert out["compared"]["rows_wrong"]["value"] > 0
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_a_route_without_the_nearest_shard_is_caught_at_the_cells_k(
+        monkeypatch, seed):
+    """At the cell's own k, each query's nearest shard swapped for one it
+    does not visit: on a store sorted by alphabet that shard holds the
+    query's class, so its rows leave the shortlist."""
+    calls = _misroute(monkeypatch, 0)
+    out = harness.run(harness.dry(harness.load_cell("omniglot-routed-4m")),
+                      seed, 0.3, False, "cpu")
+    assert calls[0] > 0 and not out["correct"]
+    assert out["compared"]["rows_wrong"]["value"] > 0

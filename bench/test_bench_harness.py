@@ -22,8 +22,9 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
 
 def _run(lat, done, seconds, timeline=None, cell="omniglot-2p-4m"):
-    return harness.Run(harness.load_cell(cell), seconds, 1.0, lat, done,
-                       timeline)
+    c = harness.load_cell(cell)
+    return harness.Run(c, seconds, 1.0, lat, done,
+                       [c.traffic["batch"]] * len(lat), timeline)
 
 
 def test_p95_takes_every_batch_so_one_stall_moves_it():
@@ -104,7 +105,7 @@ def test_cell_files_load_and_match_benchmark_json(cell):
     assert {k: c.spec[k] for k in ("config", "traffic", "chips", "why")} \
         == {k: entry[k] for k in ("config", "traffic", "chips", "why")}
     assert c.config["name"] == entry["config"]
-    assert set(c.spec["limits"]) == set(harness.check.NUMBERS)
+    assert set(c.spec["limits"]) == set(c.family.NUMBERS)
     for m in c.end_to_end + c.per_layer:
         assert (ROOT / "bench" / "metrics" / f"{m['name']}.py").is_file()
     assert {m["name"] for m in c.end_to_end} >= {"setup_s"}
@@ -148,7 +149,7 @@ def test_traffic_mixes_are_data(mix):
     assert t["class_skew"] >= 0
     assert t["batch"] > 0 and t["in_flight"] >= 1
     assert t["check_batches"] >= 1
-    assert (t["write_every"] > 0) == (t["write_classes"] > 0)
+    assert (t.get("write_every", 0) > 0) == (t.get("write_classes", 0) > 0)
 
 
 def test_launch_calls_name_the_runtime_launches():
@@ -157,9 +158,9 @@ def test_launch_calls_name_the_runtime_launches():
 
 @pytest.mark.parametrize("skew", [0, 1.2])
 def test_query_classes_follow_the_mix_skew(skew):
-    from bench.data import Inputs
-    config = dict(harness.load_cell("omniglot-2p-4m").config, dim=16,
-                  classes=1000, capacity=10_000)
+    cell = harness.load_cell("omniglot-2p-4m")
+    Inputs = cell.family.Inputs
+    config = dict(cell.config, dim=16, classes=1000, capacity=10_000)
     traffic = {"write_classes": 0, "class_skew": skew}
     inputs = Inputs(config, traffic, 3, "cpu")
     cls = torch.cdist(inputs.queries(4000), inputs.centres[:1000]).argmin(1)
@@ -183,3 +184,37 @@ def test_control_runs_on_a_card_or_says_it_is_dry(monkeypatch, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert (line["device"], line["rows"], line["batch"]) == ("cpu", 1024, 4)
     assert not line["correct"]
+
+
+def test_alphabets_keep_the_centres_spread_and_group_them():
+    """A configuration with alphabets draws class centres of the same
+    spread, nearer within an alphabet (a run of consecutive classes) than
+    across; one without them draws exactly as before."""
+    cell = harness.load_cell("omniglot-routed-4m")
+    Inputs = cell.family.Inputs
+    config = dict(cell.config, dim=48, classes=640, capacity=6400)
+    c = Inputs(config, {"class_skew": 0}, 3, "cpu").centres[:640]
+    assert abs(float(c.var()) - 4.0) < 0.4
+    by = c.reshape(64, 10, 48)
+    within = float(torch.cdist(by, by).pow(2).mean()) * 10 / 9
+    across = float(torch.cdist(c, c).pow(2).mean())
+    # half the variance is the alphabet's: 2 (1 - share) 4 48 = 192 apart
+    # within an alphabet, 2 4 48 = 384 across
+    assert 160 < within < 224 and 340 < across < 430
+    plain = dict(config, embedding={"centre_scale": 2.0, "spread": 0.3})
+    gen = torch.Generator().manual_seed(3)
+    assert torch.equal(Inputs(plain, {"class_skew": 0}, 3, "cpu").centres[
+        :640], torch.randn(640, 48, generator=gen) * 2.0)
+
+
+def test_recall_of_a_route_over_every_shard_is_whole(capsys):
+    from bench import recall
+    torch.set_num_threads(2)
+    assert recall.main(["--workload", "omniglot-routed-4m", "--seeds", "5",
+                        "--nprobe", "2", "64", "--batches", "2",
+                        "--dry"]) == 0
+    lines = [json.loads(x) for x in
+             capsys.readouterr().out.strip().splitlines()]
+    assert [x["nprobe"] for x in lines] == [2, 64]
+    assert lines[1]["recall_at_k"] == lines[1]["top1_label"] == 1.0
+    assert 0 < lines[0]["recall_at_k"] <= 1

@@ -74,7 +74,8 @@ def _timeline():
 
 
 def _read(metric, timeline, cell="cub-ingest-256k"):
-    run = harness.Run(harness.load_cell(cell), 1.0, 1.0, [], [], timeline)
+    run = harness.Run(harness.load_cell(cell), 1.0, 1.0, [], [], [],
+                      timeline)
     return harness.reader(metric)(run)
 
 

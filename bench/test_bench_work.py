@@ -41,15 +41,41 @@ def test_cells_work_from_their_files():
     seen = {}
     for w in bench["workloads"]:
         cell = load_cell(w["name"])
-        seen[w["name"]] = {k: v["bound_ms"] for k, v in
-                           work.cell_work(cell.config, cell.traffic).items()}
-    # batches of 1,024: the shortlist's one-hot product binds
-    want = {"omniglot-2p-4m": {"shortlist": 0.8333, "rescore": 0.0676},
-            "cub-2p-256k": {"shortlist": 0.5209, "rescore": 0.5282},
-            "cub-ingest-256k": {"shortlist": 0.5209, "rescore": 0.5282},
-            "omniglot-full-1m": {"dense": 17.31}}
+        seen[w["name"]] = {k: v["bound_ms"] for k, v in cell.family.work(
+            cell.config, cell.traffic).items()}
+    # batches of 1,024: the shortlist's one-hot product binds, but where
+    # a routed query ranks an eighth of the rows and the batch reads them
+    # all; the bounds of the first four cells as they were before the
+    # family interface, to the bit
+    want = {"omniglot-2p-4m": {"shortlist": 0.8333842555149065,
+                               "rescore": 0.06760967641791045},
+            "cub-2p-256k": {"shortlist": 0.5208651596968166,
+                            "rescore": 0.5282005970149254},
+            "cub-ingest-256k": {"shortlist": 0.5208651596968166,
+                                "rescore": 0.5282005970149254},
+            "omniglot-full-1m": {"dense": 17.308077162985075},
+            "omniglot-routed-4m": {
+                "shortlist": pytest.approx(0.2419, abs=5e-5),
+                "rescore": 0.06760967641791045}}
     for name, bounds in want.items():
-        assert seen[name] == pytest.approx(bounds, rel=0.002), name
+        assert seen[name] == bounds, name
+    routed = load_cell("omniglot-routed-4m")
+    got = routed.family.work(routed.config, routed.traffic)["shortlist"]
+    assert got["bound_by"] == "bytes"
+    assert got["ops"] == 2 * 1024 * 524288 * 192
+    assert got["bytes"] == 4194304 * 193 + 1024 * 48 * 4 + 1024 * 64 * 12
+
+
+@pytest.mark.parametrize("nprobe, b, rows_read", [
+    (8, 1024, 4194304), (1, 16, 16 * 65536), (8, 2, 16 * 65536)])
+def test_routed_bytes_are_the_distinct_rows_a_batch_can_read(nprobe, b,
+                                                              rows_read):
+    from bench.harness import load_cell
+    cell = load_cell("omniglot-routed-4m")
+    traffic = dict(cell.traffic, nprobe=nprobe, batch=b)
+    got = cell.family.work(cell.config, traffic)["shortlist"]
+    assert got["ops"] == 2 * b * nprobe * 65536 * 192
+    assert got["bytes"] == rows_read * 193 + b * 48 * 4 + b * 64 * 12
 
 
 def test_work_imports_no_program():

@@ -1,13 +1,17 @@
 """The work of each kernel the cells drive, counted from the cell's shapes
-alone, and the H100's peaks: the yardstick of the roofline shares.
+alone, and the H100's peaks: the yardstick of the roofline shares. A
+family (bench/families/) says which of these one batch of its cell
+drives, at which shapes.
 
 The formulas are fixed here, whatever implements the work:
 
-  shortlist  b queries over n rows of d dimensions, top k: the one-hot
-             LUT product, 2 b n 4d operations at the int8 tensor-core
-             rate; bytes: each row's 4d LUT entries packed at 8 bits (4d
-             bytes), one mask byte a row, the query words (4 bytes each)
-             and the (b, k) output of 12 bytes an entry
+  shortlist  b queries, each ranking `visit` rows of d dimensions (every
+             row, or the rows of the shards it visits), top k: the
+             one-hot LUT product, 2 b visit 4d operations at the int8
+             tensor-core rate; bytes: each of the n distinct rows read,
+             its 4d LUT entries packed at 8 bits (4d bytes) and one mask
+             byte, the query words (4 bytes each) and the (b, k) output
+             of 12 bytes an entry
   rescore    b queries x k candidates of s strings of sl cells:
              PHYSICS_OPS_PER_CELL a cell at the float32 rate; bytes: each
              candidate's cells (one byte each), the query's cells, the
@@ -43,9 +47,11 @@ def _bound(ops: float, nbytes: float, rate: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def shortlist(b: int, n: int, d: int, k: int) -> dict:
+def shortlist(b: int, n: int, d: int, k: int, visit: int | None = None
+              ) -> dict:
+    visit = n if visit is None else visit
     nbytes = n * 4 * d + n + b * d * 4 + b * k * 12
-    return _bound(2 * b * n * 4 * d, nbytes, INT8_TENSOR_OPS_PER_S)
+    return _bound(2 * b * visit * 4 * d, nbytes, INT8_TENSOR_OPS_PER_S)
 
 
 def rescore(b: int, k: int, s: int, sl: int) -> dict:
@@ -69,13 +75,3 @@ def strings(config: dict) -> int:
         words = (4 ** config["cl"] - 1) // 3
     return math.ceil(config["dim"] / sl) * words
 
-
-def cell_work(config: dict, traffic: dict) -> dict[str, dict]:
-    """The bounds of the kernels one batch of the cell drives."""
-    b, n, d = traffic["batch"], config["capacity"], config["dim"]
-    s, sl = strings(config), config["mcam"]["string_len"]
-    if traffic["mode"] == "full":
-        return {"dense": dense(b, n, s, sl)}
-    k = traffic["k"]
-    return {"shortlist": shortlist(b, n, d, k),
-            "rescore": rescore(b, k, s, sl)}
