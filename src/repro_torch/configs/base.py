@@ -35,6 +35,45 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GroupRouterConfig(MoEConfig):
+    """Port-only: DeepSeek-V3's published router (its config.json's
+    `topk_method: noaux_tc`), which no registered arch uses. Sigmoid
+    scores; a per-expert bias added for choosing only; `n_group` groups
+    ranked by the sum of their top-2 biased scores, `topk_group` kept; the
+    top_k experts of those groups; the gate weights the chosen experts'
+    raw scores, normalised (`norm_topk_prob`) and times
+    `routed_scaling_factor`. Dropless: `capacity_factor` is unused. The
+    layer holds the routed experts [first_expert, first_expert +
+    experts_held) of `n_routed` (0: all) and computes their part alone,
+    as one chip of an expert-parallel deployment does."""
+    n_group: int = 8
+    topk_group: int = 4
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 2.5
+    experts_held: int = 0
+    first_expert: int = 0
+
+    @property
+    def held(self) -> int:
+        return self.experts_held or self.n_routed
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnMLAConfig(MLAConfig):
+    """Port-only: MLA with DeepSeek-V3's YaRN `rope_scaling` (no registered
+    arch uses it): the rope dims' frequencies interpolated by `factor`
+    between the correction dims of `beta_fast` and `beta_slow` rotations
+    over `original_max_positions`, and the softmax scale times mscale**2,
+    mscale = 0.1 mscale_all_dim ln(factor) + 1."""
+    rope_factor: float = 40.0
+    original_max_positions: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     d_state: int = 16
     d_conv: int = 4

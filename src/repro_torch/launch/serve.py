@@ -207,7 +207,8 @@ def serve(arch: str, smoke: bool, batch: int, steps: int, prompt_len: int,
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = tfm.init(gen, cfg)
     caches = tfm.init_cache(cfg, batch, prompt_len + steps, dev)
-    step_fn = steps_lib.make_serve_step(cfg)
+    # the loop hands its caches over each step: rows are written in place
+    step_fn = steps_lib.make_serve_step(cfg, inplace=True)
 
     store = None
     if retrieval:
@@ -225,7 +226,7 @@ def serve(arch: str, smoke: bool, batch: int, steps: int, prompt_len: int,
         mode = "ideal" if retrieval_mode == "ideal" else "two_phase"
         step_fn = steps_lib.make_serve_step_with_mcam(
             cfg, mem_cfg, engine=engine, k=retrieval_k, mode=mode,
-            nprobe=retrieval_nprobe)
+            nprobe=retrieval_nprobe, inplace=True)
 
     def step(tok, caches, pos):
         args = (params, caches, {"tokens": tok}, pos)

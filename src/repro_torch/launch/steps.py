@@ -45,8 +45,9 @@ from repro_torch.core import hat as hat_lib
 from repro_torch.engine.api import SearchRequest
 from repro_torch.engine.store import resolve_device
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels._build import profiler_range
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import div, one_hot
+from repro_torch.models.layers import div
 from repro_torch.models.sharding import (NamedSharding, P, Placed, Rules,
                                          gathered, legalize_spec,
                                          rules_for_mesh)
@@ -537,9 +538,13 @@ def make_prefill_step(cfg, *, rules: Rules | None = None):
     return prefill_step
 
 
-def make_serve_step(cfg, *, rules: Rules | None = None):
+def make_serve_step(cfg, *, rules: Rules | None = None,
+                    inplace: bool = False):
+    """serve_step(params, caches, batch, pos) -> (logits, caches);
+    inplace: the step takes the caches over (`transformer.decode_step`)."""
     def serve_step(params, caches, batch, pos):
-        return tfm.decode_step(params, cfg, batch, caches, pos, rules=rules)
+        return tfm.decode_step(params, cfg, batch, caches, pos, rules=rules,
+                               inplace=inplace)
     return serve_step
 
 
@@ -553,26 +558,29 @@ def knn_lm_head(logits: torch.Tensor, hidden: torch.Tensor, store, dim: int,
     ideal LUT distance to every store row; else `engine.search(store, q,
     request)` and a softmax of votes / 10 over the k candidates, invalid
     ones filled with -1e30 and masked after (an all-invalid row adds
-    nothing)."""
-    q = hidden[:, 0][:, :dim]                                  # (B, dim)
-    if engine is None:
-        q1h = kernel_ops.query_onehot(store.quantize_queries(q),
-                                      torch.float32)
-        dist = q1h @ store.proj.float().T                      # (B, N)
-        w = torch.softmax(div(-dist, 10.0), dim=-1)
-        onehot = one_hot(store.labels, vocab_size, w.dtype)
-        p_mem = w @ onehot                                     # (B, V)
-    else:
-        res = engine.search(store, q, request)
-        valid = res.labels >= 0                                # (B, k)
-        w = torch.softmax(torch.where(valid, div(res.votes, 10.0), -1e30),
-                          dim=-1)
-        w = w * valid
-        labels = torch.where(valid, res.labels, 0)
-        onehot = one_hot(labels, vocab_size, w.dtype)
-        p_mem = torch.einsum("bk,bkv->bv", w, onehot)          # (B, V)
-    p_lm = torch.softmax(logits[:, 0], dim=-1)
-    mixed = torch.log((1 - lam) * p_lm + lam * p_mem + 1e-20)
+    nothing). p_mem is each candidate's weight added into its label's
+    entry of a (B, V) row (a scatter-add: no (B, k, V) one-hot is made).
+    Inside the profiler range `lm.knn_head`."""
+    with profiler_range("lm.knn_head"):
+        q = hidden[:, 0][:, :dim]                              # (B, dim)
+        if engine is None:
+            q1h = kernel_ops.query_onehot(store.quantize_queries(q),
+                                          torch.float32)
+            dist = q1h @ store.proj.float().T                  # (B, N)
+            w = torch.softmax(div(-dist, 10.0), dim=-1)
+            labels = store.labels.expand(w.shape)
+            valid = labels >= 0
+        else:
+            res = engine.search(store, q, request)
+            valid = res.labels >= 0                            # (B, k)
+            w = torch.softmax(torch.where(valid, div(res.votes, 10.0),
+                                          -1e30), dim=-1)
+            labels = res.labels
+        p_mem = torch.zeros(w.shape[0], vocab_size, dtype=w.dtype,
+                            device=w.device).scatter_add_(
+            1, torch.where(valid, labels, 0).to(torch.int64), w * valid)
+        p_lm = torch.softmax(logits[:, 0], dim=-1)
+        mixed = torch.log((1 - lam) * p_lm + lam * p_mem + 1e-20)
     return mixed[:, None]
 
 
@@ -580,7 +588,9 @@ def make_serve_step_with_mcam(cfg, mem_cfg, lam: float = 0.3,
                               engine=None, k: int = 32,
                               mode: str = "two_phase",
                               nprobe: int | None = None, *,
-                              rules: Rules | None = None):
+                              rules: Rules | None = None,
+                              inplace: bool = False,
+                              taps: list | None = None):
     """Paper-integrated serving: the decoded hidden state queries the MCAM
     store, and the vote distribution over the store's labels (token ids)
     mixes with the LM softmax (`knn_lm_head`): a kNN-LM head served from
@@ -593,14 +603,20 @@ def make_serve_step_with_mcam(cfg, mem_cfg, lam: float = 0.3,
     partitioned store (`MemoryStore.shard`). `mem_cfg.dim` is the query
     width.
 
+    inplace: the step takes the caches over and writes its rows into them
+    (`transformer.decode_step`); taps: a list each step's decode fills
+    with one dict a layer (cleared first).
+
     Returns serve_step(params, caches, batch, pos, store) -> (mixed
     (B, 1, V) float32 log-probabilities, caches)."""
     request = SearchRequest(mode=mode, k=k, nprobe=nprobe)
 
     def serve_step(params, caches, batch, pos, store):
+        if taps is not None:
+            taps.clear()
         logits, caches, hidden = tfm.decode_step(
             params, cfg, batch, caches, pos, return_hidden=True,
-            rules=rules)
+            rules=rules, inplace=inplace, taps=taps)
         return knn_lm_head(logits, hidden, store, mem_cfg.dim,
                            cfg.vocab_size, lam, engine, request), caches
 

@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as tree_lib
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig, YarnMLAConfig
 from repro_torch.models.sharding import ParamSpec, aconstrain
 
 INT32_MAX = 2**31 - 1
@@ -217,6 +217,56 @@ def rope_sincos(pos: torch.Tensor, dim: int, theta: float
     return torch.sin(ang), torch.cos(ang)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: 0.1 mscale ln(factor) + 1 (1 where
+    factor <= 1)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def yarn_freqs(dim: int, theta: float, m: YarnMLAConfig,
+               device=None) -> torch.Tensor:
+    """DeepSeek-V3's YaRN frequencies of `dim` rope dims, float32 (folded
+    in float64 and rounded once, as `rope_freqs`): the original 1 /
+    theta ** (2i / dim) below the correction dim of `beta_fast`
+    rotations over the original positions, divided by `rope_factor`
+    above that of `beta_slow`, a linear ramp between."""
+    def corr(rot: float) -> float:
+        return (dim * math.log(m.original_max_positions
+                               / (rot * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(corr(m.beta_fast)), 0)
+    high = min(math.ceil(corr(m.beta_slow)), dim - 1)
+    exps = np.arange(0, dim, 2, dtype=np.float32) / np.float32(dim)
+    extra = 1.0 / np.power(np.float64(theta), exps.astype(np.float64))
+    inter = extra / m.rope_factor
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low)
+                   / max(high - low, 0.001), 0.0, 1.0)
+    freqs = inter * ramp + extra * (1.0 - ramp)
+    return torch.from_numpy(freqs.astype(np.float32)).to(device)
+
+
+def mla_rope(m: MLAConfig, pos: torch.Tensor, theta: float
+             ) -> tuple[torch.Tensor, torch.Tensor, float]:
+    """MLA's rope at positions `pos` (S,) -> (sin, cos (S, rope/2)
+    float32, softmax scale): plain rope and 1 / sqrt(nope + rope), or
+    with YaRN its frequencies, sin and cos times mscale / mscale_all_dim's
+    temperatures, and the scale times the latter's square."""
+    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    if not isinstance(m, YarnMLAConfig):
+        return (*rope_sincos(pos, m.qk_rope_dim, theta), scale)
+    ang = pos[..., None].float() * yarn_freqs(m.qk_rope_dim, theta, m,
+                                              pos.device)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    ratio = (yarn_mscale(m.rope_factor, m.mscale)
+             / yarn_mscale(m.rope_factor, m.mscale_all_dim))
+    if ratio != 1.0:
+        sin, cos = sin * ratio, cos * ratio
+    if m.mscale_all_dim:
+        scale *= yarn_mscale(m.rope_factor, m.mscale_all_dim) ** 2
+    return sin, cos, scale
+
+
 def mrope_sincos(pos3: torch.Tensor, dim: int, theta: float,
                  sections: tuple) -> tuple[torch.Tensor, torch.Tensor]:
     """pos3 (..., S, 3) -> sin / cos (..., S, dim/2), float32, the dim/2
@@ -271,18 +321,21 @@ def _attn_scores_mask(qpos: torch.Tensor, kpos: torch.Tensor,
 def dot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   qpos: torch.Tensor, kpos: torch.Tensor, window: int = 0,
                   chunk: int = 0, kv_valid: torch.Tensor | None = None,
-                  softcap: float = 0.0) -> torch.Tensor:
+                  softcap: float = 0.0, scale: float | None = None
+                  ) -> torch.Tensor:
     """Grouped-query attention with absolute-position causal / window
     masking. q (B, S, H, D); k, v (B, T, KV, D); qpos (S,), kpos (T,)
     absolute positions; kv_valid optional (B, T) bool. Returns
     (B, S, H, DV), DV the values' width (MLA's differs from D). With
     0 < chunk < T, an online softmax over kv chunks of `chunk` positions
-    (T a multiple of it); softcap > 0 caps the scores (`tanh_cap`)."""
+    (T a multiple of it); softcap > 0 caps the scores (`tanh_cap`).
+    scale: the queries' factor (None: 1 / sqrt(D))."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     DV = v.shape[-1]
     G = H // KV
-    qg = q.reshape(B, S, KV, G, D) * scalar(q, 1.0 / math.sqrt(D))
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qg = q.reshape(B, S, KV, G, D) * scalar(q, scale)
 
     def scores_of(kc, kposc, validc):
         s = torch.einsum("bskgd,btkd->bkgst", qg, kc).float()
@@ -375,9 +428,10 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
                pos0: int = 0, positions3: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, dict]:
     """x (B, S, D). cache None (train / prefill) or {k, v, kpos} for
-    decode, written functionally: the returned cache is new tensors and
-    the given one is left as it was. positions3 (B, S, 3): M-RoPE's
-    position streams. Returns (y, new_cache)."""
+    decode: this step's rows are written into the given cache, which is
+    returned (`transformer.decode_step` keeps the caller's caches as they
+    were). positions3 (B, S, 3): M-RoPE's position streams. Returns (y,
+    new_cache)."""
     B, S, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -403,9 +457,8 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         T = cache["k"].shape[1]
         slot = (pos0 % T) if layer_window else min(pos0, T - 1)
         rows = _cache_rows(T, slot, S, x.device)
-        ck = cache["k"].index_copy(1, rows, k.to(cache["k"].dtype))
-        cv = cache["v"].index_copy(1, rows, v.to(cache["v"].dtype))
-        kp = cache["kpos"].index_copy(0, rows, qpos)
+        ck, cv, kp = _cache_write(cache, ("k", "v", "kpos"), rows,
+                                  (k, v, qpos))
         valid = kp <= pos0
         if layer_window:
             valid &= kp > pos0 - layer_window
@@ -417,6 +470,15 @@ def attn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = torch.einsum("bshk,hkd->bsd", y, p["wo"])
     y = aconstrain(y, "batch", None, None)
     return y, new_cache
+
+
+def _cache_write(cache: dict, names: tuple, rows: torch.Tensor,
+                 new: tuple) -> list:
+    """Each cache leaf `names[i]` with `new[i]` written in place at `rows`
+    of its sequence axis (1, or 0 for the positions)."""
+    return [cache[name].index_copy_(0 if cache[name].ndim == 1 else 1, rows,
+                                    value.to(cache[name].dtype))
+            for name, value in zip(names, new)]
 
 
 def attn_cache_init(cfg: ModelConfig, batch: int, max_seq: int,
@@ -473,7 +535,9 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     and value width v_dim; the cache keeps the latents {ckv, krope,
     kpos}. Decode: the absorbed form, queries projected into the latent
     space and scored against the cached latents directly (no per-head
-    keys or values are made). Returns (y, new_cache)."""
+    keys or values are made); the step's rows written into the given
+    cache as `attn_apply` writes them. A `YarnMLAConfig` takes YaRN's
+    rope and softmax scale (`mla_rope`). Returns (y, new_cache)."""
     m: MLAConfig = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -485,10 +549,9 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     c_kv = _rms(kv_a[..., :m.kv_lora_rank], p["kv_norm"])
     k_rope = kv_a[..., m.kv_lora_rank:]                      # (B,S,rope)
     qpos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
-    sin, cos = rope_sincos(qpos, m.qk_rope_dim, cfg.rope_theta)
+    sin, cos, scale = mla_rope(m, qpos, cfg.rope_theta)
     q_rope = apply_rope(q_rope, sin, cos)
     k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0]
-    scale = 1.0 / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
 
     if cache is None:
         kv = aconstrain(torch.einsum("bsr,rhn->bshn", c_kv, p["wkv_b"]),
@@ -498,22 +561,20 @@ def mla_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             B, S, H, m.qk_rope_dim)], -1)
         qf = torch.cat([q_nope, q_rope], -1)
         y = dot_attention(qf, k, v, qpos=qpos, kpos=qpos,
-                          chunk=cfg.attn_chunk)
+                          chunk=cfg.attn_chunk, scale=scale)
         new_cache = {"ckv": c_kv, "krope": k_rope, "kpos": qpos}
     else:
         rows = _cache_rows(cache["ckv"].shape[1],
                            min(pos0, cache["ckv"].shape[1] - 1), S,
                            x.device)
-        ckv = cache["ckv"].index_copy(1, rows, c_kv.to(cache["ckv"].dtype))
-        krp = cache["krope"].index_copy(1, rows,
-                                        k_rope.to(cache["krope"].dtype))
-        kp = cache["kpos"].index_copy(0, rows, qpos)
+        ckv, krp, kp = _cache_write(cache, ("ckv", "krope", "kpos"), rows,
+                                    (c_kv, k_rope, qpos))
         w_uk = p["wkv_b"][..., :m.qk_nope_dim]               # (r, h, nope)
         q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_uk)
         s = (torch.einsum("bshr,btr->bhst", q_abs, ckv)
              + torch.einsum("bshk,btk->bhst", q_rope, krp)).float()
-        s = s * scale
-        s = torch.where((kp <= pos0)[None, None, None, :], s, -1e30)
+        # in place: the (B, H, S, T) float32 scores exist once
+        s.mul_(scale).masked_fill_((kp > pos0)[None, None, None, :], -1e30)
         prob = torch.softmax(s, -1).to(x.dtype)
         o_lat = torch.einsum("bhst,btr->bshr", prob, ckv)
         w_uv = p["wkv_b"][..., m.qk_nope_dim:]               # (r, h, v)

@@ -15,27 +15,64 @@ router z-loss.
 The router's `torch.topk` stands for `jax.lax.top_k`, which breaks ties
 by the lower index; torch does not promise an order among ties, but the
 router's float probabilities make a tie an event of measure zero.
+
+A config whose `moe` is a `GroupRouterConfig` (port-only: DeepSeek-V3's
+published router, `configs/deepseek_v3_671b.get_published_config`) takes
+`_held_apply` instead: V3's group-limited sigmoid router over all
+`n_routed` experts in float32 (`route_groups`), and no drops. The layer
+holds the routed experts [first_expert, first_expert + experts_held)
+(the leaves `we1`..`we3` have `experts_held` rows) and adds their part
+of the result and the shared expert's; what the absent experts give is
+left out, as on one chip of an expert-parallel deployment without its
+exchange. Its dispatch is a per-expert bound that drops nothing: an
+expert takes a token at most once, so its bound is every token, and
+each held expert runs one product over the whole batch, weighted by its
+gate (zero where the token chose another expert). Nothing waits for the
+card: no count or offset is read on the host, and every shape is known
+before the router runs. The price is operations: the products cost
+n_routed / top_k (32 for V3) times the routed pairs'. An expert's
+products are 2 * 3 * d_model * d_ff operations a token against its
+3 * d_model * d_ff weights of 2 bytes, so a held expert over the whole
+batch is bound by its operations once the batch passes the card's
+operations-to-bytes ratio (about 295 tokens on an H100: 989.4 TFLOP/s
+bfloat16 over 3.35 TB/s); at V3's widths and 512 tokens the 8 held
+experts and the shared one are 406 GFLOP a layer (0.41 ms) against
+0.24 ms to read their weights. Its aux losses are zero (V3 balances its
+experts through the choice bias); aux["experts"] is the router's choice.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import GroupRouterConfig, ModelConfig, MoEConfig
+from repro_torch.kernels._build import profiler_range
 from repro_torch.models.layers import dense_init, div, one_hot
 from repro_torch.models.sharding import Rules, constrain
+
+
+#: spread of the seeded choice bias (`e_score_correction_bias`), which a
+#: trained model learns; random weights draw it so that it moves choices
+BIAS_STD = 0.05
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig,
              dtype: torch.dtype) -> dict:
     m: MoEConfig = cfg.moe
+    grouped = isinstance(m, GroupRouterConfig)
+    rows = m.held if grouped else m.n_routed
     p = {
         "router": dense_init(gen, (cfg.d_model, m.n_routed), torch.float32),
-        "we1": dense_init(gen, (m.n_routed, cfg.d_model, m.d_ff), dtype),
-        "we2": dense_init(gen, (m.n_routed, m.d_ff, cfg.d_model), dtype),
-        "we3": dense_init(gen, (m.n_routed, cfg.d_model, m.d_ff), dtype),
+        "we1": dense_init(gen, (rows, cfg.d_model, m.d_ff), dtype),
+        "we2": dense_init(gen, (rows, m.d_ff, cfg.d_model), dtype),
+        "we3": dense_init(gen, (rows, cfg.d_model, m.d_ff), dtype),
     }
+    if grouped:
+        p["bias"] = torch.randn(m.n_routed, generator=gen,
+                                device=gen.device) * BIAS_STD
     if m.n_shared:
         dsh = m.n_shared * m.d_ff
         p["shared"] = {
@@ -57,6 +94,8 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     names the layouts of the token groups and the expert queues
     (`sharding.constrain`; no value changes)."""
     m: MoEConfig = cfg.moe
+    if isinstance(m, GroupRouterConfig):
+        return _held_apply(p, x, m)
     rules = rules or Rules(batch=(), fsdp=(), tensor=(), expert=())
     B, S, D = x.shape
     T = B * S
@@ -104,6 +143,54 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig,
     z_loss = (torch.logsumexp(logits, dim=-1) ** 2).mean()
     return y.reshape(B, S, D), {"load_balance": load_balance(probs, sel, m),
                                 "z_loss": z_loss}
+
+
+def route_groups(logits: torch.Tensor, bias: torch.Tensor,
+                 m: GroupRouterConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router on float32 logits (T, E) -> (gate weights
+    (T, top_k) float32, expert ids (T, top_k)): sigmoid scores; the bias
+    added for choosing; groups ranked by the sum of their 2 best biased
+    scores, `topk_group` kept, the others' experts out; the top_k of
+    the rest; the weights the chosen raw scores, normalised and scaled."""
+    scores = torch.sigmoid(logits)
+    T, E = scores.shape
+    grouped = (scores + bias).view(T, m.n_group, E // m.n_group)
+    group_score = grouped.topk(2, dim=-1).values.sum(-1)       # (T, G)
+    kept = group_score.topk(m.topk_group, dim=-1).indices
+    out = torch.ones_like(group_score, dtype=torch.bool).scatter_(1, kept,
+                                                                  False)
+    choice = grouped.masked_fill(out[..., None], -math.inf).reshape(T, E)
+    eidx = choice.topk(m.top_k, dim=-1).indices
+    gate = scores.gather(1, eidx)
+    if m.norm_topk_prob:
+        gate = gate / gate.sum(-1, keepdim=True)
+    return gate * m.routed_scaling_factor, eidx
+
+
+def _held_apply(p: dict, x: torch.Tensor,
+                m: GroupRouterConfig) -> tuple[torch.Tensor, dict]:
+    """The published router's layer on this chip's share of the experts
+    (module docstring) -> (y, aux); aux["experts"] is the router's
+    choice (T, top_k)."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    with profiler_range("lm.router"):
+        gate, eidx = route_groups(xt.float() @ p["router"], p["bias"], m)
+    with profiler_range("lm.experts"):
+        rel = eidx - m.first_expert
+        mine = (rel >= 0) & (rel < m.held)                     # (T, k)
+        rel = torch.where(mine, rel, 0)
+        w = torch.zeros(xt.shape[0], m.held, dtype=torch.float32,
+                        device=x.device).scatter_add_(1, rel, gate * mine)
+        xe = xt.expand(m.held, *xt.shape)                      # (e, T, D)
+        h = F.silu(torch.bmm(xe, p["we1"])) * torch.bmm(xe, p["we3"])
+        ye = torch.bmm(h, p["we2"])                             # (e, T, D)
+        y = torch.einsum("etd,te->td", ye.float(), w).to(x.dtype)
+        sh = p["shared"]
+        y = y + (F.silu(xt @ sh["w1"]) * (xt @ sh["w3"])) @ sh["w2"]
+    zero = torch.zeros((), device=x.device)
+    return y.reshape(B, S, D), {"load_balance": zero, "z_loss": zero,
+                                "experts": eidx}
 
 
 def load_balance(probs: torch.Tensor, sel: torch.Tensor,

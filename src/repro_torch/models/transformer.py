@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_lib
 from repro_torch.configs.base import ModelConfig
 from repro_torch.engine.store import resolve_device
+from repro_torch.kernels._build import profiler_range
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -196,11 +197,17 @@ def _decode_stream(x: torch.Tensor, decode: bool) -> torch.Tensor:
 def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
                  is_moe: bool, rules: Rules, *, cache: dict | None = None,
                  pos0: int = 0, positions3: torch.Tensor | None = None,
-                 decode: bool = False) -> tuple[torch.Tensor, dict, dict]:
+                 decode: bool = False, taps: list | None = None
+                 ) -> tuple[torch.Tensor, dict, dict]:
     """One layer -> (x, new_cache, aux). decode: the recurrent layers take
-    their one-step form (the attention layers read it from the cache)."""
+    their one-step form (the attention layers write their rows into
+    `cache` and read it). taps: a list that gets the layer's {"x": input,
+    "attn": the attention's output, "ffn_in": the FFN's normed input,
+    "ffn": its output[, "experts": the published router's choice]}
+    (`decode_step`)."""
     aux = {"load_balance": torch.zeros((), device=x.device),
            "z_loss": torch.zeros((), device=x.device)}
+    tap = {"x": x}
     h = L.apply_norm(p["norm1"], x, cfg)
     if ltype in ("attn", "swa", "hymba", "hymba_g"):
         window = cfg.window if ltype in ("swa", "hymba") else 0
@@ -220,7 +227,9 @@ def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
             y = 0.5 * (y + ym)
             new_cache = {"attn": new_cache, "ssm": scache}
     elif ltype == "mla":
-        y, new_cache = L.mla_apply(p["attn"], h, cfg, cache=cache, pos0=pos0)
+        with profiler_range("lm.mla"):
+            y, new_cache = L.mla_apply(p["attn"], h, cfg, cache=cache,
+                                       pos0=pos0)
     elif ltype == "mlstm":
         fn = ssm_lib.mlstm_apply_step if decode else ssm_lib.mlstm_apply_seq
         y, new_cache = fn(p["cell"], h, cfg, cache)
@@ -234,21 +243,32 @@ def _layer_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, ltype: str,
         f = _barrier(_ffn(p, h, cfg, is_moe, rules, aux))
         return _decode_stream(x + _barrier(y) + f, decode), new_cache, aux
     x = x + _barrier(y)
+    tap["attn"] = y
     if "norm2" in p and (is_moe or cfg.d_ff > 0):
         h2 = L.apply_norm(p["norm2"], x, cfg)
-        x = x + _barrier(_ffn(p, h2, cfg, is_moe, rules, aux))
+        f = _ffn(p, h2, cfg, is_moe, rules, aux)
+        tap.update(ffn_in=h2, ffn=f)
+        if "experts" in aux:
+            tap["experts"] = aux["experts"]
+        x = x + _barrier(f)
+    if taps is not None:
+        taps.append(tap)
     return _decode_stream(x, decode), new_cache, aux
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, is_moe: bool,
          rules: Rules, aux: dict) -> torch.Tensor:
     if is_moe:
-        y, a = moe_lib.moe_apply(p["moe"], h, cfg, rules)
+        with profiler_range("lm.moe"):
+            y, a = moe_lib.moe_apply(p["moe"], h, cfg, rules)
         aux["load_balance"] = aux["load_balance"] + a["load_balance"]
         aux["z_loss"] = aux["z_loss"] + a["z_loss"]
+        if "experts" in a:
+            aux["experts"] = a["experts"]
         return y
     if cfg.d_ff > 0:
-        return L.mlp_apply(p["mlp"], h, cfg)
+        with profiler_range("lm.mlp"):
+            return L.mlp_apply(p["mlp"], h, cfg)
     return torch.zeros_like(h)
 
 
@@ -264,13 +284,17 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
                ltype: str, is_moe: bool, rules: Rules, *,
                caches: dict | None = None, pos0: int = 0,
                positions3: torch.Tensor | None = None,
-               decode: bool = False, collect_cache: bool = False):
+               decode: bool = False, collect_cache: bool = False,
+               taps: list | None = None):
     """The group's stacked layers in order -> (x, stacked new caches or
     None, load_balance, z_loss). With cfg.remat, gradients enabled and no
     decode, each layer's body is checkpointed (recomputed in backward).
     A layer's Placed leaves are assembled inside its body, so under remat
     the assembled weights are freed after the forward and assembled again
-    in backward."""
+    in backward. Given `caches` (decode), each layer's new cache is
+    written into its slice of them (the attention layers write their rows
+    there directly; a leaf made anew, such as a recurrent state, is
+    copied in), and they are returned."""
     gcfg = _group_cfg(cfg, is_moe)
     layers = _unstacked(params_g)
     layer_caches = (_unstacked(caches) if caches is not None
@@ -282,7 +306,7 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
     def body(p, x, c):
         return _layer_apply(gathered(p), x, gcfg, ltype, is_moe, rules,
                             cache=c, pos0=pos0, positions3=positions3,
-                            decode=decode)
+                            decode=decode, taps=taps)
     for p, c in zip(layers, layer_caches):
         if remat:
             # the body draws no random numbers: no RNG state to stash
@@ -291,8 +315,12 @@ def _run_group(params_g: dict, x: torch.Tensor, cfg: ModelConfig,
         else:
             x, nc, aux = body(p, x, c)
         lb, zl = lb + aux["load_balance"], zl + aux["z_loss"]
-        if collect_cache:
+        if caches is not None:
+            tree_lib.tree_map(lambda old, n: n is old or old.copy_(n), c, nc)
+        elif collect_cache:
             new.append(nc)
+    if caches is not None:
+        return x, caches, lb, zl
     stacked = (tree_lib.tree_map(lambda *a: torch.stack(a), *new)
                if collect_cache else None)
     return x, stacked, lb, zl
@@ -433,29 +461,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, caches: list,
                 pos: int, return_hidden: bool = False, *,
-                rules: Rules | None = None):
+                rules: Rules | None = None, inplace: bool = False,
+                taps: list | None = None):
     """One token for every sequence. batch: tokens (B, 1) | embeddings
     (B, 1, D) [+ positions3 (B, 1, 3)]; pos: the current position (an
     int). Returns (logits (B, 1, V), new caches[, hidden (B, 1, D)]):
     `hidden` is the residual stream before the final norm, in the compute
-    dtype. The given caches are left as they were."""
-    rules = rules or _NO_RULES
-    params = _top_level(params)
-    x = _embed_in(params, cfg, batch, rules, pos0=pos)
-    x = _decode_stream(x, True)
-    positions3 = batch.get("positions3")
-    new_caches = []
-    for params_g, caches_g, (ltype, is_moe, _) in zip(
-            params["groups"], caches, cfg.layer_groups()):
-        x, nc, _, _ = _run_group(params_g, x, cfg, ltype, is_moe, rules,
-                                 caches=caches_g, pos0=pos,
-                                 positions3=positions3, decode=True,
-                                 collect_cache=True)
-        new_caches.append(nc)
-    logits = _logits_out(params, cfg, x, rules)
+    dtype.
+
+    Each layer writes its new latent / key / value rows into its slice of
+    the group's stacked cache, and the caches written are returned. By
+    default the given caches are left as they were: they are cloned once
+    first. With `inplace` (the serve path, `launch/serve.py` and
+    `steps.make_serve_step_with_mcam(..., inplace=True)`) the caller hands
+    its caches over: the given tensors are written and returned, no cache
+    row is copied, and the caller keeps no copy of the state before the
+    step. The values are the same either way. taps: a list that gets one
+    dict a layer (`_layer_apply`) and then {"x": the head's input}, for
+    checking the program layer by layer.
+
+    Profiler ranges: `lm.decode` (the whole step), `lm.mla`, `lm.mlp`,
+    `lm.moe` (inside it `lm.router`, `lm.experts` on the published
+    router), `lm.logits`."""
+    with profiler_range("lm.decode"):
+        rules = rules or _NO_RULES
+        params = _top_level(params)
+        x = _embed_in(params, cfg, batch, rules, pos0=pos)
+        x = _decode_stream(x, True)
+        positions3 = batch.get("positions3")
+        if not inplace:
+            caches = tree_lib.tree_map(torch.clone, caches)
+        for params_g, caches_g, (ltype, is_moe, _) in zip(
+                params["groups"], caches, cfg.layer_groups()):
+            x, _, _, _ = _run_group(params_g, x, cfg, ltype, is_moe, rules,
+                                    caches=caches_g, pos0=pos,
+                                    positions3=positions3, decode=True,
+                                    taps=taps)
+        if taps is not None:
+            taps.append({"x": x})
+        with profiler_range("lm.logits"):
+            logits = _logits_out(params, cfg, x, rules)
     if return_hidden:
-        return logits, new_caches, x
-    return logits, new_caches
+        return logits, caches, x
+    return logits, caches
 
 
 # --------------------------------------------------------------------------

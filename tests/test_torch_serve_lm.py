@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import load_config as j_load_config
 from repro.core.avss import SearchConfig as JSearchConfig
@@ -176,6 +177,42 @@ def test_head_mixture_matches_reference(mode, nprobe):
         worst = max(worst, float(np.abs(got.numpy() - np.asarray(want))
                                  .max()))
     assert worst <= MIXED_ATOL, worst
+
+
+class _LargestOutput(TorchDispatchMode):
+    """The most elements of any tensor an operator returns."""
+
+    def __init__(self):
+        super().__init__()
+        self.most = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in torch.utils._pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.most = max(self.most, t.numel())
+        return out
+
+
+@pytest.mark.parametrize("mode", ["dense", "two_phase"])
+def test_head_makes_no_one_hot_at_the_full_vocabulary(mode):
+    """At DeepSeek-V3's vocabulary of 129,280 the head adds each
+    candidate's weight into its label's entry: no operator returns more
+    than the (B, V) mixture's elements (a (B, k, V) one-hot would be K
+    times that)."""
+    _, tc, _, _, tmem, stores, trace = _setup()
+    _, ts = stores[None]
+    vocab = 129280
+    _, _, _, _, hidden = trace[-1]
+    logits = torch.randn(BATCH, 1, vocab)
+    eng = None if mode == "dense" else RetrievalEngine(tmem.search)
+    req = None if mode == "dense" else SearchRequest(mode=mode, k=K)
+    with _LargestOutput() as seen:
+        got = steps_lib.knn_lm_head(logits, _t(hidden), ts, DIM, vocab,
+                                    LAM, eng, req)
+    assert got.shape == (BATCH, 1, vocab)
+    assert seen.most <= max(BATCH * vocab, BATCH * ts.labels.shape[0])
+    assert BATCH * K * vocab > 4 * seen.most
 
 
 def test_serve_step_with_mcam_runs_the_head_on_the_decode():
